@@ -1,0 +1,60 @@
+"""Flow computation orchestration (counterpart of octane_tpu.flow.dispatcher;
+oct_optical_flow.cc:21-111): first guess, the variational engine, the CTP
+product and pixel -> wind navigation.
+
+Ported: the single-device variational branch.  Patch-match, hybrid,
+first-guess winds and SRSAL smoothing raise NotImplementedError (device
+meshes are refused by the CLI).  The JAX package's post-hoc warp-reach audit has no
+counterpart: the CUDA warp has no window, so its reach is unbounded.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.flow.variational import variational_flow
+from octane_tpu_torch.io.datamodel import Scene
+from octane_tpu_torch.nav.winds import pix2uv
+
+
+def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
+                 first_guess=None) -> Scene:
+    """Fill scene1's flow products from the (scene1, scene2) pair; returns
+    scene1.  ``first_guess`` optionally gives (u0, v0) pixel displacements."""
+    if cfg.algorithm != "variational":
+        raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet")
+    if cfg.do_srsal:
+        raise NotImplementedError("SRSAL smoothing is not ported yet")
+    h, w = scene1.shape
+    dev = scene1.data.device
+    nav = scene1.nav
+    dt = scene2.t - scene1.t
+
+    # --- first guess (ref :37-53) -------------------------------------------
+    if first_guess is not None:
+        u0 = torch.as_tensor(first_guess[0], dtype=torch.float32, device=dev)
+        v0 = torch.as_tensor(first_guess[1], dtype=torch.float32, device=dev)
+    elif cfg.do_firstguess and scene1.ufg is not None:
+        raise NotImplementedError("first-guess winds (uv2pix) are not ported yet")
+    else:
+        u0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        v0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+
+    u, v = variational_flow(scene1.data, scene2.data, u0, v0, cfg)
+    scene1.u_pix = u
+    scene1.v_pix = v
+
+    # --- CTP product (ref :71-88) -------------------------------------------
+    if cfg.do_cth and scene1.cth is not None:
+        cthv = scene1.cth
+        scene1.ctp = ((cthv - 300.0) * 100.0 if cfg.ir else cthv).to(torch.int16)
+
+    # --- navigate to winds (ref :91) ----------------------------------------
+    nav.g2x_offset = scene2.nav.x_offset if cfg.grid == "goes" else nav.x_offset
+    nav.g2y_offset = scene2.nav.y_offset if cfg.grid == "goes" else nav.y_offset
+    uw, vw, ur, vr = pix2uv(u, v, nav, dt, grid=cfg.grid, pixuv=cfg.pixuv)
+    scene1.u_wind, scene1.v_wind = uw, vw
+    scene1.u_raw, scene1.v_raw = ur, vr
+    scene1.dt = float(dt)
+    return scene1

@@ -1,0 +1,9 @@
+"""Data model and file IO (counterpart of octane_tpu.io).  h5py is imported
+only when a file is read or written."""
+
+from octane_tpu_torch.io.datamodel import NavConstants, Scene, scene_from_numpy
+from octane_tpu_torch.io.readers import read_scene, scene_from_goes_arrays
+from octane_tpu_torch.io.writers import write_product
+
+__all__ = ["NavConstants", "Scene", "scene_from_numpy", "read_scene",
+           "scene_from_goes_arrays", "write_product"]

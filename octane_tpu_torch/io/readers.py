@@ -1,0 +1,127 @@
+"""GOES-R L1b ingest, channel 1 (counterpart of octane_tpu.io.readers.read_scene;
+oct_fileread.cc:43-419).
+
+Split in two halves:
+
+* ``read_scene``: the file half.  Reads the arrays and attributes with h5py
+  (imported on use) by the names the reference reads (oct_fileread.cc:
+  99-263) and fills ``NavConstants``;
+* ``scene_from_goes_arrays``: the array half.  Navigation, calibration and
+  normalisation on tensors (``nav.goes.navcal_goes``), so the pair path also
+  runs where h5py is missing.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.core.normalize import band_min_max
+from octane_tpu_torch.io.datamodel import NavConstants, Scene
+from octane_tpu_torch.nav.goes import navcal_goes
+
+DTOR = math.pi / 180.0
+
+
+def _scalar(ds):
+    v = np.asarray(ds[()])
+    return v.reshape(-1)[0] if v.ndim else v.item() if hasattr(v, "item") else v
+
+
+def _attr(var, name):
+    v = var.attrs[name]
+    if isinstance(v, bytes):
+        return v.decode()
+    arr = np.asarray(v).reshape(-1)
+    if arr.dtype.kind in "SU":
+        s = arr[0]
+        return s.decode() if isinstance(s, bytes) else str(s)
+    return arr[0]
+
+
+def _first(tup, val):
+    """``tup`` with element 0 set to float(val)."""
+    return (float(val),) + tuple(tup[1:])
+
+
+def read_scene(path: str, cfg: OFConfig, donav: bool = True,
+               device="cpu") -> Scene:
+    """Read one GOES-R L1b file (channel 1) into a Scene on ``device``."""
+    if cfg.grid != "goes":
+        raise NotImplementedError(f"{cfg.grid!r} ingest is not ported yet")
+    try:
+        import h5py
+    except ImportError as exc:
+        raise RuntimeError("h5py is required for file ingest") from exc
+
+    with h5py.File(path, "r") as f:
+        rad = f["Rad"]
+        counts = np.asarray(rad[()], np.int16)
+        x = np.asarray(f["x"][()], np.int16)
+        y = np.asarray(f["y"][()], np.int16)
+        band = int(_scalar(f["band_id"]))
+        h, w = rad.shape
+        nav = NavConstants(grid="goes")
+        nav.rad_scale = _first(nav.rad_scale, _attr(rad, "scale_factor"))
+        nav.rad_offset = _first(nav.rad_offset, _attr(rad, "add_offset"))
+        nav.fk1 = _first(nav.fk1, _scalar(f["planck_fk1"]))
+        nav.fk2 = _first(nav.fk2, _scalar(f["planck_fk2"]))
+        nav.bc1 = _first(nav.bc1, _scalar(f["planck_bc1"]))
+        nav.bc2 = _first(nav.bc2, _scalar(f["planck_bc2"]))
+        nav.kap1 = _first(nav.kap1, _scalar(f["kappa0"]))
+        nav.x_scale = float(_attr(f["x"], "scale_factor"))
+        nav.x_offset = float(_attr(f["x"], "add_offset"))
+        nav.y_scale = float(_attr(f["y"], "scale_factor"))
+        nav.y_offset = float(_attr(f["y"], "add_offset"))
+        gip = f["goes_imager_projection"]
+        nav.gip_val = float(_scalar(gip))
+        nav.lpo = float(_attr(gip, "longitude_of_projection_origin"))
+        nav.req = float(_attr(gip, "semi_major_axis"))
+        nav.rpol = float(_attr(gip, "semi_minor_axis"))
+        nav.inverse_flattening = float(_attr(gip, "inverse_flattening"))
+        nav.lat0 = float(_attr(gip, "latitude_of_projection_origin"))
+        nav.pph = float(_attr(gip, "perspective_point_height"))
+        t = float(_scalar(f["t"]))
+        t_units = _attr(f["t"], "units")
+    set_goes_grid(nav, h, w, band)
+    return scene_from_goes_arrays(counts, x, y, nav, cfg, device, donav=donav,
+                                  t=t, t_units=t_units, band=band)
+
+
+def set_goes_grid(nav: NavConstants, h: int, w: int, band: int) -> NavConstants:
+    """Grid bookkeeping the reader derives from the image size and band."""
+    nav.lam0 = nav.lpo * DTOR
+    nav.nx, nav.ny = w, h
+    nav.min_x = nav.min_y = 0
+    nav.max_x, nav.max_y = w, h
+    # CLAVR-x coordinate subsetting factors (oct_fileread.cc:315-336)
+    div = 4 if band == 2 else (2 if band in (1, 3) else 1)
+    nav.min_xc, nav.min_yc = 0, 0
+    nav.max_xc, nav.max_yc = w // div, h // div
+    return nav
+
+
+def scene_from_goes_arrays(counts, x, y, nav: NavConstants, cfg: OFConfig,
+                           device, donav: bool = True, t: float = 0.0,
+                           t_units: str = "", band: int = 13) -> Scene:
+    """Channel-1 Scene from raw arrays: int16 counts (H, W), scan-coordinate
+    counts x (W,) and y (H,), and the file's NavConstants."""
+    counts = torch.as_tensor(np.asarray(counts, np.int16), device=device)
+    x = torch.as_tensor(np.asarray(x, np.int16), device=device)
+    y = torch.as_tensor(np.asarray(y, np.int16), device=device)
+    # normalisation range: band table unless overridden (oct_fileread.cc:341-359)
+    vmin, vmax = band_min_max(band)
+    vmin = cfg.norm_min if cfg.norm_min is not None else vmin
+    vmax = cfg.norm_max if cfg.norm_max is not None else vmax
+    data, lat, lon = navcal_goes(counts, x, y, nav, channel=0,
+                                 norm_min=vmin, norm_max=vmax, donav=donav)
+    sc = Scene(nav=nav, data=data.to(torch.float32)[None].contiguous(), t=t,
+               t_units=t_units, band=(float(band), 0, 0), x=x, y=y,
+               raw_counts=counts[None])
+    sc.norm_ranges = ((float(vmin), float(vmax)),) + tuple(sc.norm_ranges[1:])
+    if donav:
+        sc.lat, sc.lon = lat, lon
+    return sc

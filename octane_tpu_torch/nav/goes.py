@@ -1,0 +1,114 @@
+"""GOES-R ABI fixed-grid navigation and calibration in float64
+(counterpart of octane_tpu.nav.goes; oct_navcal_cuda.cu and the forward
+navigation of oct_pix2uv_cuda.cu:222-263).
+
+Everything runs in float64, as the reference computes navigation in
+double: haversine wind differences of nearby points are
+cancellation-sensitive.  The projection constants are Python floats
+(double), applied to float64 tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+DTOR = math.pi / 180.0
+F64 = torch.float64
+
+
+def goes_latlon(xval: torch.Tensor, yval: torch.Tensor, nav, guard: bool = True):
+    """Scan angles (rad) -> (lat, lon) degrees on the GRS80 ellipsoid
+    (oct_navcal_cuda.cu:36-49; guarded variant oct_pix2uv_cuda.cu:108-140).
+    ``guard=True`` gives -999 fills off the earth, otherwise NaN."""
+    xval = xval.to(F64)
+    yval = yval.to(F64)
+    req, rpol = float(nav.req), float(nav.rpol)
+    h_sat = float(nav.pph) + req
+    sinx, cosx = torch.sin(xval), torch.cos(xval)
+    siny, cosy = torch.sin(yval), torch.cos(yval)
+    ratio = (req * req) / (rpol * rpol)
+    a = sinx * sinx + cosx * cosx * (cosy * cosy + ratio * siny * siny)
+    b = -2.0 * h_sat * cosx * cosy
+    c = h_sat * h_sat - req * req
+    d = b * b - 4.0 * a * c
+    rs = (-b - torch.sqrt(torch.clamp(d, min=0.0))) / (2.0 * a)
+    sx = rs * cosx * cosy
+    sy = -rs * sinx
+    sz = rs * cosx * siny
+    hx = h_sat - sx
+    e = hx * hx + sy * sy
+    lat = torch.atan(ratio * sz / torch.sqrt(e)) / DTOR
+    lon = (float(nav.lam0) - torch.atan2(sy, h_sat - sx)) / DTOR
+    if guard:
+        bad = (d < 0) | (sz == 0) | (e <= 0)
+        lat = torch.where(bad, -999.0, lat)
+        lon = torch.where(bad, -999.0, lon)
+    else:
+        nanify = torch.where(d < 0, torch.full_like(d, math.nan),
+                             torch.zeros_like(d))
+        lat = lat + nanify
+        lon = lon + nanify
+    return lat, lon
+
+
+def goes_xy_from_latlon(lat_deg: torch.Tensor, lon_deg: torch.Tensor, nav):
+    """(lat, lon) degrees -> scan angles (rad); -999 off the visible disk
+    (octuv2xy, oct_pix2uv_cuda.cu:246-261)."""
+    lat = lat_deg.to(F64) * DTOR
+    lon = lon_deg.to(F64) * DTOR
+    req, rpol = float(nav.req), float(nav.rpol)
+    req2, rpol2 = req * req, rpol * rpol
+    h_sat = float(nav.pph) + req
+    ecc2 = (req2 - rpol2) / req2
+    thtc = torch.atan((rpol2 / req2) * torch.tan(lat))
+    cth = torch.cos(thtc)
+    rc = rpol / torch.sqrt(1.0 - ecc2 * (cth * cth))
+    dlon = lon - float(nav.lam0)
+    sx = h_sat - rc * cth * torch.cos(dlon)
+    sy = -rc * cth * torch.sin(dlon)
+    sz = rc * torch.sin(thtc)
+    visible = (h_sat * (h_sat - sx)) >= (sy * sy + (req2 / rpol2) * sz * sz)
+    xs = torch.asin(-sy / torch.sqrt(sx * sx + sy * sy + sz * sz))
+    ys = torch.atan(sz / sx)
+    return torch.where(visible, xs, -999.0), torch.where(visible, ys, -999.0)
+
+
+def limb_ramp(subpoint_dist2: torch.Tensor) -> torch.Tensor:
+    """Limb filter: 1 below 0.021 rad^2, 0 from 0.0212, linear between
+    (oct_navcal_cuda.cu:81-92)."""
+    slope = 1.0 / (0.021 - 0.0212)
+    intercept = 1.0 - 0.021 * slope
+    d = subpoint_dist2.to(F64)
+    return torch.where(d < 0.021, 1.0,
+                       torch.where(d >= 0.0212, 0.0, slope * d + intercept))
+
+
+def navcal_goes(
+    counts: torch.Tensor, x_counts: torch.Tensor, y_counts: torch.Tensor, nav,
+    channel: int = 0, norm_min: float = 0.0, norm_max: float = 255.0,
+    donav: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Navigation + radiance calibration + normalisation to [0, 255] of one
+    GOES channel (the "RAW" calibration, the one the reader uses).
+
+    counts: (H, W) raw counts; x_counts/y_counts: (W,)/(H,) scan-coordinate
+    counts.  Returns float64 (data_norm, lat, lon) (octnavcalcuda,
+    oct_navcal_cuda.cu:11-98).
+    """
+    h, w = counts.shape
+    xval = x_counts.to(F64) * nav.x_scale + nav.x_offset           # (W,)
+    yval = y_counts.to(F64) * nav.y_scale + nav.y_offset           # (H,)
+    xg = xval[None, :].expand(h, w)
+    yg = yval[:, None].expand(h, w)
+    sub2 = xg * xg + yg * yg
+    dval = counts.to(F64) * nav.rad_scale[channel] + nav.rad_offset[channel]
+    data_norm = limb_ramp(sub2) * ((dval - norm_min) / (norm_max - norm_min) * 255.0)
+    if donav:
+        lat, lon = goes_latlon(xg, yg, nav, guard=False)
+    else:
+        lat = torch.zeros_like(data_norm)
+        lon = torch.zeros_like(data_norm)
+    return data_norm, lat, lon

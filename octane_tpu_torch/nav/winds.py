@@ -1,0 +1,87 @@
+"""Pixel displacement -> wind (m/s), GOES fixed grid, in float64
+(counterpart of octane_tpu.nav.winds; oct_pix2uv_cuda.cu).
+
+Each pixel and its displaced end point are navigated to lat/lon; the
+zonal and meridional haversine distances over the frame interval give the
+wind (:27-172).  Guards: a moved mesoscale sector zeroes all motions
+(:295, 358-369); off-earth or limb pixels (subpoint distance > 0.021
+rad^2) get zero winds (:144-147); shorts are trunc(100 * value).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from octane_tpu_torch.nav.goes import F64, goes_latlon
+
+DTOR = math.pi / 180.0
+EARTH_RADIUS = 6371000.0
+
+
+def _short100(x: torch.Tensor) -> torch.Tensor:
+    """C-style short(100*x) encoding (truncation toward zero)."""
+    return torch.trunc(100.0 * x).to(torch.int16)
+
+
+def haversine_m(lat1, lon1, lat2, lon2):
+    """Great-circle distance in metres, inputs in degrees
+    (oct_haversine_cuda, oct_pix2uv_cuda.cu:12-25)."""
+    rad, rad2 = DTOR, DTOR / 2.0
+    sdlat = torch.sin((lat2 - lat1) * rad2)
+    sdlon = torch.sin((lon2 - lon1) * rad2)
+    a = sdlat * sdlat + torch.cos(lat1 * rad) * torch.cos(lat2 * rad) * (sdlon * sdlon)
+    c = 2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a))
+    return EARTH_RADIUS * c
+
+
+def _sector_moved(nav) -> bool:
+    return ((nav.x_offset - nav.g2x_offset) ** 2 >= 1e-5 ** 2
+            or (nav.y_offset - nav.g2y_offset) ** 2 >= 1e-5 ** 2)
+
+
+def _pixel_scan_positions(nav, u_pix, v_pix):
+    """Scan coordinates of each pixel and of its displaced end point
+    (oct_pix2uv_cuda.cu:40-44, 192): pixel indices + nav.min_x/min_y."""
+    h, w = u_pix.shape
+    ii = torch.arange(w, dtype=F64, device=u_pix.device)[None, :] + nav.min_x
+    jj = torch.arange(h, dtype=F64, device=u_pix.device)[:, None] + nav.min_y
+    x0 = ii * nav.x_scale + nav.x_offset
+    y0 = jj * nav.y_scale + nav.y_offset
+    x1 = (u_pix.to(F64) + ii) * nav.x_scale + nav.x_offset
+    y1 = (v_pix.to(F64) + jj) * nav.y_scale + nav.y_offset
+    return x0, y0, x1, y1
+
+
+def pix2uv_ms(u_pix, v_pix, nav, dt: float,
+              grid: str = "goes") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel displacements -> float64 winds in m/s (zeros where invalid)."""
+    if grid != "goes":
+        raise NotImplementedError(f"{grid!r} navigation is not ported yet")
+    x0, y0, x1, y1 = _pixel_scan_positions(nav, u_pix, v_pix)
+    lat0, lon0 = goes_latlon(x0, y0, nav, guard=True)
+    lat1, lon1 = goes_latlon(x1, y1, nav, guard=True)
+    limb = (x0 * x0 + y0 * y0) > 0.021      # sds[0] threshold (:144)
+    invalid = (lat0 < -998.0) | (lat1 < -998.0) | limb
+    du = haversine_m(lat0, lon0, lat0, lon1)
+    dv = haversine_m(lat0, lon0, lat1, lon0)
+    uw = torch.where(lon1 >= lon0, du, -du) / dt
+    vw = torch.where(lat1 >= lat0, dv, -dv) / dt
+    return torch.where(invalid, 0.0, uw), torch.where(invalid, 0.0, vw)
+
+
+def pix2uv(u_pix, v_pix, nav, dt: float, grid: str = "goes",
+           pixuv: bool = False):
+    """(u_wind, v_wind, u_raw, v_raw) int16: 100*m/s and 100*pixels
+    (oct_pix2uv_cuda.cu:265-370)."""
+    u_raw = _short100(u_pix)
+    v_raw = _short100(v_pix)
+    if _sector_moved(nav):
+        z = torch.zeros(u_pix.shape, dtype=torch.int16, device=u_pix.device)
+        return z, z, z, z
+    if pixuv:
+        return u_raw, v_raw, u_raw, v_raw
+    uw, vw = pix2uv_ms(u_pix, v_pix, nav, dt, grid)
+    return _short100(uw), _short100(vw), u_raw, v_raw

@@ -1,0 +1,108 @@
+"""Build the CUDA kernels of ``octane_tpu_torch/csrc`` and load them.
+
+The sources are compiled with ``nvcc`` into one shared library with a plain
+C interface, on first use, into ``octane_tpu_torch/_build/`` (git-ignored;
+the file name carries a hash of the sources and flags, so an edit
+rebuilds).  The library is loaded with ctypes: pointers and the stream are
+passed as ``c_void_p``, every entry point returns ``cudaGetLastError()``.
+
+A missing ``nvcc`` or a failed build raises ``RuntimeError``; there is no
+fallback to the plain PyTorch versions for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# -fmad=false: no multiply-add contraction anywhere, so the kernels round
+# exactly like PyTorch's separate elementwise kernels
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+_SIGNATURES = {
+    "octane_warp": (I, [P] * 8 + [I] * 4 + [P]),
+    "octane_pcg_pass_a": (I, [P] * 9 + [I] * 3 + [P]),
+    "octane_pcg_pass_b": (I, [P] * 6 + [I] * 2 + [P]),
+    "octane_pcg_num_partials": (I, [I, I]),
+    "octane_error_string": (ctypes.c_char_p, [I]),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of octane_tpu_torch "
+                       "cannot be built on this machine")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def build_kernels():
+    """Compile csrc/*.cu (once per content hash); returns the library path
+    and a report of the build ({} when the library was already built)."""
+    nvcc = _nvcc()
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    lib_path = os.path.join(BUILD_DIR, f"liboctane_kernels_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
+        return lib_path, {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, {"cmd": " ".join(cmd), "seconds": time.perf_counter() - t0,
+                      "ptxas": proc.stderr}
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use; ``.build_info`` holds the
+    nvcc command, its seconds and the ptxas report."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, info = build_kernels()
+            lib = ctypes.CDLL(path)
+            for name, (res, args) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+            lib.build_info = info
+            _lib = lib
+    return _lib
+
+
+def check_status(status: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if status != 0:
+        msg = _lib.octane_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,193 @@
+"""The port's pair path end to end on the CPU: ingest, flow, navigation and
+the product file, against octane_tpu and the product fixture.
+
+* tests/golden/product_512.npz through ``run_pipeline`` and ``cli.main``:
+  shorts within 1 count (test_golden.py:103-136), more than 99.9 % of the
+  pixel shorts and 99 % of the wind shorts exact (torch_fixtures.EXACT_SHARE);
+* the same 512^2 pair ingested by octane_tpu and carried over with
+  ``scene_from_numpy``: the port's flow (u_pix, v_pix) within 1e-4 px of
+  octane_tpu's, which is what holds the wind shorts' parity below 99.9 %;
+* a 128^2 pair ingested by octane_tpu, carried over with
+  ``scene_from_numpy``, through both packages' ``compute_flow``: shorts
+  within 1 count;
+* the port's reader against octane_tpu's (data, navigation, constants), and
+  torch_fixtures.goes_arrays (the no-h5py path on the card) against both;
+* the port's writer against octane_tpu's: same variables, dtypes, values
+  and attributes for the same scene.
+"""
+
+import dataclasses
+import os
+
+import h5py
+import numpy as np
+import pytest
+import torch
+
+from octane_tpu.config import OFConfig as JaxOFConfig
+from octane_tpu.flow.dispatcher import compute_flow as jax_compute_flow
+from octane_tpu.io.readers import read_scene as jax_read_scene
+from octane_tpu.io.writers import write_product as jax_write_product
+from octane_tpu_torch import cli, ops
+from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.flow.dispatcher import compute_flow
+from octane_tpu_torch.io.datamodel import scene_from_numpy
+from octane_tpu_torch.io.readers import read_scene, scene_from_goes_arrays
+from octane_tpu_torch.io.writers import write_product
+from octane_tpu_torch.pipeline import run_pipeline
+from tests import torch_fixtures as fx
+from tests.synth import make_goes_file
+
+torch.set_num_threads(2)
+PRODUCT512 = os.path.join(os.path.dirname(__file__), "golden", "product_512.npz")
+T0 = fx.FIXTURE_T0
+
+
+def _jax_cfg(cfg):
+    """octane_tpu's OFConfig with the port's settings (the port's fields are
+    a subset of octane_tpu's)."""
+    return JaxOFConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def pair512(tmp_path_factory):
+    d = tmp_path_factory.mktemp("pair512")
+    f1 = make_goes_file(str(d / "g1.nc"), fx.fixture_counts(0, 0), band=13)
+    f2 = make_goes_file(str(d / "g2.nc"), fx.fixture_counts(3.0, -1.5),
+                        band=13, t=T0 + 60.0)
+    return f1, f2
+
+
+def _check_product(path):
+    want = np.load(PRODUCT512)
+    with h5py.File(path) as f:
+        for var in ("U", "V", "U_raw", "V_raw"):
+            d = np.abs(np.asarray(f[var][()], np.int32) - np.asarray(want[var], np.int32))
+            assert d.max() <= 1, f"{var}: max short diff {d.max()}"
+            exact = float((d == 0).mean())
+            assert exact > fx.EXACT_SHARE[var], f"{var}: {exact:.4f}"
+
+
+@pytest.mark.parametrize("entry", ["run_pipeline", "cli"])
+def test_product_512_fixture(pair512, tmp_path, entry):
+    f1, f2 = pair512
+    ops.reset_counters()
+    if entry == "cli":
+        assert cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu"]) == 0
+    else:
+        written = run_pipeline(f1, f2, OFConfig(), outdir=str(tmp_path), device="cpu")
+        assert written == [str(tmp_path / "outfile.nc")]
+    _check_product(str(tmp_path / "outfile.nc"))
+    c = ops.counters()
+    assert all(c[k][1] > 0 for k in ops.WRAPPERS)      # plain versions on the CPU
+
+
+def test_reader_matches_jax_and_smoke_arrays(pair512):
+    f1, _ = pair512
+    cfg = OFConfig()
+    sc = read_scene(f1, cfg, donav=True, device="cpu")
+    js = jax_read_scene(f1, _jax_cfg(cfg), donav=True)
+    assert dataclasses.asdict(sc.nav) == dataclasses.asdict(js.nav)
+    assert sc.norm_ranges == js.norm_ranges and sc.band == js.band
+    assert (sc.t, sc.t_units) == (js.t, js.t_units)
+    np.testing.assert_array_equal(sc.raw_counts.numpy(), js.raw_counts)
+    np.testing.assert_allclose(sc.data.numpy(), js.data, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(sc.lat.numpy(), js.lat, rtol=1e-12)
+    np.testing.assert_allclose(sc.lon.numpy(), js.lon, rtol=1e-12)
+    # the card has no h5py: chip_smoke.py builds the same scene from arrays
+    counts, x, y, nav, t, t_units, band = fx.goes_arrays(
+        fx.fixture_counts(0, 0), T0)
+    assert dataclasses.asdict(nav) == dataclasses.asdict(sc.nav)
+    assert (t, t_units, band) == (sc.t, sc.t_units, int(sc.band[0]))
+    sa = scene_from_goes_arrays(counts, x, y, nav, cfg, "cpu", t=t, t_units=t_units,
+                                band=band)
+    assert torch.equal(sa.data, sc.data) and torch.equal(sa.lat, sc.lat)
+
+
+@pytest.fixture(scope="module")
+def jax_pair128(tmp_path_factory):
+    d = tmp_path_factory.mktemp("pair128")
+    c1 = fx.fixture_counts(0, 0, 128, 128)
+    c2 = fx.fixture_counts(1.5, -0.75, 128, 128)
+    f1 = make_goes_file(str(d / "a.nc"), c1, band=13)
+    f2 = make_goes_file(str(d / "b.nc"), c2, band=13, t=T0 + 60.0)
+    cfg = OFConfig(kiters=3)
+    return (cfg, *_jax_flow(f1, f2, cfg))
+
+
+def _jax_flow(f1, f2, cfg):
+    """A pair read and solved by octane_tpu: (scene1 fields, scene2 fields,
+    the solved scene1)."""
+    jcfg = _jax_cfg(cfg)
+    s1 = jax_read_scene(f1, jcfg, donav=True)
+    s2 = jax_read_scene(f2, jcfg, donav=False)
+    s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
+    fields1, fields2 = dataclasses.asdict(s1), dataclasses.asdict(s2)
+    jax_compute_flow(s1, s2, jcfg)
+    return fields1, fields2, s1
+
+
+def test_flow_512_matches_jax(pair512):
+    """The fixture pair's flow against octane_tpu's at 1e-4 px: one m/s
+    short is ~3e-4 px, so this bounds how far the wind shorts can move."""
+    fields1, fields2, js1 = _jax_flow(*pair512, OFConfig())
+    p1 = scene_from_numpy(fields1, "cpu")
+    p2 = scene_from_numpy(fields2, "cpu")
+    compute_flow(p1, p2, OFConfig())
+    for got, want in ((p1.u_pix, js1.u_pix), (p1.v_pix, js1.v_pix)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_compute_flow_matches_jax(jax_pair128):
+    cfg, fields1, fields2, js1 = jax_pair128
+    p1 = scene_from_numpy(fields1, "cpu")
+    p2 = scene_from_numpy(fields2, "cpu")
+    assert p1.data.dtype == torch.float32 and p1.lat.dtype == torch.float64
+    compute_flow(p1, p2, cfg)
+    assert p1.dt == js1.dt == 60.0
+    for name in ("u_wind", "v_wind", "u_raw", "v_raw"):
+        got = getattr(p1, name)
+        assert got.dtype == torch.int16
+        d = np.abs(got.numpy().astype(np.int32) - getattr(js1, name).astype(np.int32))
+        assert d.max() <= 1, f"{name}: max short diff {d.max()}"
+    np.testing.assert_allclose(p1.u_pix.numpy(), js1.u_pix, rtol=0, atol=5e-3)
+
+
+def _dump(path):
+    out = {}
+    with h5py.File(path) as f:
+        def visit(name, obj):
+            attrs = {k: (v.decode() if isinstance(v, bytes) else v)
+                     for k, v in obj.attrs.items()
+                     if k not in ("DIMENSION_LIST", "REFERENCE_LIST")}
+            out[name] = (obj.dtype.str, obj.shape, np.asarray(obj[()]), attrs)
+        f.visititems(visit)
+    return out
+
+
+@pytest.mark.parametrize("pixuv", [False, True])
+def test_writer_matches_jax(jax_pair128, tmp_path, pixuv):
+    cfg, _, _, js1 = jax_pair128
+    cfg = cfg.replace(pixuv=pixuv)
+    ps1 = scene_from_numpy(dataclasses.asdict(js1), "cpu")
+    a = _dump(jax_write_product(str(tmp_path / "jax.nc"), js1, _jax_cfg(cfg)))
+    b = _dump(write_product(str(tmp_path / "port.nc"), ps1, cfg))
+    assert a.keys() == b.keys()
+    for name in a:
+        (da, sa, va, aa), (db, sb, vb, ab) = a[name], b[name]
+        assert (da, sa) == (db, sb), name
+        np.testing.assert_array_equal(va, vb, err_msg=name)
+        assert aa.keys() == ab.keys(), name
+        for k in aa:
+            np.testing.assert_array_equal(aa[k], ab[k], err_msg=f"{name}.{k}")
+            assert np.asarray(aa[k]).dtype == np.asarray(ab[k]).dtype, f"{name}.{k}"
+
+
+def test_unported_options_raise(pair512, tmp_path):
+    f1, f2 = pair512
+    with pytest.raises(NotImplementedError):
+        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu", "-sosm"])
+    with pytest.raises(NotImplementedError):
+        run_pipeline(f1, f2, OFConfig(do_interp=True), outdir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError):
+        read_scene(f1, OFConfig(grid="polar"))

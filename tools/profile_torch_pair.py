@@ -1,0 +1,104 @@
+"""Device-time breakdown of one octane_tpu_torch pair solve on a CUDA card.
+
+    python3 tools/profile_torch_pair.py [--size 5424] [--kiters 4]
+
+Runs the bench.py synthetic pair through ``variational_flow`` once to warm
+up, once timed without the profiler (wall clock, CUDA events around it) and
+once under ``torch.profiler``.  Prints both wall times, the summed device
+time and the device's idle share, 1 - device busy / unprofiled wall (the
+profiler's own host cost would inflate a wall taken under it), and the
+device time by kernel grouped into the port's layers (warp, PCG passes,
+the PCG scalar glue, the assembly's elementwise work, shifts/gathers,
+reductions, matmuls).  Writes the chrome trace to
+chiprun_out/profile_pair.json.
+"""
+
+import argparse
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from octane_tpu_torch import ops  # noqa: E402
+from octane_tpu_torch.config import OFConfig  # noqa: E402
+from octane_tpu_torch.flow.variational import variational_flow  # noqa: E402
+from chip_smoke import load_tests_module  # noqa: E402
+
+GROUPS = (("warp_bilinear", "warp kernel"), ("pcg_pass_a", "PCG pass A"),
+          ("pcg_pass_b", "PCG pass B"), ("gemm", "matmul (zoom)"),
+          ("index", "index_select (shifts, subsample)"),
+          ("reduce", "reductions (sums)"), ("elementwise", "elementwise"),
+          ("copy", "copies / cat / stack"), ("fill", "fills"))
+
+
+def group(name):
+    low = name.lower()
+    for key, label in GROUPS:
+        if key in low:
+            return label
+    if "cat" in low or "memcpy" in low:
+        return "copies / cat / stack"
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--size", type=int, default=5424)
+    ap.add_argument("--kiters", type=int, default=4)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_pair: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    h = w = a.size
+    im1, im2 = load_tests_module("torch_fixtures").bench_pair(h, w)
+    g1 = torch.from_numpy(im1[None]).to(dev)
+    g2 = torch.from_numpy(im2[None]).to(dev)
+    z = torch.zeros((h, w), device=dev)
+    cfg = OFConfig(kiters=a.kiters)
+    variational_flow(g1, g2, z, z, cfg)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    variational_flow(g1, g2, z, z, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+    ops.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        variational_flow(g1, g2, z, z, cfg)
+        torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) * 1e3
+    by_group = defaultdict(float)
+    counts = defaultdict(int)
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            by_group[group(ev.key)] += dt / 1e3
+            counts[group(ev.key)] += ev.count
+    busy = sum(by_group.values())
+    print(f"{h}x{w} kiters={a.kiters}: wall {wall:.1f} ms without the profiler "
+          f"(CUDA events {event_ms:.1f} ms), {wall_prof:.1f} ms under it; device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
+          f"wall; counters {ops.counters()}")
+    for label, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {label:36s} {ms:9.2f} ms  {ms / wall:6.1%} of wall  "
+              f"({counts[label]} launches)")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "profile_pair.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
