@@ -5,29 +5,37 @@
 Phases, one line each (any failure exits non-zero):
   1. environment: torch, CUDA, nvcc, which of triton/h5py/jax are installed,
      the card's name and power limit;
-  2. build the CUDA kernels from octane_tpu_torch/csrc;
+  2. build the CUDA kernels from octane_tpu_torch/csrc (one nvcc per source,
+     in parallel);
   3. warp kernel vs its plain version: bit-exact samples and flags, exact
      tile statistics, both the staged and the global-memory branch;
   4. Jacobi-PCG passes vs their plain versions (bit-exact, block partials
      included: the plain versions sum in the kernels' order) and 30-iteration
      solves vs the reference loop flow.cg.pcg_solve (rel <= 5e-4), quad and
      robust;
-  5. the main path on the 512^2 product fixture pair (tests/golden/
+  5. the fused assembly vs its plain version (bit-exact, ||b||^2 partials
+     included) at 512^2 and 500x372, GNC steps al1 = 1, 0.5, 0;
+  6. the SOR half-sweeps (in place, and with the residual) vs their plain
+     version, bit-exact, and 30-sweep solves of the driver with the kernel
+     vs with the plain half-sweep (bit-identical) and vs the reference loop
+     flow.cg.sor_solve (rel <= 2e-5), quad and robust;
+  7. the main path on the 512^2 product fixture pair (tests/golden/
      product_512.npz): through the CLI where h5py is installed, else through
-     scene_from_goes_arrays -> compute_flow; shorts within 1 count and
-     mostly exact (EXACT_SHARE), every kernel launched and no plain
-     version called;
-  6. the 256^2 oracle fixture (variational_256.npz): mean EPE < 0.01 px,
-     max < 0.1 px;
-  7. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow and
-     pix2uv, timed with CUDA events with the kernels and with their plain
-     versions (the solver's internal plain route); the two flows must be
-     bit-identical.  The warp and both PCG passes are held bit-exact against
-     their plain versions at every pyramid level's shape (5424^2 .. 678^2)
-     and timed beside them at 5424^2.
+     scene_from_goes_arrays -> compute_flow; with the default PCG solver the
+     shorts within 1 count and mostly exact (EXACT_SHARE), with the SOR
+     solver the pixel-short medians within 5 counts of the true shift (300,
+     -150); each path launched its kernels and called no plain version;
+  8. the 256^2 oracle fixture (variational_256.npz), both solvers: mean EPE
+     < 0.01 px, max < 0.1 px;
+  9. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow and
+     pix2uv, per solver, timed with CUDA events with the kernels and with
+     their plain versions (the solver's internal plain route); the two flows
+     must be bit-identical and the median flow within 0.1 px of the truth.
+     Every kernel is held bit-exact against its plain version at every
+     pyramid level's shape (5424^2 .. 678^2) and timed beside it at 5424^2.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--only`` runs a subset, e.g.
-``--only build,warp,pcg``.
+``--only build,warp,pcg,assemble,sor``.
 """
 
 from __future__ import annotations
@@ -44,9 +52,20 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "warp", "pcg", "main", "golden", "fulldisk")
-WARP_SRC = "octane_tpu_torch/csrc/warp.cu"
-PCG_SRC = "octane_tpu_torch/csrc/pcg.cu"
+FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
+PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "fulldisk")
+KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
+    ("warp_bilinear", "warp", "octane_tpu_torch/csrc/warp.cu",
+     "octane_tpu/ops/pallas/warp.py:80 _kernel + :284 _stats_kernel", "warp_bilinear"),
+    ("pcg_pass_a", "pcg_pass_a", "octane_tpu_torch/csrc/pcg.cu",
+     "octane_tpu/ops/pallas/cg.py:94 _pass_a", "pcg_pass_a_robust"),
+    ("pcg_pass_b", "pcg_pass_b", "octane_tpu_torch/csrc/pcg.cu",
+     "octane_tpu/ops/pallas/cg.py:141 _pass_b", "pcg_pass_b_robust"),
+    ("assemble_cf", "assemble_cf", "octane_tpu_torch/csrc/assemble.cu",
+     "octane_tpu/ops/pallas/assemble.py:52 _kernel", "assemble_cf_robust"),
+    ("sor_sweep", "sor_sweep", "octane_tpu_torch/csrc/sor.cu",
+     "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_sweep_robust"),
+)
 
 
 def say(phase, msg):
@@ -235,66 +254,189 @@ def phase_pcg(dev, report):
     report["pcg_pass_b"] = {"max_abs_err": err_b}
 
 
-def _check_counters(phase):
+def assembly_inputs(g1, g2, u, v):
+    """One GNC round's assembly inputs at (u, v): the warp kernel's samples
+    of the pair's stack, the level stack [geo1, gx1, gy1] and hint fields."""
+    from octane_tpu_torch.core.gradients import gradient_4th
+    from octane_tpu_torch.ops.warp import warp
+
+    gx1, gy1 = gradient_4th(g1)
+    gx2, gy2 = gradient_4th(g2)
+    gxx, _ = gradient_4th(gx2)
+    gxy, gyy = gradient_4th(gy2)
+    stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
+    u, v = u.contiguous(), v.contiguous()
+    samples, bc_x, bc_y = warp(stack, u, v)
+    return samples, bc_x, bc_y, torch.cat([g1, gx1, gy1]).contiguous(), u, v, 0.5 * u, 0.5 * v
+
+
+ASM_SCALARS = (0.05, 5.0, 0.2)     # lambdac, alpha, lambda / alpha
+
+
+def compare_assembly(inputs, al1):
+    """The fused assembly, kernel vs plain version: (bit-equal, max |d|)."""
+    from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+
+    args = (*inputs, al1, *ASM_SCALARS, True)
+    kcf, kpart = assemble_cf(*args)
+    pcf, ppart = assemble_cf_plain(*args)
+    torch.cuda.synchronize()
+    return (torch.equal(kcf, pcf) and torch.equal(kpart, ppart),
+            float((kcf - pcf).abs().max()))
+
+
+def compare_sweeps(x, cf):
+    """Both colours' SOR half-sweeps, with the residual and in place, kernel
+    vs plain version: (bit-equal, max |d|)."""
+    from octane_tpu_torch.ops.sor import sor_sweep, sor_sweep_plain
+
+    equal, err = True, 0.0
+    for colour in (0, 1):
+        kx, kpart = sor_sweep(x, cf, colour, resid=True)
+        px, ppart = sor_sweep_plain(x, cf, colour, resid=True)
+        ki, pi = x.clone(), x.clone()
+        sor_sweep(ki, cf, colour)
+        sor_sweep_plain(pi, cf, colour)
+        torch.cuda.synchronize()
+        equal = (equal and torch.equal(kx, px) and torch.equal(kpart, ppart)
+                 and torch.equal(ki, pi))
+        err = max(err, float((kx - px).abs().max()), float((ki - pi).abs().max()))
+    return equal, err
+
+
+def bench_images(h, w, dev):
+    """bench.py's synthetic pair (true flow u = 2.4 px, v = 0) on the card."""
+    im1, im2 = load_tests_module("torch_fixtures").bench_pair(h, w)
+    return torch.from_numpy(im1[None]).to(dev), torch.from_numpy(im2[None]).to(dev)
+
+
+def noisy_flow(h, w, dev, seed):
+    """The 2.4-px shift with +-3 px of noise: some samples leave the grid."""
+    rng = np.random.default_rng(seed)
+    u = 2.4 + rng.uniform(-3, 3, (h, w))
+    v = rng.uniform(-3, 3, (h, w))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (u, v))
+
+
+def phase_assemble(dev, report):
+    t = torch.linspace(-4.0, 4.0, 4097, device=dev)
+    probe = torch.equal(t / 5.0, t * float(np.float32(1.0) / np.float32(5.0)))
+    say("assemble", f"torch CUDA t / 5.0 equals t * float32(1 / 5.0): {probe}")
+    worst = 0.0
+    for (h, w) in ((512, 512), (500, 372)):
+        inputs = assembly_inputs(*bench_images(h, w, dev), *noisy_flow(h, w, dev, 5))
+        for al1 in (1.0, 0.5, 0.0):
+            equal, err = compare_assembly(inputs, al1)
+            worst = max(worst, err)
+            say("assemble", f"{h}x{w} al1={al1}: cf and ||b||^2 partials bit-exact "
+                            f"{equal} (max|d| {err:.3e})")
+            if not equal:
+                raise AssertionError(f"assemble {h}x{w} al1={al1}: kernel differs from plain")
+    report["assemble_cf"] = {"max_abs_err": worst}
+
+
+def phase_sor(dev, report):
+    from octane_tpu_torch.flow.cg import sor_solve
+    from octane_tpu_torch.ops.sor import build_cf, sor_solve_fused, sor_sweep_plain
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for (h, w) in ((512, 512), (500, 372)):
+        for quad in (True, False):
+            s = pcg_system(h, w, quad, dev)
+            x = torch.from_numpy(rng.normal(0, 3, (2, h, w)).astype(np.float32)).to(dev)
+            equal, err = compare_sweeps(x, build_cf(s))
+            ku, kv = sor_solve_fused(s, 1e-8, 30)
+            pu, pv = sor_solve_fused(s, 1e-8, 30, sweep=sor_sweep_plain)
+            tu, tv = sor_solve(s, 1e-8, 30)
+            torch.cuda.synchronize()
+            same = torch.equal(ku, pu) and torch.equal(kv, pv)
+            ds = max(rel(ku, tu), rel(kv, tv))
+            mode = "quad" if quad else "robust"
+            say("sor", f"{h}x{w} {mode}: half-sweeps bit-exact {equal} (max|d| {err:.3e}), "
+                       f"30-sweep driver kernel vs plain bit-identical {same}, "
+                       f"vs sor_solve rel {ds:.2e}")
+            if not (equal and same and ds <= 2e-5):
+                raise AssertionError(f"sor {h}x{w} {mode}: outside the budget")
+            worst = max(worst, err)
+    report["sor_sweep"] = {"max_abs_err": worst}
+
+
+def _check_counters(phase, path):
+    """Every kernel of the solver path ``path`` launched, and no plain
+    version was called."""
     from octane_tpu_torch import ops
 
     c = ops.counters()
-    say(phase, "launches (kernel, plain): " + json.dumps(c))
+    say(phase, f"{path} path launches (kernel, plain): " + json.dumps(c))
     for name in ops.WRAPPERS:
         launches, plain = c[name]
-        if launches <= 0 or plain != 0:
+        if plain != 0 or (name in ops.PATHS[path] and launches <= 0):
             raise AssertionError(f"{phase}: {name} launched {launches} times, "
                                  f"plain version called {plain} times")
     return c
 
 
-def phase_main(dev, have_h5py):
-    from octane_tpu_torch import ops
+def run_fixture(dev, have_h5py, solver):
+    """The 512^2 product fixture pair through the main path: (products as
+    numpy arrays, the route taken)."""
     from octane_tpu_torch.config import OFConfig
     from octane_tpu_torch.flow.dispatcher import compute_flow
     from octane_tpu_torch.io.readers import scene_from_goes_arrays
 
     fx = load_tests_module("torch_fixtures")
-    FIXTURE_T0, fixture_counts, goes_arrays = fx.FIXTURE_T0, fx.fixture_counts, fx.goes_arrays
-    want = np.load(os.path.join(ROOT, "tests", "golden", "product_512.npz"))
-    c1, c2 = fixture_counts(0, 0), fixture_counts(3.0, -1.5)
-    cfg = OFConfig()
-    ops.reset_counters()
-    t0 = time.perf_counter()
+    c1, c2 = fx.fixture_counts(0, 0), fx.fixture_counts(3.0, -1.5)
     if have_h5py:
         import h5py
         make_goes_file = load_tests_module("synth").make_goes_file
         from octane_tpu_torch.cli import main as cli_main
 
-        out = os.path.join(ROOT, "chiprun_out", "chip_smoke")
+        out = os.path.join(ROOT, "chiprun_out", f"chip_smoke_{solver}")
         os.makedirs(out, exist_ok=True)
         f1 = make_goes_file(os.path.join(out, "g1.nc"), c1, band=13)
         f2 = make_goes_file(os.path.join(out, "g2.nc"), c2, band=13,
-                            t=FIXTURE_T0 + 60.0)
-        cli_main(["-i1", f1, "-i2", f2, "-o", out, "--device", "cuda"])
+                            t=fx.FIXTURE_T0 + 60.0)
+        cli_main(["-i1", f1, "-i2", f2, "-o", out, "--device", "cuda", "-solver", solver])
         with h5py.File(os.path.join(out, "outfile.nc")) as f:
-            got = {k: np.asarray(f[k][()]) for k in ("U", "V", "U_raw", "V_raw")}
-        how = "cli.main"
-    else:
-        s1 = scene_from_goes_arrays(*goes_arrays(c1, FIXTURE_T0)[:4], cfg, dev,
-                                    donav=True, t=FIXTURE_T0)
-        s2 = scene_from_goes_arrays(*goes_arrays(c2, FIXTURE_T0 + 60.0)[:4], cfg,
-                                    dev, donav=False, t=FIXTURE_T0 + 60.0)
-        s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
-        compute_flow(s1, s2, cfg)
-        got = {"U": s1.u_wind, "V": s1.v_wind, "U_raw": s1.u_raw, "V_raw": s1.v_raw}
-        got = {k: t.cpu().numpy() for k, t in got.items()}
-        how = "scene_from_goes_arrays -> compute_flow -> pix2uv (no h5py)"
-    torch.cuda.synchronize()
-    say("main", f"512x512 fixture pair via {how} in {time.perf_counter() - t0:.2f} s")
-    counts = _check_counters("main")
-    for var in ("U", "V", "U_raw", "V_raw"):
-        d = np.abs(got[var].astype(np.int32) - want[var].astype(np.int32))
-        exact = float((d == 0).mean())
-        say("main", f"{var}: max short diff {int(d.max())}, exact {exact:.5f}")
-        if d.max() > 1 or exact <= fx.EXACT_SHARE[var]:
-            raise AssertionError(f"main: {var} differs from product_512.npz")
-    return counts
+            return {k: np.asarray(f[k][()]) for k in ("U", "V", "U_raw", "V_raw")}, "cli.main"
+    cfg = OFConfig(solver=solver)
+    s1 = scene_from_goes_arrays(*fx.goes_arrays(c1, fx.FIXTURE_T0)[:4], cfg, dev,
+                                donav=True, t=fx.FIXTURE_T0)
+    s2 = scene_from_goes_arrays(*fx.goes_arrays(c2, fx.FIXTURE_T0 + 60.0)[:4], cfg,
+                                dev, donav=False, t=fx.FIXTURE_T0 + 60.0)
+    s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
+    compute_flow(s1, s2, cfg)
+    got = {"U": s1.u_wind, "V": s1.v_wind, "U_raw": s1.u_raw, "V_raw": s1.v_raw}
+    return ({k: t.cpu().numpy() for k, t in got.items()},
+            "scene_from_goes_arrays -> compute_flow -> pix2uv (no h5py)")
+
+
+def phase_main(dev, have_h5py):
+    from octane_tpu_torch import ops
+
+    fx = load_tests_module("torch_fixtures")
+    want = np.load(os.path.join(ROOT, "tests", "golden", "product_512.npz"))
+    for solver in ("pcg", "sor"):
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        got, how = run_fixture(dev, have_h5py, solver)
+        torch.cuda.synchronize()
+        say("main", f"{solver}: 512x512 fixture pair via {how} in "
+                    f"{time.perf_counter() - t0:.2f} s")
+        _check_counters("main", solver)
+        if solver == "pcg":
+            for var in ("U", "V", "U_raw", "V_raw"):
+                d = np.abs(got[var].astype(np.int32) - want[var].astype(np.int32))
+                exact = float((d == 0).mean())
+                say("main", f"{var}: max short diff {int(d.max())}, exact {exact:.5f}")
+                if d.max() > 1 or exact <= fx.EXACT_SHARE[var]:
+                    raise AssertionError(f"main: {var} differs from product_512.npz")
+        else:
+            med = (float(np.median(got["U_raw"])), float(np.median(got["V_raw"])))
+            say("main", f"sor: pixel-short medians U_raw {med[0]}, V_raw {med[1]}, "
+                        f"truth (300, -150)")
+            if abs(med[0] - 300) > 5 or abs(med[1] + 150) > 5:
+                raise AssertionError("main: the SOR flow misses the fixture's shift")
 
 
 def phase_golden(dev):
@@ -304,90 +446,106 @@ def phase_golden(dev):
 
     g = np.load(os.path.join(ROOT, "tests", "golden", "variational_256.npz"))
     z = torch.zeros(g["u"].shape, device=dev)
-    u, v = variational_flow(torch.from_numpy(g["im1"]).to(dev),
-                            torch.from_numpy(g["im2"]).to(dev), z, z,
-                            OFConfig(kiters=4))
-    mean, mx, _ = epe_stats(u.cpu().numpy(), v.cpu().numpy(), g["u"], g["v"])
-    say("golden", f"variational_256 (kiters=4, pcg): mean EPE {mean:.3e} px, "
-                  f"max {mx:.3e} px")
-    if not (mean < 0.01 and mx < 0.1):
-        raise AssertionError("golden: EPE outside the budget")
+    for solver in ("pcg", "sor"):
+        u, v = variational_flow(torch.from_numpy(g["im1"]).to(dev),
+                                torch.from_numpy(g["im2"]).to(dev), z, z,
+                                OFConfig(kiters=4, solver=solver))
+        mean, mx, _ = epe_stats(u.cpu().numpy(), v.cpu().numpy(), g["u"], g["v"])
+        say("golden", f"variational_256 (kiters=4, {solver}): mean EPE {mean:.3e} px, "
+                      f"max {mx:.3e} px")
+        if not (mean < 0.01 and mx < 0.1):
+            raise AssertionError(f"golden: {solver} EPE outside the budget")
+
+
+def time_pair(run):
+    """One warm-up, then one pair timed with CUDA events after the counters
+    are reset: (u, v, ms, peak GiB)."""
+    from octane_tpu_torch import ops
+
+    run()
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    u, v = run()
+    end.record()
+    torch.cuda.synchronize()
+    return u, v, start.elapsed_time(end), torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def phase_fulldisk(dev, report):
     from octane_tpu_torch import ops
     from octane_tpu_torch.config import OFConfig
     from octane_tpu_torch.core.gradients import gradient_4th
-    from octane_tpu_torch.core.zoom import zoom_size
+    from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_size
     from octane_tpu_torch.flow.stencil import assemble
     from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
     from octane_tpu_torch.nav.winds import pix2uv
+    from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
     from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                           pcg_pass_b_plain)
+    from octane_tpu_torch.ops.sor import sor_sweep, sor_sweep_plain
     from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 
     fx = load_tests_module("torch_fixtures")
-    for name in ("warp_bilinear", "pcg_pass_a", "pcg_pass_b"):
+    for name, *_ in KERNELS:
         report.setdefault(name, {"max_abs_err": 0.0})
-    h = w = 5424
+    h = w = FULLDISK
     t0 = time.perf_counter()
-    im1, im2 = fx.bench_pair(h, w)
-    g1 = torch.from_numpy(im1[None]).to(dev)
-    g2 = torch.from_numpy(im2[None]).to(dev)
+    g1, g2 = bench_images(h, w, dev)
     z = torch.zeros((h, w), device=dev)
     _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
     nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
     say("fulldisk", f"{h}x{w} pair made in {time.perf_counter() - t0:.2f} s")
     mpix = h * w / 1e6
-    cfg = OFConfig(kiters=4)
-    runs = {"kernels": lambda: variational_flow(g1, g2, z, z, cfg),
-            "plain": lambda: _coarse_to_fine(g1, g2, z, z, cfg, plain=True)}
-    results = {}
-    for label, run in runs.items():
-        run()                                            # warm-up
-        torch.cuda.synchronize()
-        ops.reset_counters()
-        torch.cuda.reset_peak_memory_stats()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        u, v = run()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        results[label] = (u, v)
-        say("fulldisk", f"{label}: {ms:.1f} ms per pair, {mpix / (ms / 1e3):.3f} Mpix/s, "
-                        f"peak {peak:.2f} GiB, PCG host syncs "
-                        f"{ops.counters()['pcg_host_syncs']}")
-        if label == "kernels":
-            report["_launches"] = _check_counters("fulldisk")
-        else:
+    flows, launches = {}, {}
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=4, solver=solver)
+        runs = {"kernels": lambda: variational_flow(g1, g2, z, z, cfg),
+                "plain": lambda: _coarse_to_fine(g1, g2, z, z, cfg, plain=True)}
+        results = {}
+        for label, run in runs.items():
+            u, v, ms, peak = time_pair(run)
+            results[label] = (u, v)
             c = ops.counters()
-            say("fulldisk", "plain route (kernel, plain): " + json.dumps(c))
-            if any(c[n][0] != 0 or c[n][1] <= 0 for n in ops.WRAPPERS):
-                raise AssertionError("fulldisk: the plain route launched a kernel")
-    (u, v), (pu, pv) = results["kernels"], results["plain"]
-    same = torch.equal(u, pu) and torch.equal(v, pv)
-    diff = max(float((u - pu).abs().max()), float((v - pv).abs().max()))
-    med_u = float(u[512:-512, 512:-512].median())
-    med_v = float(v[512:-512, 512:-512].median())
-    say("fulldisk", f"kernels vs plain: bit-identical {same} (max |d| {diff:.3e} px); "
-                    f"median flow ({med_u:.4f}, {med_v:.4f}) px, truth (2.4, 0)")
-    if not (same and abs(med_u - 2.4) < 0.1 and abs(med_v) < 0.1):
-        raise AssertionError("fulldisk: flow differs from the plain route or the truth")
-    uw, vw, ur, vr = pix2uv(u, v, nav, 60.0)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(u).all() and torch.isfinite(v).all()
-            and uw.shape == (h, w) and ur.shape == (h, w)):
-        raise AssertionError("fulldisk: non-finite flow or wrong product shape")
+            say("fulldisk", f"{solver} {label}: {ms:.1f} ms per pair, "
+                            f"{mpix / (ms / 1e3):.3f} Mpix/s, peak {peak:.2f} GiB, "
+                            f"host syncs {c[f'{solver}_host_syncs']}")
+            if label == "kernels":
+                launches[solver] = _check_counters("fulldisk", solver)
+            else:
+                say("fulldisk", f"{solver} plain route (kernel, plain): " + json.dumps(c))
+                if (any(c[n][0] != 0 for n in ops.WRAPPERS)
+                        or any(c[n][1] <= 0 for n in ops.PATHS[solver])):
+                    raise AssertionError(f"fulldisk: the {solver} plain route launched a kernel")
+        (u, v), (pu, pv) = results["kernels"], results["plain"]
+        same = torch.equal(u, pu) and torch.equal(v, pv)
+        diff = max(float((u - pu).abs().max()), float((v - pv).abs().max()))
+        m = min(512, h // 4)
+        med_u = float(u[m:-m, m:-m].median())
+        med_v = float(v[m:-m, m:-m].median())
+        say("fulldisk", f"{solver} kernels vs plain: bit-identical {same} (max |d| "
+                        f"{diff:.3e} px); median flow ({med_u:.4f}, {med_v:.4f}) px, "
+                        f"truth (2.4, 0)")
+        if not (same and abs(med_u - 2.4) < 0.1 and abs(med_v) < 0.1):
+            raise AssertionError(f"fulldisk: the {solver} flow differs from the plain "
+                                 "route or the truth")
+        uw, vw, ur, vr = pix2uv(u, v, nav, 60.0)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(u).all() and torch.isfinite(v).all()
+                and uw.shape == (h, w) and ur.shape == (h, w)):
+            raise AssertionError(f"fulldisk: {solver}: non-finite flow or wrong product shape")
+        flows[solver] = (u.contiguous(), v.contiguous())
+    report["_launches"] = launches
 
-    # the warp at the finest level's shape, on the final flow
+    # the warp at the finest level's shape, on the final PCG flow
+    u, v = flows["pcg"]
     gx2, gy2 = gradient_4th(g2)
     gxx, _ = gradient_4th(gx2)
     gxy, gyy = gradient_4th(gy2)
     gx1, gy1 = gradient_4th(g1)
     stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
-    u, v = u.contiguous(), v.contiguous()
     kw, pw = warp(stack, u, v), warp_bilinear_dense(stack, u, v)
     if not all(torch.equal(a, b) for a, b in zip(kw, pw)):
         raise AssertionError(f"fulldisk: warp {h}x{w} differs from its plain version")
@@ -439,6 +597,46 @@ def phase_fulldisk(dev, report):
                 raise AssertionError(f"fulldisk: PCG passes {lh}x{lw} {mode} differ "
                                      f"from their plain versions (partial sums rel "
                                      f"{part_rel:.2e})")
+
+    # the SOR path's assembly and half-sweeps at every level's shape: at
+    # 5424^2 around the final SOR flow (timed), below on the pair downsampled
+    # the solver's way with a noisy flow
+    for k in reversed(range(cfg.kiters)):
+        factor = float(np.float32(cfg.scale_factor) ** (cfg.kiters - k - 1))
+        lh, lw = zoom_size(h, factor), zoom_size(w, factor)
+        if k == cfg.kiters - 1:
+            lg1, lg2 = g1, g2
+            lu, lv = flows["sor"]
+        else:
+            lvl = pyramid_downsample(torch.cat([g1, g2]), factor)
+            lg1, lg2 = lvl[:1].contiguous(), lvl[1:].contiguous()
+            lu, lv = noisy_flow(lh, lw, dev, k)
+        inputs = assembly_inputs(lg1, lg2, lu, lv)
+        for al1 in (1.0, 0.5):
+            mode = "quad" if al1 == 1.0 else "robust"
+            equal, ea = compare_assembly(inputs, al1)
+            cf, _ = assemble_cf(*inputs, al1, *ASM_SCALARS, True)
+            x = 0.1 * torch.stack([lu, lv])
+            s_equal, es = compare_sweeps(x, cf)
+            report["assemble_cf"]["max_abs_err"] = max(report["assemble_cf"]["max_abs_err"], ea)
+            report["sor_sweep"]["max_abs_err"] = max(report["sor_sweep"]["max_abs_err"], es)
+            line = f"{lh}x{lw} {mode}: assemble_cf bit-exact {equal}, sor_sweep bit-exact {s_equal}"
+            if k == cfg.kiters - 1:
+                args = (*inputs, al1, *ASM_SCALARS, True)
+                ta = (cuda_ms(lambda: assemble_cf(*args)),
+                      cuda_ms(lambda: assemble_cf_plain(*args), n=3))
+                xk, xp = x.clone(), x.clone()
+                ts = (cuda_ms(lambda: sor_sweep(xk, cf, 0)),
+                      cuda_ms(lambda: sor_sweep_plain(xp, cf, 0), n=3))
+                tr = cuda_ms(lambda: sor_sweep(x, cf, 0, resid=True))
+                times[f"assemble_cf_{mode}"], times[f"sor_sweep_{mode}"] = ta, ts
+                line += (f", assemble_cf {ta[0]:.3f} ms (plain {ta[1]:.3f} ms), "
+                         f"sor_sweep half-sweep {ts[0]:.3f} ms (plain {ts[1]:.3f} ms), "
+                         f"with the residual {tr:.3f} ms")
+            say("fulldisk", line)
+            if not (equal and s_equal):
+                raise AssertionError(f"fulldisk: the SOR path's kernels at {lh}x{lw} {mode} "
+                                     "differ from their plain versions")
     report["_times"] = times
 
 
@@ -456,10 +654,10 @@ def main(argv=None):
     have = phase_env()
     if "build" in only:
         phase_build()
-    if "warp" in only:
-        phase_warp(dev, report)
-    if "pcg" in only:
-        phase_pcg(dev, report)
+    for name, phase in (("warp", phase_warp), ("pcg", phase_pcg),
+                        ("assemble", phase_assemble), ("sor", phase_sor)):
+        if name in only:
+            phase(dev, report)
     if "main" in only:
         phase_main(dev, have["h5py"])
     if "golden" in only:
@@ -467,20 +665,15 @@ def main(argv=None):
     if "fulldisk" in only:
         phase_fulldisk(dev, report)
 
-    if {"warp", "pcg", "fulldisk"} <= only:
+    if {"warp", "pcg", "assemble", "sor", "fulldisk"} <= only:
+        from octane_tpu_torch import ops
+
         launches, times = report["_launches"], report["_times"]
         entries = []
-        for name, src, replaces, tkey in (
-                ("warp_bilinear", WARP_SRC,
-                 "octane_tpu/ops/pallas/warp.py:80 _kernel + :284 _stats_kernel",
-                 "warp_bilinear"),
-                ("pcg_pass_a", PCG_SRC, "octane_tpu/ops/pallas/cg.py:94 _pass_a",
-                 "pcg_pass_a_robust"),
-                ("pcg_pass_b", PCG_SRC, "octane_tpu/ops/pallas/cg.py:141 _pass_b",
-                 "pcg_pass_b_robust")):
-            wrapper = "warp" if name == "warp_bilinear" else name
+        for name, wrapper, src, replaces, tkey in KERNELS:
+            path = "pcg" if wrapper in ops.PATHS["pcg"] else "sor"
             entries.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces, "launches": launches[wrapper][0],
+                            "replaces": replaces, "launches": launches[path][wrapper][0],
                             "max_abs_err": report[name]["max_abs_err"],
                             "ms": times[tkey][0], "plain_ms": times[tkey][1]})
         print(json.dumps({"kernels": entries}), flush=True)

@@ -1,15 +1,17 @@
 """OCTANE on PyTorch and CUDA: the dense variational optical-flow pair path.
 
 A port of the JAX/Pallas package ``octane_tpu`` to PyTorch, with the
-Pallas kernels of the default path rewritten as hand-written CUDA kernels
+Pallas kernels of the pair path rewritten as hand-written CUDA kernels
 for Hopper (``sm_90a``).  The module layout follows ``octane_tpu`` so each
 counterpart is found under the same name:
 
   core/         <- clamp/mirror shifts, blur, bicubic, pyramid zoom, gradients
   nav/          <- GOES fixed-grid navigation (float64) and pixel->wind
-  flow/         <- stencil assembly, PCG, coarse-to-fine solver, dispatcher
+  flow/         <- stencil assembly, PCG and SOR reference loops,
+                   coarse-to-fine solver, dispatcher
   io/           <- data model, GOES L1b reader, product writer, native helpers
-  ops/          <- kernel wrappers (warp, Jacobi-PCG passes) and their build
+  ops/          <- kernel wrappers (warp, Jacobi-PCG passes, fused assembly,
+                   SOR half-sweep), the SOR driver and the kernels' build
   csrc/         <- the CUDA sources
   pipeline/cli  <- the pair pipeline and its command line
 

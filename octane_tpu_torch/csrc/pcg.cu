@@ -144,11 +144,6 @@ dim3 pcg_grid(int h, int w) { return dim3((w + kBX - 1) / kBX, (h + kBY - 1) / k
 
 }  // namespace
 
-extern "C" int octane_pcg_num_partials(int h, int w) {
-  const dim3 g = pcg_grid(h, w);
-  return (int)(g.x * g.y);
-}
-
 extern "C" int octane_pcg_pass_a(const float* x, const float* r, const float* p,
                                  const float* cf, const float* ab, float* x_out,
                                  float* p_out, float* ap_out, float* partials,

@@ -6,7 +6,9 @@ operator is applied matrix-free with the solver's mirror-at-1 edges
 (oct_variational_optical_flow.cu:868-1077), and ``assemble`` reproduces
 the data and smoothness terms of the assembly loop (:611-1097) in the
 JAX package's operation order.  In the quadratic GNC step (al1 == 1) the
-four off-diagonals are the Python scalar -1.0.
+four off-diagonals are the Python scalar -1.0.  ``assemble_samples`` is the
+same assembly on given warp outputs; ``ops.assemble`` builds the SOR
+coefficient stack from it and holds its CUDA kernel to it.
 """
 
 from __future__ import annotations
@@ -68,6 +70,24 @@ def assemble(
     ``warp_fn(stack, u, v) -> (samples, bc_x, bc_y)`` defaults to the plain
     ``warp_bilinear_dense``; ``stack`` is [geo2, gx2, gy2, gxx, gxy, gyy].
     """
+    if warp_fn is None:
+        warp_fn = warp_bilinear_dense
+    if stack is None:
+        stack = torch.cat([geo2, gx2, gy2, gxx, gxy, gyy], dim=0)
+    samples, bc_x, bc_y = warp_fn(stack, u, v)
+    return assemble_samples(samples, bc_x, bc_y, geo1, gx1, gy1, u, v, uhat, vhat,
+                            al1, alpha, lam_over_alpha, lambdac, dozim)
+
+
+def assemble_samples(
+    samples, bc_x, bc_y, geo1, gx1, gy1,
+    u, v, uhat, vhat,
+    al1: float, alpha: float, lam_over_alpha: float, lambdac: float,
+    dozim: bool,
+) -> StencilSystem:
+    """``assemble`` on given warp outputs: ``samples`` is the (6C, H, W)
+    warped [geo2, gx2, gy2, gxx, gxy, gyy] stack, ``bc_x``/``bc_y`` its
+    clamp flags."""
     c_, h, w = geo1.shape
     quad_only = float(al1) == 1.0
     one_m_al1 = 1.0 - al1
@@ -104,11 +124,6 @@ def assemble(
         psisnmiv = psis1 * vW + psis2 * vN + psis3 * vE + psis4 * vS
 
     # --- warped data terms, accumulated over channels (ref :727-829) --------
-    if warp_fn is None:
-        warp_fn = warp_bilinear_dense
-    if stack is None:
-        stack = torch.cat([geo2, gx2, gy2, gxx, gxy, gyy], dim=0)
-    samples, bc_x, bc_y = warp_fn(stack, u, v)
     bc_xy = bc_x | bc_y
     zero = torch.zeros((h, w), dtype=torch.float32, device=u.device)
     vr1 = vr2 = vr4 = vr5 = vr6 = intcomp = zero

@@ -2,13 +2,17 @@
 counterpart of octane_tpu.flow.variational.
 
 The pyramid is a Python loop over levels; at each level ``solve_level``
-runs GNC x liters rounds of warp -> assemble -> Jacobi-PCG.  The warp and
-the PCG passes go through the wrappers of ``ops`` at every level: their
-CUDA kernels on the card, their plain versions on the CPU.  The internal
-``plain`` argument of ``solve_level``/``_coarse_to_fine`` calls the plain
-versions on any device instead (each call counted as a plain call), so the
-kernels can be timed and checked against them on the card; no option of
-``OFConfig`` or the CLI reaches it.
+runs GNC x liters rounds of warp -> assemble -> solve.  With
+``solver="pcg"`` (the default) a round is the warp, the eager assembly
+(flow.stencil) and the Jacobi-PCG passes; with ``solver="sor"`` it is the
+warp, the fused assembly (ops.assemble) and the multi-sweep red-black SOR
+(ops.sor), as octane_tpu's fused chain on one device.  Every kernel goes
+through its wrapper in ``ops`` at every level: the CUDA kernel on the card,
+the plain version on the CPU.  The internal ``plain`` argument of
+``solve_level``/``_coarse_to_fine`` calls the plain versions on any device
+instead (each call counted as a plain call), so the kernels can be timed
+and checked against them on the card; no option of ``OFConfig`` or the CLI
+reaches it.
 
 Numerics follow the reference (SURVEY.md section 8): per-level images are
 blurred and floor-subsampled from full resolution, first-guess fields are
@@ -28,8 +32,10 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_in_flow, zoom_size
 from octane_tpu_torch.flow.stencil import assemble
+from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
 from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                       pcg_pass_b_plain, pcg_solve_fused)
+from octane_tpu_torch.ops.sor import sor_solve_cf, sor_sweep, sor_sweep_plain
 from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 
 
@@ -40,28 +46,31 @@ def _f32(x: float) -> float:
 
 def _counted_plain(wrapper, plain_fn):
     """``plain_fn`` on any device, each call added to ``wrapper.plain_calls``."""
-    def run(*args):
+    def run(*args, **kwargs):
         wrapper.plain_calls += 1
-        return plain_fn(*args)
+        return plain_fn(*args, **kwargs)
     return run
 
 
 _PLAIN_WARP = _counted_plain(warp, warp_bilinear_dense)
 _PLAIN_PASSES = (_counted_plain(pcg_pass_a, pcg_pass_a_plain),
                  _counted_plain(pcg_pass_b, pcg_pass_b_plain))
+_PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
+_PLAIN_SWEEP = _counted_plain(sor_sweep, sor_sweep_plain)
 
 
 def solve_level(
     g1, g2, u, v, uhat, vhat,
     alpha: float, lam_over_alpha: float, lambdac: float, tol: float,
     liters: int, cgiters: int, gnc_steps: int, dozim: bool,
-    plain: bool = False,
+    solver: str = "pcg", sor_omega: float = 1.9, plain: bool = False,
 ):
     """GNC x inner iterations at one pyramid level; returns (u, v).
 
     g1/g2: (C, H, W) level images; u/v: initial flow; uhat/vhat: first-guess
-    hint fields at this level.  ``plain`` calls the kernels' plain versions
-    on any device (see the module docstring).
+    hint fields at this level.  ``solver`` is "pcg" or "sor" (relaxation
+    factor ``sor_omega``); ``plain`` calls the kernels' plain versions on
+    any device (see the module docstring).
     """
     gx1, gy1 = gradient_4th(g1)
     gx2, gy2 = gradient_4th(g2)
@@ -69,16 +78,34 @@ def solve_level(
     gxy, gyy = gradient_4th(gy2)   # Ixy = d/dx (d/dy geo2), ref :591-594
     stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy], dim=0).contiguous()
     warp_fn = _PLAIN_WARP if plain else warp
-    passes = _PLAIN_PASSES if plain else (pcg_pass_a, pcg_pass_b)
     alpha, lam_over_alpha, lambdac = _f32(alpha), _f32(lam_over_alpha), _f32(lambdac)
+
+    if solver == "sor":
+        # octane_tpu's fused chain (variational.py:125-178): the level stack
+        # [geo1, gx1, gy1] is loop-invariant
+        g1s = torch.cat([g1, gx1, gy1], dim=0).contiguous()
+        asm_fn = _PLAIN_ASSEMBLE if plain else assemble_cf
+        sweep = _PLAIN_SWEEP if plain else sor_sweep
+
+        def round_(u, v, al1):
+            samples, bc_x, bc_y = warp_fn(stack, u, v)
+            cf, partials = asm_fn(samples, bc_x, bc_y, g1s, u, v, uhat, vhat,
+                                  al1, lambdac, alpha, lam_over_alpha, dozim)
+            return sor_solve_cf(cf, torch.sum(partials), tol, cgiters,
+                                sor_omega, sweep)
+    else:
+        passes = _PLAIN_PASSES if plain else (pcg_pass_a, pcg_pass_b)
+
+        def round_(u, v, al1):
+            sysm = assemble(g1, g2, gx1, gy1, gx2, gy2, gxx, gxy, gyy,
+                            u, v, uhat, vhat, al1, alpha, lam_over_alpha,
+                            lambdac, dozim, warp_fn=warp_fn, stack=stack)
+            return pcg_solve_fused(sysm, tol, cgiters, *passes)
 
     for step in range(gnc_steps):
         al1 = 1.0 - 0.5 * step          # 1, 0.5, 0: quadratic first
         for _ in range(liters):
-            sysm = assemble(g1, g2, gx1, gy1, gx2, gy2, gxx, gxy, gyy,
-                            u, v, uhat, vhat, al1, alpha, lam_over_alpha,
-                            lambdac, dozim, warp_fn=warp_fn, stack=stack)
-            du, dv = pcg_solve_fused(sysm, tol, cgiters, *passes)
+            du, dv = round_(u, v, al1)
             u, v = u + du, v + dv
     return u, v
 
@@ -112,7 +139,7 @@ def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
             g1, g2, u, v, uhat, vhat,
             cfg.alpha, cfg.lambda_over_alpha, lambdac_k, cfg.cg_tol,
             cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim,
-            plain=plain)
+            solver=cfg.solver, sor_omega=cfg.sor_omega, plain=plain)
     return u, v
 
 
@@ -129,9 +156,6 @@ def variational_flow(
     u0/v0: (H, W) first-guess pixel displacements (zeros if none).
     Returns (u, v) dense pixel displacements at full resolution.
     """
-    if cfg.solver != "pcg":
-        raise NotImplementedError(
-            f"solver {cfg.solver!r} is not ported yet; the port runs 'pcg'")
     geo1 = geo1.to(torch.float32)
     geo2 = geo2.to(torch.float32)
     if geo1.dim() == 2:

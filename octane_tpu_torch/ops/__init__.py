@@ -1,17 +1,24 @@
-"""Kernel wrappers: the bilinear warp (``ops.warp``) and the two Jacobi-PCG
-passes (``ops.pcg``), built by ``ops.build``.
+"""Kernel wrappers: the bilinear warp (``ops.warp``), the two Jacobi-PCG
+passes (``ops.pcg``), the fused assembly (``ops.assemble``) and the SOR
+half-sweep (``ops.sor``), built by ``ops.build``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors, and counts both.  The solver's internal
 plain route (flow.variational) adds its direct calls of the plain versions
-to the same ``plain_calls`` counters.
+to the same ``plain_calls`` counters.  ``PATHS`` names the wrappers each
+relaxer's solve goes through.
 """
 
+from octane_tpu_torch.ops import assemble as _assemble
 from octane_tpu_torch.ops import pcg as _pcg
+from octane_tpu_torch.ops import sor as _sor
 from octane_tpu_torch.ops import warp as _warp
 
 WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
-            "pcg_pass_b": _pcg.pcg_pass_b}
+            "pcg_pass_b": _pcg.pcg_pass_b, "assemble_cf": _assemble.assemble_cf,
+            "sor_sweep": _sor.sor_sweep}
+PATHS = {"pcg": ("warp", "pcg_pass_a", "pcg_pass_b"),
+         "sor": ("warp", "assemble_cf", "sor_sweep")}
 
 
 def reset_counters() -> None:
@@ -19,13 +26,16 @@ def reset_counters() -> None:
         fn.launches = 0
         fn.plain_calls = 0
     _pcg.pcg_solve_fused.host_syncs = 0
+    _sor.sor_solve_cf.host_syncs = 0
 
 
 def counters() -> dict:
-    """{name: (kernel launches, plain calls)} plus the PCG host syncs."""
+    """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
+    host syncs."""
     out = {name: (fn.launches, fn.plain_calls) for name, fn in WRAPPERS.items()}
     out["pcg_host_syncs"] = _pcg.pcg_solve_fused.host_syncs
+    out["sor_host_syncs"] = _sor.sor_solve_cf.host_syncs
     return out
 
 
-__all__ = ["WRAPPERS", "reset_counters", "counters"]
+__all__ = ["WRAPPERS", "PATHS", "reset_counters", "counters"]

@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``octane_tpu_torch/csrc`` and load them.
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
 C interface, on first use, into ``octane_tpu_torch/_build/`` (git-ignored;
 the file name carries a hash of the sources and flags, so an edit
 rebuilds).  The library is loaded with ctypes: pointers and the stream are
@@ -28,15 +29,17 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # -fmad=false: no multiply-add contraction anywhere, so the kernels round
 # exactly like PyTorch's separate elementwise kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 _SIGNATURES = {
     "octane_warp": (I, [P] * 8 + [I] * 4 + [P]),
     "octane_pcg_pass_a": (I, [P] * 9 + [I] * 3 + [P]),
     "octane_pcg_pass_b": (I, [P] * 6 + [I] * 2 + [P]),
-    "octane_pcg_num_partials": (I, [I, I]),
+    "octane_assemble_cf": (I, [P] * 10 + [I] * 5 + [F] * 5 + [P]),
+    "octane_sor_sweep": (I, [P] * 4 + [I] * 4 + [F, P]),
     "octane_error_string": (ctypes.c_char_p, [I]),
 }
 
@@ -73,15 +76,27 @@ def build_kernels():
         return lib_path, {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    cus = [src for src in srcs if src.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for obj, src in zip(objs, cus)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    results = [(cmd, proc.returncode, *out) for cmd, proc, out in zip(cmds, procs, outs)]
+    if all(code == 0 for _, code, *_ in results):
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
+    for cmd, code, out, err in results:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{out}{err}")
     os.replace(tmp, lib_path)
-    return lib_path, {"cmd": " ".join(cmd), "seconds": time.perf_counter() - t0,
-                      "ptxas": proc.stderr}
+    for obj in objs:
+        os.remove(obj)
+    return lib_path, {"cmd": "\n".join(" ".join(cmd) for cmd, *_ in results),
+                      "seconds": time.perf_counter() - t0,
+                      "ptxas": "".join(err for *_, err in results)}
 
 
 def load_kernels() -> ctypes.CDLL:

@@ -35,12 +35,18 @@ from octane_tpu_torch.core.bc import mirror_shift
 from octane_tpu_torch.ops.build import check_status, load_kernels
 
 
-BLOCK_X, BLOCK_Y = 32, 8        # csrc/pcg.cu: kBX, kBY
+BLOCK_X, BLOCK_Y = 32, 8        # csrc/pcg.cu, assemble.cu, sor.cu: kBX, kBY
+
+
+def num_partials(h: int, w: int) -> int:
+    """Number of 32 x 8 blocks of an (h, w) plane: the kernels' partials."""
+    return -(-h // BLOCK_Y) * -(-w // BLOCK_X)
 
 
 def block_partials(part: torch.Tensor) -> torch.Tensor:
     """Sums of an (h, w) plane over 32 x 8 blocks, flattened row-major:
-    the partials of csrc/pcg.cu, added in its order.  A block row is one
+    the partials of csrc/pcg.cu, assemble.cu and sor.cu, added in their
+    order.  A block row is one
     warp, reduced by the shuffle tree (lane l adds lane l + 16, then + 8,
     ..., + 1); the block adds its 8 warp sums in warp order.  The ragged
     edge is padded with zeros, as the kernel's idle threads add 0."""
@@ -121,8 +127,7 @@ def pcg_pass_a(x, r, p, cf, ab):
     lib = load_kernels()
     _, h, w = x.shape
     x_new, p_new, ap = (torch.empty_like(x) for _ in range(3))
-    partials = torch.empty(lib.octane_pcg_num_partials(h, w), dtype=torch.float32,
-                           device=x.device)
+    partials = torch.empty(num_partials(h, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.octane_pcg_pass_a(
             x.data_ptr(), r.data_ptr(), p.data_ptr(), cf.data_ptr(), ab.data_ptr(),
@@ -145,8 +150,7 @@ def pcg_pass_b(r, ap, cf, alpha):
     lib = load_kernels()
     _, h, w = r.shape
     r_new = torch.empty_like(r)
-    partials = torch.empty((lib.octane_pcg_num_partials(h, w), 2),
-                           dtype=torch.float32, device=r.device)
+    partials = torch.empty((num_partials(h, w), 2), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         status = lib.octane_pcg_pass_b(
             r.data_ptr(), ap.data_ptr(), cf.data_ptr(), alpha.data_ptr(),

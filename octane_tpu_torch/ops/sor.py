@@ -1,0 +1,186 @@
+"""Red-black SOR: the CUDA half-sweep kernel, its plain version and the driver.
+
+The port of octane_tpu/ops/pallas/sor.py.  The system is the coefficient
+stack of ``build_cf``: (nc, h, w) float32 planes [a1, a4, a2, bu, bv, rdet]
+for the quadratic GNC step (nc = 6, off-diagonals the scalar -1) or
+[a1, a4, a2, bu, bv, a5, a6, a7, a8, rdet] (nc = 10), where rdet is the
+hoisted reciprocal block determinant (flow.cg.sor_rdet).  The fused
+assembly (ops.assemble) writes it directly.
+
+``sor_sweep(x, cf, colour, omega, resid)`` is one colour half-sweep of the
+(2, h, w) iterate x (u then v; colour 0 is red, (row + column) even): the
+residual r = b - A x under the mirror-at-1 edges, then x += omega times the
+exact 2 x 2 block solve on that colour's cells.  Without ``resid`` it
+updates x in place and returns (x, None).  With ``resid`` it leaves x as
+it is and returns a new iterate with the partials of the full-grid
+pre-update ||r||^2, one per 32 x 8 block in the kernels' summation order
+(``ops.pcg.block_partials``), so the plain version gives the kernel's
+result bit for bit.  On a CUDA tensor it launches ``csrc/sor.cu``; on a CPU
+tensor it runs ``sor_sweep_plain``.  ``sor_sweep.launches`` /
+``.plain_calls`` count them.
+
+``sor_solve_cf`` is the driver (sor.py:482): passes of S = min(8, iters)
+red+black sweeps, the stopping test ||r||^2 <= tol read on the host once
+per pass (``sor_solve_cf.host_syncs`` counts the reads) and a remainder
+pass of iters mod S sweeps only while the residual exceeds tol.  Each pass
+reports the residual of its incoming iterate, so the test after pass k
+reads the residual at the start of pass k, as on the TPU.  The reference
+loop flow.cg.sor_solve tests every sweep: the two agree bit for bit while
+tol does not bind, and the driver runs at most 2S more sweeps when it does.
+
+flow.stencil imports ops (the warp), so the flow modules are imported
+inside the functions that use them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from octane_tpu_torch.ops.build import check_status, load_kernels
+from octane_tpu_torch.ops.pcg import block_partials, num_partials
+
+OMEGA = 1.9            # the SOR over-relaxation factor (config.sor_omega)
+PASS_SWEEPS = 8        # red+black sweeps per pass (sor.py:499)
+
+
+def build_cf(sysm) -> torch.Tensor:
+    """The (nc, h, w) coefficient stack of a flow.stencil.StencilSystem
+    (octane_tpu's build_cf without the padding); a scalar ``a5`` marks the
+    quadratic step."""
+    from octane_tpu_torch.flow.cg import sor_rdet
+
+    planes = [sysm.a1, sysm.a4, sysm.a2, sysm.bu, sysm.bv]
+    if torch.is_tensor(sysm.a5):
+        planes += [sysm.a5, sysm.a6, sysm.a7, sysm.a8]
+    return torch.stack(planes + [sor_rdet(sysm)])
+
+
+def _system(cf):
+    """The StencilSystem view of a coefficient stack."""
+    from octane_tpu_torch.flow.stencil import StencilSystem
+
+    off = (-1.0,) * 4 if cf.shape[0] == 6 else tuple(cf[5:9])
+    return StencilSystem(cf[0], cf[2], cf[1], *off, cf[3], cf[4])
+
+
+def sor_sweep_plain(x, cf, colour: int, omega: float = OMEGA, resid: bool = False):
+    """Plain half-sweep: the residual over the whole grid, the update masked
+    to the colour (flow.cg.sor_solve's colour sweep)."""
+    from octane_tpu_torch.flow.cg import checkerboard
+    from octane_tpu_torch.flow.stencil import apply_stencil
+
+    sysm = _system(cf)
+    au, av = apply_stencil(sysm, x[0], x[1])
+    ru = sysm.bu - au
+    rv = sysm.bv - av
+    rdet = cf[-1]
+    ndu = (sysm.a4 * ru - sysm.a2 * rv) * rdet
+    ndv = (sysm.a1 * rv - sysm.a2 * ru) * rdet
+    mask = checkerboard(*x.shape[1:], x.device)
+    if colour:
+        mask = ~mask
+    new = torch.stack([torch.where(mask, x[0] + omega * ndu, x[0]),
+                       torch.where(mask, x[1] + omega * ndv, x[1])])
+    if resid:
+        return new, block_partials(ru * ru + rv * rv)
+    x.copy_(new)
+    return x, None
+
+
+def _check_cf(name, cf):
+    """Raise ValueError unless ``cf`` is an (6|10, h, w) float32 contiguous
+    coefficient stack with h, w >= 2."""
+    if cf.dim() != 3 or cf.shape[0] not in (6, 10):
+        raise ValueError(f"{name}: the coefficient stack must be (6|10, h, w), "
+                         f"got {tuple(cf.shape)}")
+    if min(cf.shape[1:]) < 2:
+        raise ValueError(f"{name}: the grid needs at least 2 rows and 2 columns")
+    if cf.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {cf.dtype}")
+    if not cf.is_contiguous():
+        raise ValueError(f"{name}: the coefficient stack must be contiguous")
+    if cf.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {cf.device}")
+
+
+def sor_sweep(x, cf, colour: int, omega: float = OMEGA, resid: bool = False):
+    """One half-sweep of ``colour``; see the module docstring."""
+    _check_cf("sor_sweep", cf)
+    if x.shape != (2, *cf.shape[1:]):
+        raise ValueError(f"sor_sweep: x must be (2, h, w) = (2, {cf.shape[1]}, "
+                         f"{cf.shape[2]}), got {tuple(x.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.device != cf.device:
+        raise ValueError("sor_sweep: x must be contiguous float32 on the device of cf")
+    if colour not in (0, 1):
+        raise ValueError(f"sor_sweep: colour must be 0 (red) or 1 (black), got {colour}")
+    if x.device.type == "cpu":
+        sor_sweep.plain_calls += 1
+        return sor_sweep_plain(x, cf, colour, omega, resid)
+    lib = load_kernels()
+    _, h, w = x.shape
+    x_out = partials = None
+    if resid:
+        x_out = torch.empty_like(x)
+        partials = torch.empty(num_partials(h, w), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.octane_sor_sweep(
+            x.data_ptr(), None if x_out is None else x_out.data_ptr(), cf.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            h, w, int(cf.shape[0] == 6), colour, omega,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    check_status(status, "octane_sor_sweep")
+    sor_sweep.launches += 1
+    return (x_out, partials) if resid else (x, None)
+
+
+sor_sweep.launches = 0
+sor_sweep.plain_calls = 0
+
+
+def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, sweep=sor_sweep):
+    """Multi-sweep SOR from x = 0 on a coefficient stack; returns (du, dv).
+
+    ``resid0`` is ||b||^2 (a device scalar, e.g. the sum of the assembly's
+    partials); ``sweep`` defaults to the wrapper, and the solver's plain
+    route passes the counted plain version.
+    """
+    _check_cf("sor_solve_cf", cf)
+    if iters < 1:
+        raise ValueError(f"sor_solve_cf: iters must be >= 1, got {iters}")
+    _, h, w = cf.shape
+    s_main = min(PASS_SWEEPS, iters)
+    n_main, s_rem = divmod(iters, s_main)
+    tol32 = float(np.float32(tol))
+
+    def run(x, ns):
+        x, part = sweep(x, cf, 0, omega, resid=True)
+        sweep(x, cf, 1, omega)
+        for _ in range(ns - 1):
+            sweep(x, cf, 0, omega)
+            sweep(x, cf, 1, omega)
+        return x, torch.sum(part)
+
+    x = torch.zeros((2, h, w), dtype=torch.float32, device=cf.device)
+    resid = resid0
+    for _ in range(n_main):
+        sor_solve_cf.host_syncs += 1
+        if not float(resid) > tol32:
+            break
+        x, resid = run(x, s_main)
+    else:
+        if s_rem:
+            sor_solve_cf.host_syncs += 1
+            if float(resid) > tol32:
+                x, _ = run(x, s_rem)
+    return x[0], x[1]
+
+
+sor_solve_cf.host_syncs = 0
+
+
+def sor_solve_fused(sysm, tol, iters: int, omega: float = OMEGA, sweep=sor_sweep):
+    """Drop-in for flow.cg.sor_solve (octane_tpu's sor_solve_fused): the
+    driver on ``build_cf(sysm)`` with resid0 = ||b||^2."""
+    resid0 = torch.sum(sysm.bu * sysm.bu) + torch.sum(sysm.bv * sysm.bv)
+    return sor_solve_cf(build_cf(sysm), resid0, tol, iters, omega, sweep)

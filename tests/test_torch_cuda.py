@@ -3,18 +3,21 @@
 Marked ``cuda``: they skip where no CUDA device is present.  Run them on
 the GPU with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Budgets: the warp is bit-exact (samples, flags and tile statistics); so
-are the PCG passes, block partials included (the plain versions sum in the
-kernels' order), and the pass driver; a 30-iteration solve agrees to rel
-5e-4 with the reference loop flow.cg.pcg_solve (docs/PARITY.md).
+are the PCG passes, the fused assembly and the SOR half-sweeps, block
+partials included (the plain versions sum in the kernels' order), and the
+PCG and SOR drivers; a 30-iteration PCG solve agrees to rel 5e-4 with the
+reference loop flow.cg.pcg_solve, a 30-sweep SOR solve to rel 2e-5 with
+flow.cg.sor_solve (docs/PARITY.md).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from octane_tpu_torch.flow.cg import pcg_solve
+from octane_tpu_torch.core.gradients import gradient_4th
+from octane_tpu_torch.flow.cg import pcg_solve, sor_solve
 from octane_tpu_torch.flow.stencil import StencilSystem, apply_stencil
-from octane_tpu_torch.ops import pcg, warp
+from octane_tpu_torch.ops import assemble, pcg, sor, warp
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +78,74 @@ def test_pcg_kernels_match_plain(dev, hw, quad):
     ru, rv = pcg_solve(lambda a, b: apply_stencil(s, a, b), s.a1, s.a4, s.bu, s.bv,
                        1e-8, 30)
     assert max(_rel(fu, ru), _rel(fv, rv)) <= 5e-4
+
+
+# odd sizes and the 2-row / 2-column minimum: the mirror-at-1 neighbour
+# across an edge is the other colour's cell
+SHAPES = [(256, 384), (133, 257), (40, 70), (2, 7), (5, 2)]
+
+
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("hw", SHAPES)
+def test_assemble_kernel_bit_exact(dev, hw, al1):
+    h, w = hw
+    rng = np.random.default_rng(2)
+
+    def arr(*shape, lo=-3.0, hi=3.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+    g1, g2 = arr(1, h, w, lo=0, hi=255), arr(1, h, w, lo=0, hi=255)
+    gx1, gy1 = gradient_4th(g1)
+    gx2, gy2 = gradient_4th(g2)
+    gxx, _ = gradient_4th(gx2)
+    gxy, gyy = gradient_4th(gy2)
+    u, v = arr(h, w), arr(h, w)
+    stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
+    samples, bc_x, bc_y = warp.warp_bilinear_dense(stack, u, v)
+    g1s = torch.cat([g1, gx1, gy1]).contiguous()
+    args = (samples, bc_x, bc_y, g1s, u, v, 0.5 * u, 0.5 * v, al1, 0.05, 5.0, 0.2, True)
+    before = assemble.assemble_cf.launches
+    kcf, kpart = assemble.assemble_cf(*args)
+    assert assemble.assemble_cf.launches == before + 1
+    pcf, ppart = assemble.assemble_cf_plain(*args)
+    assert kcf.shape[0] == (6 if al1 == 1.0 else 10)
+    assert torch.equal(kcf, pcf) and torch.equal(kpart, ppart)
+
+
+def _sor_system(h, w, quad, dev, seed=3):
+    rng = np.random.default_rng(seed)
+
+    def arr(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, (h, w)).astype(np.float32)).to(dev)
+
+    offd = (-1.0,) * 4 if quad else tuple(-arr(0.2, 1.2) for _ in range(4))
+    return StencilSystem(arr(4.5, 9.0), arr(-0.4, 0.4), arr(4.5, 9.0), *offd,
+                         arr(-1, 1), arr(-1, 1))
+
+
+@pytest.mark.parametrize("quad", [True, False])
+@pytest.mark.parametrize("hw", SHAPES)
+def test_sor_sweep_kernel_bit_exact(dev, hw, quad):
+    h, w = hw
+    cf = sor.build_cf(_sor_system(h, w, quad, dev))
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 0.3, (2, h, w))
+                         .astype(np.float32)).to(dev)
+    for colour in (0, 1):
+        kx, kpart = sor.sor_sweep(x, cf, colour, 1.9, resid=True)
+        px, ppart = sor.sor_sweep_plain(x, cf, colour, 1.9, resid=True)
+        assert torch.equal(kx, px) and torch.equal(kpart, ppart)
+        kx, px = x.clone(), x.clone()
+        sor.sor_sweep(kx, cf, colour, 1.9)
+        sor.sor_sweep_plain(px, cf, colour, 1.9)
+        assert torch.equal(kx, px)
+
+
+@pytest.mark.parametrize("quad", [True, False])
+@pytest.mark.parametrize("hw", SHAPES)
+def test_sor_driver_kernels_match_plain(dev, hw, quad):
+    s = _sor_system(*hw, quad, dev)
+    ku, kv = sor.sor_solve_fused(s, 1e-8, 30)
+    pu, pv = sor.sor_solve_fused(s, 1e-8, 30, sweep=sor.sor_sweep_plain)
+    assert torch.equal(ku, pu) and torch.equal(kv, pv)
+    tu, tv = sor_solve(s, 1e-8, 30)
+    assert max(_rel(ku, tu), _rel(kv, tv)) <= 2e-5

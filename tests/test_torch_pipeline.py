@@ -79,7 +79,22 @@ def test_product_512_fixture(pair512, tmp_path, entry):
         assert written == [str(tmp_path / "outfile.nc")]
     _check_product(str(tmp_path / "outfile.nc"))
     c = ops.counters()
-    assert all(c[k][1] > 0 for k in ops.WRAPPERS)      # plain versions on the CPU
+    assert all(c[k][1] > 0 for k in ops.PATHS["pcg"])   # plain versions on the CPU
+
+
+def test_cli_sor_recovers_the_shift(pair512, tmp_path):
+    """``-solver sor`` through the CLI: warp -> fused assembly -> SOR at
+    every level (plain versions on the CPU); the pixel shorts' medians lie
+    within 5 counts of the fixture's shift (3.0, -1.5) px."""
+    f1, f2 = pair512
+    ops.reset_counters()
+    assert cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
+                     "-solver", "sor"]) == 0
+    with h5py.File(tmp_path / "outfile.nc") as f:
+        med = [float(np.median(f[k][()])) for k in ("U_raw", "V_raw")]
+    assert abs(med[0] - 300) <= 5 and abs(med[1] + 150) <= 5, med
+    c = ops.counters()
+    assert all(c[k][1] > 0 for k in ops.PATHS["sor"]) and c["pcg_pass_a"] == (0, 0)
 
 
 def test_reader_matches_jax_and_smoke_arrays(pair512):

@@ -102,7 +102,46 @@ def test_plain_route_is_counted_and_bit_identical():
     assert torch.equal(u1, u2) and torch.equal(v1, v2)
 
 
-def test_sor_is_not_ported():
-    z = torch.zeros((8, 8))
-    with pytest.raises(NotImplementedError):
-        variational_flow(z, z, z, z, OFConfig(solver="sor"))
+@pytest.mark.parametrize("name,kiters", [("variational_64.npz", 3),
+                                         ("variational_256.npz", 4)])
+def test_golden_epe_sor(name, kiters):
+    """``solver="sor"``: warp -> fused assembly -> SOR driver at every level
+    (tests/test_golden.py:87-100 holds the JAX SOR path to the same budget)."""
+    g = _load(name)
+    ops.reset_counters()
+    u, v = _run(g, OFConfig(kiters=kiters, solver="sor"))
+    mean, mx, _ = epe_stats(u, v, g["u"], g["v"])
+    assert mean < 0.01, f"mean EPE {mean}"
+    assert mx < 0.1, f"max EPE {mx}"
+    c = ops.counters()
+    rounds = kiters * 9
+    assert c["warp"] == (0, rounds) and c["assemble_cf"] == (0, rounds)
+    assert c["sor_sweep"] == (0, rounds * 2 * 30)    # the tolerance never binds here
+    assert c["sor_host_syncs"] == rounds * 4 and c["pcg_pass_a"] == (0, 0)
+
+
+def test_sor_matches_jax_variational_flow():
+    g = _load("variational_64.npz")
+    cfg = OFConfig(kiters=3, solver="sor")
+    u, v = _run(g, cfg)
+    z = jnp.zeros(g["u"].shape, jnp.float32)
+    ju, jv = jax_flow(g["im1"], g["im2"], z, z, JaxOFConfig(**dataclasses.asdict(cfg)))
+    d = max(float(np.abs(u - np.asarray(ju)).max()),
+            float(np.abs(v - np.asarray(jv)).max()))
+    assert d <= 5e-3, f"max |port - jax| {d:.3e} px"
+
+
+def test_sor_plain_route_is_counted_and_bit_identical():
+    g = _load("variational_64.npz")
+    cfg = OFConfig(kiters=2, solver="sor", sor_omega=1.7)
+    z = torch.zeros(g["u"].shape)
+    im1, im2 = torch.from_numpy(g["im1"])[None], torch.from_numpy(g["im2"])[None]
+    ops.reset_counters()
+    u1, v1 = _coarse_to_fine(im1, im2, z, z, cfg)
+    wrapped = ops.counters()
+    ops.reset_counters()
+    u2, v2 = _coarse_to_fine(im1, im2, z, z, cfg, plain=True)
+    assert ops.counters() == wrapped
+    assert torch.equal(u1, u2) and torch.equal(v1, v2)
+    u3, _ = _coarse_to_fine(im1, im2, z, z, cfg.replace(sor_omega=1.9))
+    assert float((u1 - u3).abs().max()) > 0, "sor_omega must reach the sweeps"

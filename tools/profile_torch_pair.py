@@ -1,16 +1,16 @@
 """Device-time breakdown of one octane_tpu_torch pair solve on a CUDA card.
 
-    python3 tools/profile_torch_pair.py [--size 5424] [--kiters 4]
+    python3 tools/profile_torch_pair.py [--size 5424] [--kiters 4] [--solver pcg|sor]
 
 Runs the bench.py synthetic pair through ``variational_flow`` once to warm
 up, once timed without the profiler (wall clock, CUDA events around it) and
-once under ``torch.profiler``.  Prints both wall times, the summed device
-time and the device's idle share, 1 - device busy / unprofiled wall (the
-profiler's own host cost would inflate a wall taken under it), and the
-device time by kernel grouped into the port's layers (warp, PCG passes,
-the PCG scalar glue, the assembly's elementwise work, shifts/gathers,
-reductions, matmuls).  Writes the chrome trace to
-chiprun_out/profile_pair.json.
+once under ``torch.profiler``.  Prints both wall times, the peak device
+memory, the summed device time and the device's idle share, 1 - device
+busy / unprofiled wall (the profiler's own host cost would inflate a wall
+taken under it), and the device time by kernel grouped into the port's
+layers (warp, PCG passes, fused assembly, SOR half-sweeps, the scalar glue
+and the eager assembly's elementwise work, shifts/gathers, reductions,
+matmuls).  Writes the chrome trace to chiprun_out/profile_pair_<solver>.json.
 """
 
 import argparse
@@ -30,7 +30,9 @@ from octane_tpu_torch.flow.variational import variational_flow  # noqa: E402
 from chip_smoke import load_tests_module  # noqa: E402
 
 GROUPS = (("warp_bilinear", "warp kernel"), ("pcg_pass_a", "PCG pass A"),
-          ("pcg_pass_b", "PCG pass B"), ("gemm", "matmul (zoom)"),
+          ("pcg_pass_b", "PCG pass B"), ("assemble_cf", "fused assembly kernel"),
+          ("sor_update", "SOR half-sweep, in place"),
+          ("sor_resid", "SOR half-sweep with the residual"), ("gemm", "matmul (zoom)"),
           ("index", "index_select (shifts, subsample)"),
           ("reduce", "reductions (sums)"), ("elementwise", "elementwise"),
           ("copy", "copies / cat / stack"), ("fill", "fills"))
@@ -50,6 +52,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=5424)
     ap.add_argument("--kiters", type=int, default=4)
+    ap.add_argument("--solver", choices=("pcg", "sor"), default="pcg")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_pair: no CUDA device", file=sys.stderr)
@@ -60,9 +63,10 @@ def main():
     g1 = torch.from_numpy(im1[None]).to(dev)
     g2 = torch.from_numpy(im2[None]).to(dev)
     z = torch.zeros((h, w), device=dev)
-    cfg = OFConfig(kiters=a.kiters)
+    cfg = OFConfig(kiters=a.kiters, solver=a.solver)
     variational_flow(g1, g2, z, z, cfg)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -71,6 +75,7 @@ def main():
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     event_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ops.reset_counters()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -86,8 +91,9 @@ def main():
             by_group[group(ev.key)] += dt / 1e3
             counts[group(ev.key)] += ev.count
     busy = sum(by_group.values())
-    print(f"{h}x{w} kiters={a.kiters}: wall {wall:.1f} ms without the profiler "
-          f"(CUDA events {event_ms:.1f} ms), {wall_prof:.1f} ms under it; device "
+    print(f"{h}x{w} kiters={a.kiters} solver={a.solver}: wall {wall:.1f} ms without "
+          f"the profiler (CUDA events {event_ms:.1f} ms, peak {peak:.2f} GiB), "
+          f"{wall_prof:.1f} ms under it; device "
           f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
           f"wall; counters {ops.counters()}")
     for label, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -96,7 +102,7 @@ def main():
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "profile_pair.json"))
+    prof.export_chrome_trace(os.path.join(out, f"profile_pair_{a.solver}.json"))
     return 0
 
 
