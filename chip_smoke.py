@@ -27,12 +27,23 @@ Phases, one line each (any failure exits non-zero):
      -150); each path launched its kernels and called no plain version;
   8. the 256^2 oracle fixture (variational_256.npz), both solvers: mean EPE
      < 0.01 px, max < 0.1 px;
-  9. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow and
+  9. SRSAL: the bilateral kernel vs its plain version, bit-exact, at 512^2,
+     500x372 (ragged tiles), 64x80 (reflect edges in every tile) and on a
+     CTH of 2-km steps; the CTH + first-guess + SRSAL product path on the
+     512^2 fixture pair (scene_from_goes_arrays -> cth_onto_scene ->
+     first_guess_onto_scene -> compute_flow with do_cth, do_firstguess and
+     do_srsal), per solver: the bilateral kernel launched and no plain
+     version called, u_pix smoothed, CTP the regridded CTH as int16; the CTH
+     regrid of a band-2-like 2000^2 scene from a 500^2 field, bicubic and
+     nearest, against the same call on the CPU (rel <= 1e-5);
+ 10. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow and
      pix2uv, per solver, timed with CUDA events with the kernels and with
      their plain versions (the solver's internal plain route); the two flows
      must be bit-identical and the median flow within 0.1 px of the truth.
      Every kernel is held bit-exact against its plain version at every
-     pyramid level's shape (5424^2 .. 678^2) and timed beside it at 5424^2.
+     pyramid level's shape (5424^2 .. 678^2) and timed beside it at 5424^2;
+     each solver's 5424^2 flow is smoothed by SRSAL with a synthetic 5424^2
+     CTH (band 13: no regrid), kernel vs plain bit-exact and timed.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--only`` runs a subset, e.g.
 ``--only build,warp,pcg,assemble,sor``.
@@ -53,7 +64,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
-PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "fulldisk")
+PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
+          "fulldisk")
 KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
     ("warp_bilinear", "warp", "octane_tpu_torch/csrc/warp.cu",
      "octane_tpu/ops/pallas/warp.py:80 _kernel + :284 _stats_kernel", "warp_bilinear"),
@@ -65,7 +77,10 @@ KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
      "octane_tpu/ops/pallas/assemble.py:52 _kernel", "assemble_cf_robust"),
     ("sor_sweep", "sor_sweep", "octane_tpu_torch/csrc/sor.cu",
      "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_sweep_robust"),
+    ("bilateral", "bilateral", "octane_tpu_torch/csrc/bilateral.cu",
+     "octane_tpu/ops/pallas/bilateral.py:45 _kernel", "bilateral"),
 )
+SIGPIX2 = -1.0 / (2.0 * 20.0 * 20.0)     # SRSAL's range weight, sigma 20
 
 
 def say(phase, msg):
@@ -362,16 +377,17 @@ def phase_sor(dev, report):
     report["sor_sweep"] = {"max_abs_err": worst}
 
 
-def _check_counters(phase, path):
-    """Every kernel of the solver path ``path`` launched, and no plain
-    version was called."""
+def _check_counters(phase, *paths):
+    """Every kernel of the paths ``paths`` (keys of ops.PATHS) launched, and
+    no plain version was called."""
     from octane_tpu_torch import ops
 
     c = ops.counters()
-    say(phase, f"{path} path launches (kernel, plain): " + json.dumps(c))
+    say(phase, f"{'+'.join(paths)} path launches (kernel, plain): " + json.dumps(c))
+    wanted = {name for path in paths for name in ops.PATHS[path]}
     for name in ops.WRAPPERS:
         launches, plain = c[name]
-        if plain != 0 or (name in ops.PATHS[path] and launches <= 0):
+        if plain != 0 or (name in wanted and launches <= 0):
             raise AssertionError(f"{phase}: {name} launched {launches} times, "
                                  f"plain version called {plain} times")
     return c
@@ -457,6 +473,113 @@ def phase_golden(dev):
             raise AssertionError(f"golden: {solver} EPE outside the budget")
 
 
+def cth_steps(h, w, step=2000.0, seed=7):
+    """A synthetic cloud-top height (m): 64-px plateaus 2 km apart plus a
+    +-30 m ripple, within int16 range."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    levels = rng.integers(0, 6, (h // 64 + 1, w // 64 + 1)).astype(np.float32)
+    plateaus = levels[(yy // 64).astype(np.int64), (xx // 64).astype(np.int64)]
+    return (4000.0 + step * plateaus + 30.0 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
+            ).astype(np.float32)
+
+
+def compare_bilateral(u, v, cth):
+    """The bilateral kernel vs its plain version: (bit-equal, max |d|)."""
+    from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
+    from octane_tpu_torch.ops.bilateral import bilateral, bilateral_plain
+
+    gk = gaussian_kernel_1d(9.0, 18)
+    k = bilateral(u, v, cth, gk, SIGPIX2)
+    p = bilateral_plain(u, v, cth, gk, SIGPIX2)
+    torch.cuda.synchronize()
+    if not (k.shape == p.shape == (2, *u.shape) and torch.isfinite(k).all()):
+        raise AssertionError(f"srsal: bilateral {tuple(u.shape)}: wrong shape or non-finite")
+    return torch.equal(k, p), float((k - p).abs().max())
+
+
+def phase_srsal(dev, report):
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.io.datamodel import NavConstants, Scene
+    from octane_tpu_torch.io.readers import (cth_onto_scene, first_guess_onto_scene,
+                                             scene_from_goes_arrays, set_goes_grid)
+    from octane_tpu_torch.post.srsal import srsal_smooth
+
+    rng = np.random.default_rng(8)
+    worst = 0.0
+    for (h, w) in ((512, 512), (500, 372), (64, 80)):
+        u, v = (torch.from_numpy(rng.normal(0, 2, (h, w)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        for name, c in (("uniform", rng.uniform(0, 12000, (h, w)).astype(np.float32)),
+                        ("2-km steps", cth_steps(h, w))):
+            equal, err = compare_bilateral(u, v, torch.from_numpy(c).to(dev))
+            worst = max(worst, err)
+            say("srsal", f"bilateral {h}x{w} cth {name}: bit-exact {equal} (max|d| {err:.3e})")
+            if not equal:
+                raise AssertionError(f"srsal: bilateral {h}x{w} differs from its plain version")
+    report["bilateral"] = {"max_abs_err": worst}
+
+    # the product path on the 512^2 fixture pair through the array halves
+    fx = load_tests_module("torch_fixtures")
+    c1, c2 = fx.fixture_counts(0, 0), fx.fixture_counts(3.0, -1.5)
+    cth = cth_steps(512, 512)
+    frng = np.random.default_rng(9)
+    ufg = (100.0 + frng.normal(0, 5, (512, 512))).astype(np.float32)
+    vfg = (50.0 + frng.normal(0, 5, (512, 512))).astype(np.float32)
+    def product(cfg):
+        s1 = scene_from_goes_arrays(*fx.goes_arrays(c1, fx.FIXTURE_T0)[:4], cfg, dev,
+                                    donav=True, t=fx.FIXTURE_T0)
+        s2 = scene_from_goes_arrays(*fx.goes_arrays(c2, fx.FIXTURE_T0 + 60.0)[:4], cfg,
+                                    dev, donav=False, t=fx.FIXTURE_T0 + 60.0)
+        s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
+        cth_onto_scene(cth, s1, cfg, dev)
+        first_guess_onto_scene(ufg, vfg, s1, dev)
+        return compute_flow(s1, s2, cfg)
+
+    launches = {}
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(solver=solver, do_cth=True, do_firstguess=True, do_srsal=True,
+                       pixuv=True)
+        flat = product(cfg.replace(do_srsal=False))       # the flow SRSAL smooths
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        s1 = product(cfg)
+        torch.cuda.synchronize()
+        say("srsal", f"{solver}: 512x512 fixture pair + CTH + first guess + SRSAL via "
+                     f"scene_from_goes_arrays -> cth_onto_scene -> first_guess_onto_scene "
+                     f"-> compute_flow in {time.perf_counter() - t0:.2f} s")
+        launches[solver] = _check_counters("srsal", solver, "srsal")
+        want = srsal_smooth(flat.u_pix, flat.v_pix, flat.cth)
+        same = torch.equal(s1.u_pix, want[0]) and torch.equal(s1.v_pix, want[1])
+        moved = float((s1.u_pix - flat.u_pix).abs().max())
+        ctp_ok = torch.equal(s1.ctp, s1.cth.to(torch.int16))
+        med = (float(s1.u_pix[64:-64, 64:-64].median()), float(s1.v_pix[64:-64, 64:-64].median()))
+        say("srsal", f"{solver}: u_pix = srsal_smooth(unsmoothed flow) {same}, max |smoothed "
+                     f"- unsmoothed| {moved:.4f} px, CTP == int16(cth) {ctp_ok}, median "
+                     f"smoothed flow ({med[0]:.4f}, {med[1]:.4f}) px, truth (3.0, -1.5)")
+        if not (same and moved > 0 and ctp_ok and torch.isfinite(s1.u_pix).all()
+                and abs(med[0] - 3.0) < 0.05 and abs(med[1] + 1.5) < 0.05):
+            raise AssertionError(f"srsal: the {solver} product path is off")
+    report["_launches_srsal"] = launches["pcg"]
+
+    # the CTH regrid of a band-2-like mesoscale scene: 2000^2 from 500^2
+    h = w = 2000
+    nav = set_goes_grid(NavConstants(grid="goes"), h, w, 2)
+    field = cth_steps(nav.max_yc, nav.max_xc, seed=10)
+    for bicubic in (True, False):
+        cfg = OFConfig(do_cth=True, interp_cth_bicubic=bicubic)
+        scenes = {d: cth_onto_scene(field, Scene(nav=nav, data=torch.zeros((1, h, w), device=d)),
+                                    cfg, d) for d in (dev, "cpu")}
+        got, want = scenes[dev].cth, scenes["cpu"].cth
+        r = rel(got.cpu(), want)
+        say("srsal", f"CTH regrid {field.shape[0]}^2 -> {h}^2 "
+                     f"({'bicubic' if bicubic else 'nearest'}): rel vs the CPU {r:.2e}")
+        if not (got.shape == (h, w) and torch.isfinite(got).all() and r <= 1e-5):
+            raise AssertionError("srsal: the CTH regrid differs from the CPU's")
+
+
 def time_pair(run):
     """One warm-up, then one pair timed with CUDA events after the counters
     are reset: (u, v, ms, peak GiB)."""
@@ -499,7 +622,7 @@ def phase_fulldisk(dev, report):
     nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
     say("fulldisk", f"{h}x{w} pair made in {time.perf_counter() - t0:.2f} s")
     mpix = h * w / 1e6
-    flows, launches = {}, {}
+    flows, launches, pair_ms = {}, {}, {}
     for solver in ("pcg", "sor"):
         cfg = OFConfig(kiters=4, solver=solver)
         runs = {"kernels": lambda: variational_flow(g1, g2, z, z, cfg),
@@ -513,6 +636,7 @@ def phase_fulldisk(dev, report):
                             f"{mpix / (ms / 1e3):.3f} Mpix/s, peak {peak:.2f} GiB, "
                             f"host syncs {c[f'{solver}_host_syncs']}")
             if label == "kernels":
+                pair_ms[solver] = ms
                 launches[solver] = _check_counters("fulldisk", solver)
             else:
                 say("fulldisk", f"{solver} plain route (kernel, plain): " + json.dumps(c))
@@ -637,6 +761,30 @@ def phase_fulldisk(dev, report):
             if not (equal and s_equal):
                 raise AssertionError(f"fulldisk: the SOR path's kernels at {lh}x{lw} {mode} "
                                      "differ from their plain versions")
+
+    # SRSAL on each solver's 5424^2 flow with a synthetic full-disk CTH (band
+    # 13: the CTH grid is the image grid, so there is no regrid)
+    from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
+    from octane_tpu_torch.ops.bilateral import bilateral, bilateral_plain
+
+    cth = torch.from_numpy(cth_steps(h, w)).to(dev)
+    for solver, (u, v) in flows.items():
+        equal, err = compare_bilateral(u, v, cth)
+        report.setdefault("bilateral", {"max_abs_err": 0.0})
+        report["bilateral"]["max_abs_err"] = max(report["bilateral"]["max_abs_err"], err)
+        say("fulldisk", f"bilateral {h}x{w} on the {solver} flow: bit-exact {equal} "
+                        f"(max|d| {err:.3e})")
+        if not equal:
+            raise AssertionError(f"fulldisk: bilateral {h}x{w} differs from its plain version")
+    gk = gaussian_kernel_1d(9.0, 18)
+    u, v = flows["sor"]
+    tb = (cuda_ms(lambda: bilateral(u, v, cth, gk, SIGPIX2), n=5),
+          cuda_ms(lambda: bilateral_plain(u, v, cth, gk, SIGPIX2), n=1))
+    times["bilateral"] = tb
+    shares = ", ".join(f"{100 * tb[0] / (pair_ms[sv] + tb[0]):.1f} % of the {sv} product"
+                       for sv in ("sor", "pcg"))
+    say("fulldisk", f"bilateral {h}x{w}: {tb[0]:.3f} ms (plain {tb[1]:.3f} ms); SRSAL is "
+                    f"{shares} (pair + SRSAL)")
     report["_times"] = times
 
 
@@ -662,16 +810,21 @@ def main(argv=None):
         phase_main(dev, have["h5py"])
     if "golden" in only:
         phase_golden(dev)
+    if "srsal" in only:
+        phase_srsal(dev, report)
     if "fulldisk" in only:
         phase_fulldisk(dev, report)
 
-    if {"warp", "pcg", "assemble", "sor", "fulldisk"} <= only:
+    if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk"} <= only:
         from octane_tpu_torch import ops
 
-        launches, times = report["_launches"], report["_times"]
+        # launches: each solver path's from the 5424^2 pair, the bilateral
+        # kernel's from the SRSAL product path
+        launches = dict(report["_launches"], srsal=report["_launches_srsal"])
+        times = report["_times"]
         entries = []
         for name, wrapper, src, replaces, tkey in KERNELS:
-            path = "pcg" if wrapper in ops.PATHS["pcg"] else "sor"
+            path = next(p for p in ("pcg", "sor", "srsal") if wrapper in ops.PATHS[p])
             entries.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces, "launches": launches[path][wrapper][0],
                             "max_abs_err": report[name]["max_abs_err"],

@@ -1,17 +1,22 @@
-"""OCTANE on PyTorch and CUDA: the dense variational optical-flow pair path.
+"""OCTANE on PyTorch and CUDA: the dense variational optical-flow pair path,
+with cloud-top height, first-guess winds and SRSAL smoothing.
 
-A port of the JAX/Pallas package ``octane_tpu`` to PyTorch, with the
-Pallas kernels of the pair path rewritten as hand-written CUDA kernels
-for Hopper (``sm_90a``).  The module layout follows ``octane_tpu`` so each
+A port of the JAX/Pallas package ``octane_tpu`` to PyTorch, with every
+Pallas kernel rewritten as a hand-written CUDA kernel for Hopper
+(``sm_90a``).  The module layout follows ``octane_tpu`` so each
 counterpart is found under the same name:
 
-  core/         <- clamp/mirror shifts, blur, bicubic, pyramid zoom, gradients
-  nav/          <- GOES fixed-grid navigation (float64) and pixel->wind
+  core/         <- clamp/mirror shifts, blur, bicubic, pyramid and ingest
+                   zooms, gradients
+  nav/          <- GOES fixed-grid navigation (float64), pixel<->wind
   flow/         <- stencil assembly, PCG and SOR reference loops,
                    coarse-to-fine solver, dispatcher
-  io/           <- data model, GOES L1b reader, product writer, native helpers
+  post/         <- SRSAL bilateral smoothing of the flow
+  io/           <- data model, GOES L1b, CLAVR-x CTH and first-guess
+                   readers, product writer, native helpers
   ops/          <- kernel wrappers (warp, Jacobi-PCG passes, fused assembly,
-                   SOR half-sweep), the SOR driver and the kernels' build
+                   SOR half-sweep, bilateral), the SOR driver and the
+                   kernels' build
   csrc/         <- the CUDA sources
   pipeline/cli  <- the pair pipeline and its command line
 

@@ -58,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max CG iterations / SOR sweeps")
     p.add_argument("-solver", default="pcg", choices=("pcg", "sor"),
                    help="pcg: reference-exact Jacobi-PCG (default); sor: "
-                        "red-black SOR (not ported yet)")
+                        "red-black SOR")
     p.add_argument("-omega", type=float, default=1.9,
                    help="SOR over-relaxation factor")
     p.add_argument("-brox", action="store_true", help="disable Zimmer normalization")

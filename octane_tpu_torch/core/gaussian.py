@@ -23,6 +23,12 @@ def solver_filtsize(factor: float) -> int:
     return max(int(2.0 * sigma), 5)
 
 
+def ingest_filtsize(sigma: float) -> int:
+    """Half-width of the ingest blur: trunc(2*sigma), min 5
+    (oct_gaussian.cc:54-56)."""
+    return max(int(2.0 * sigma), 5)
+
+
 def gaussian_kernel_1d(sigma: float, filtsize: int) -> np.ndarray:
     """2*filtsize+1 taps, exp(-x^2/2s^2)/(pi*2s^2), sum-normalised, float32."""
     s = 2.0 * sigma * sigma

@@ -9,6 +9,10 @@
   built on the device from their taps and weights and applied with
   ``torch.matmul`` (keep TF32 off on the card:
   ``torch.backends.cuda.matmul.allow_tf32`` is False by default).
+* ``zoom_in_image`` / ``zoom_out_image``: the ingest regrids (CTH onto
+  the image grid): bicubic (or nearest) at half-pixel-offset positions,
+  and blur + bicubic at ii/factor (oct_zoom.cc:51-88, 180-222).  Positions
+  are computed in numpy float32 exactly as octane_tpu computes them.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import numpy as np
 import torch
 
 from octane_tpu_torch.core.gaussian import (blur_separable, gaussian_kernel_1d,
-                                            solver_filtsize)
+                                            ingest_filtsize, solver_filtsize)
+from octane_tpu_torch.core.interp import bicubic_sample
 
 
 def zoom_size(n: int, factor: float) -> int:
@@ -75,6 +80,49 @@ def _catmull_matrix_1d(n_in: int, positions: np.ndarray, device="cpu") -> torch.
     return m
 
 
+def _half_pixel_positions(n_out: int, n_in: int) -> np.ndarray:
+    """float32 source positions ii/f - (0.5 - 0.5/f), f = n_out/n_in, of a
+    zoom in (oct_zoom.cc:190-196)."""
+    f = np.float32(n_out) / np.float32(n_in)
+    return (np.arange(n_out, dtype=np.float32) / f) - (np.float32(0.5) - np.float32(0.5) / f)
+
+
+def _bicubic_grid(img: torch.Tensor, xs: np.ndarray, ys: np.ndarray) -> torch.Tensor:
+    """Bicubic samples of (..., H, W) ``img`` at every (ys[r], xs[c])."""
+    x = _upload(xs, img.device)[None, :].expand(len(ys), len(xs))
+    y = _upload(ys, img.device)[:, None].expand(len(ys), len(xs))
+    return bicubic_sample(img, x, y)
+
+
+def zoom_out_image(img: torch.Tensor, factor: float) -> torch.Tensor:
+    """Ingest zoom out of (..., H, W) by ``factor`` < 1: Gaussian blur, then
+    bicubic at the real positions ii/factor (oct_zoom_out_float)."""
+    h, w = img.shape[-2], img.shape[-1]
+    if factor >= 0.999999:
+        return img
+    nxx, nyy = zoom_size(w, factor), zoom_size(h, factor)
+    sigma = _weights_sigma(factor)
+    fs = ingest_filtsize(sigma)
+    blurred = blur_separable(img, gaussian_kernel_1d(sigma, fs), fs)
+    i2 = (np.arange(nxx, dtype=np.float64) / factor).astype(np.float32)
+    j2 = (np.arange(nyy, dtype=np.float64) / factor).astype(np.float32)
+    return _bicubic_grid(blurred, i2, j2)
+
+
+def zoom_in_image(img: torch.Tensor, new_hw, bicubic: bool = True) -> torch.Tensor:
+    """Ingest zoom in of (..., H, W) to ``new_hw`` at half-pixel-offset
+    positions: bicubic, or nearest (CTH with -nncth) (oct_zoom_in_float)."""
+    nyy, nxx = new_hw
+    h, w = img.shape[-2], img.shape[-1]
+    i2, j2 = _half_pixel_positions(nxx, w), _half_pixel_positions(nyy, h)
+    if bicubic:
+        return _bicubic_grid(img, i2, j2)
+    i3 = np.clip((i2 + 0.5).astype(np.int32), 0, w - 1).astype(np.int64)
+    j3 = np.clip((j2 + 0.5).astype(np.int32), 0, h - 1).astype(np.int64)
+    return img.index_select(-2, _upload(j3, img.device)).index_select(
+        -1, _upload(i3, img.device))
+
+
 def pyramid_downsample(img: torch.Tensor, factor: float) -> torch.Tensor:
     """Solver-path downsample of a full-resolution (..., H, W) image."""
     h, w = img.shape[-2], img.shape[-1]
@@ -94,12 +142,7 @@ def zoom_in_flow(flow: torch.Tensor, new_hw, scale_factor: float) -> torch.Tenso
     """Upsample a (..., h, w) flow field to ``new_hw`` and rescale it."""
     nyy, nxx = new_hw
     h, w = flow.shape[-2], flow.shape[-1]
-    fx = np.float32(nxx) / np.float32(w)
-    fy = np.float32(nyy) / np.float32(h)
-    i2 = (np.arange(nxx, dtype=np.float32) / fx) - (
-        np.float32(0.5) - np.float32(0.5) / fx)
-    j2 = (np.arange(nyy, dtype=np.float32) / fy) - (
-        np.float32(0.5) - np.float32(0.5) / fy)
+    i2, j2 = _half_pixel_positions(nxx, w), _half_pixel_positions(nyy, h)
     ry = _catmull_matrix_1d(h, j2, flow.device)
     rx = _catmull_matrix_1d(w, i2, flow.device)
     out = torch.matmul(torch.matmul(ry, flow), rx.T)

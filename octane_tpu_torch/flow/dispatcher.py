@@ -1,9 +1,10 @@
 """Flow computation orchestration (counterpart of octane_tpu.flow.dispatcher;
 oct_optical_flow.cc:21-111): first guess, the variational engine, the CTP
-product and pixel -> wind navigation.
+product, pixel -> wind navigation and SRSAL smoothing.
 
-Ported: the single-device variational branch.  Patch-match, hybrid,
-first-guess winds and SRSAL smoothing raise NotImplementedError (device
+Ported: the single-device variational branch with the first-guess winds
+(``nav.winds.uv2pix``), the CTP product and the SRSAL bilateral smoothing
+(``post.srsal``).  Patch-match and hybrid raise NotImplementedError (device
 meshes are refused by the CLI).  The JAX package's post-hoc warp-reach audit has no
 counterpart: the CUDA warp has no window, so its reach is unbounded.
 """
@@ -15,7 +16,8 @@ import torch
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow.variational import variational_flow
 from octane_tpu_torch.io.datamodel import Scene
-from octane_tpu_torch.nav.winds import pix2uv
+from octane_tpu_torch.nav.winds import pix2uv, uv2pix
+from octane_tpu_torch.post.srsal import srsal_smooth
 
 
 def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
@@ -24,8 +26,6 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
     scene1.  ``first_guess`` optionally gives (u0, v0) pixel displacements."""
     if cfg.algorithm != "variational":
         raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet")
-    if cfg.do_srsal:
-        raise NotImplementedError("SRSAL smoothing is not ported yet")
     h, w = scene1.shape
     dev = scene1.data.device
     nav = scene1.nav
@@ -36,7 +36,8 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
         u0 = torch.as_tensor(first_guess[0], dtype=torch.float32, device=dev)
         v0 = torch.as_tensor(first_guess[1], dtype=torch.float32, device=dev)
     elif cfg.do_firstguess and scene1.ufg is not None:
-        raise NotImplementedError("first-guess winds (uv2pix) are not ported yet")
+        u0, v0 = uv2pix(scene1.ufg, scene1.vfg, scene1.lat, scene1.lon,
+                        scene1.x, scene1.y, nav, dt, grid=cfg.grid)
     else:
         u0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
         v0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
@@ -57,4 +58,8 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
     scene1.u_wind, scene1.v_wind = uw, vw
     scene1.u_raw, scene1.v_raw = ur, vr
     scene1.dt = float(dt)
+
+    # --- bilateral smoothing of the pixel flow (ref :100-105) ---------------
+    if cfg.do_srsal and scene1.cth is not None:
+        scene1.u_pix, scene1.v_pix = srsal_smooth(u, v, scene1.cth)
     return scene1

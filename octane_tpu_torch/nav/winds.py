@@ -1,11 +1,15 @@
-"""Pixel displacement -> wind (m/s), GOES fixed grid, in float64
+"""Pixel displacement <-> wind (m/s), GOES fixed grid, in float64
 (counterpart of octane_tpu.nav.winds; oct_pix2uv_cuda.cu).
 
-Each pixel and its displaced end point are navigated to lat/lon; the
-zonal and meridional haversine distances over the frame interval give the
-wind (:27-172).  Guards: a moved mesoscale sector zeroes all motions
-(:295, 358-369); off-earth or limb pixels (subpoint distance > 0.021
-rad^2) get zero winds (:144-147); shorts are trunc(100 * value).
+Forward (``pix2uv``): each pixel and its displaced end point are navigated
+to lat/lon; the zonal and meridional haversine distances over the frame
+interval give the wind (:27-172).  Inverse (``uv2pix``, the first guess):
+each pixel's lat/lon is advected along a great circle by wind * dt and
+navigated back to fixed-grid pixel offsets (octuv2xy, :222-263; oct_uv2pix,
+:372-476).  Guards: a moved mesoscale sector zeroes all motions (:295,
+358-369); off-earth or limb pixels (subpoint distance > 0.021 rad^2) get
+zero winds (:144-147), and first-guess points off the visible disk zero
+displacement; shorts are trunc(100 * value).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from octane_tpu_torch.nav.goes import F64, goes_latlon
+from octane_tpu_torch.nav.goes import F64, goes_latlon, goes_xy_from_latlon
 
 DTOR = math.pi / 180.0
 EARTH_RADIUS = 6371000.0
@@ -85,3 +89,38 @@ def pix2uv(u_pix, v_pix, nav, dt: float, grid: str = "goes",
         return u_raw, v_raw, u_raw, v_raw
     uw, vw = pix2uv_ms(u_pix, v_pix, nav, dt, grid)
     return _short100(uw), _short100(vw), u_raw, v_raw
+
+
+def uv2pix(u_wind, v_wind, lat, lon, x_counts, y_counts, nav, dt: float,
+           grid: str = "goes") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Navigated winds (m/s) -> float32 pixel displacements over ``dt`` s.
+
+    ``lat``/``lon`` are the (H, W) navigation of the image (degrees, NaN
+    off the earth), ``x_counts``/``y_counts`` its (W,)/(H,) scan-coordinate
+    counts.  Points that leave the visible disk and moved sectors get zero
+    displacement."""
+    if grid != "goes":
+        raise NotImplementedError(f"{grid!r} navigation is not ported yet")
+    if _sector_moved(nav):
+        z = torch.zeros(u_wind.shape, dtype=torch.float32, device=u_wind.device)
+        return z, z
+    u = u_wind.to(F64)
+    v = v_wind.to(F64)
+    dist = torch.sqrt(u * u + v * v) * dt
+    brng = (180.0 + (90.0 - torch.atan2(-v, -u) / DTOR)) * DTOR
+    lat0 = lat.to(F64) * DTOR
+    dr = dist / EARTH_RADIUS
+    lat_new = torch.asin(torch.sin(lat0) * torch.cos(dr)
+                         + torch.cos(lat0) * torch.sin(dr) * torch.cos(brng))
+    lon_new = lon.to(F64) * DTOR + torch.atan2(
+        torch.sin(brng) * torch.sin(dr) * torch.cos(lat0),
+        torch.cos(dr) - torch.sin(lat0) * torch.sin(lat_new))
+    xs, ys = goes_xy_from_latlon(lat_new / DTOR, lon_new / DTOR, nav)
+    x1v = (xs - nav.x_offset) / nav.x_scale
+    y1v = (ys - nav.y_offset) / nav.y_scale
+    xc = x_counts.to(F64)[None, :]
+    yc = y_counts.to(F64)[:, None]
+    ok = xs > -998.0
+    u_pix = torch.where(ok, x1v - xc, 0.0).to(torch.float32)
+    v_pix = torch.where(ok, y1v - yc, 0.0).to(torch.float32)
+    return u_pix, v_pix

@@ -1,24 +1,27 @@
 """Kernel wrappers: the bilinear warp (``ops.warp``), the two Jacobi-PCG
-passes (``ops.pcg``), the fused assembly (``ops.assemble``) and the SOR
-half-sweep (``ops.sor``), built by ``ops.build``.
+passes (``ops.pcg``), the fused assembly (``ops.assemble``), the SOR
+half-sweep (``ops.sor``) and the SRSAL bilateral smoother
+(``ops.bilateral``), built by ``ops.build``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors, and counts both.  The solver's internal
 plain route (flow.variational) adds its direct calls of the plain versions
 to the same ``plain_calls`` counters.  ``PATHS`` names the wrappers each
-relaxer's solve goes through.
+relaxer's solve goes through, and the one SRSAL smoothing goes through.
 """
 
 from octane_tpu_torch.ops import assemble as _assemble
+from octane_tpu_torch.ops import bilateral as _bilateral
 from octane_tpu_torch.ops import pcg as _pcg
 from octane_tpu_torch.ops import sor as _sor
 from octane_tpu_torch.ops import warp as _warp
 
 WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "pcg_pass_b": _pcg.pcg_pass_b, "assemble_cf": _assemble.assemble_cf,
-            "sor_sweep": _sor.sor_sweep}
+            "sor_sweep": _sor.sor_sweep, "bilateral": _bilateral.bilateral}
 PATHS = {"pcg": ("warp", "pcg_pass_a", "pcg_pass_b"),
-         "sor": ("warp", "assemble_cf", "sor_sweep")}
+         "sor": ("warp", "assemble_cf", "sor_sweep"),
+         "srsal": ("bilateral",)}
 
 
 def reset_counters() -> None:

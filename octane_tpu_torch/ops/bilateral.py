@@ -1,0 +1,100 @@
+"""The SRSAL cross-bilateral smoother: CUDA kernel and plain version.
+
+``bilateral(u, v, cth, gk, sigpix2)`` smooths the (H, W) float32 flow
+(u, v) over the (2p+1) x (2p+1) window of the 2p+1 spatial taps ``gk``
+(p = 18 for SRSAL), each tap weighted by gk[kc] * gk[lc] times the range
+weight exp((cth_n - cth_0)^2 * sigpix2), with the reference's mixed
+reflect boundary, and returns the (2, H, W) float32 (u_s, v_s)
+(oct_srsal_cuda.cu:34-71).  On a CUDA tensor it launches
+``csrc/bilateral.cu`` (the port of ``_kernel`` of
+octane_tpu/ops/pallas/bilateral.py); on a CPU tensor it runs
+``bilateral_plain``, the port of octane_tpu.post.srsal's ``_reflect_pad``
+and ``_tap_loop``: a Python loop over the taps, column offset outer, on
+slices of the padded planes.  The kernel rounds every op on its own in the
+plain version's order, so the two agree bit for bit where PyTorch's CUDA
+exp is expf.  ``bilateral.launches`` / ``.plain_calls`` count them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from octane_tpu_torch.ops.build import check_status, load_kernels
+
+MAX_P = 48      # kMaxP of csrc/bilateral.cu
+
+
+def reflect_pad(a: torch.Tensor, p: int) -> torch.Tensor:
+    """Pad (H, W) by p on each side with the reference's boundary map:
+    index -k -> k, index n-1+k -> n-k (oct_bc_cuda; srsal._reflect_pad)."""
+    a = torch.cat([a[1:p + 1].flip(0), a, a[-p:].flip(0)], dim=0)
+    return torch.cat([a[:, 1:p + 1].flip(1), a, a[:, -p:].flip(1)], dim=1)
+
+
+def bilateral_plain(u: torch.Tensor, v: torch.Tensor, cth: torch.Tensor,
+                    gk, sigpix2: float) -> torch.Tensor:
+    """Plain version: the (2, H, W) smoothed flow, tap by tap."""
+    gk = np.asarray(gk, np.float32)
+    n = len(gk)
+    p = (n - 1) // 2
+    h, w = u.shape
+    up, vp, cp = (reflect_pad(t, p) for t in (u, v, cth))
+    au = torch.zeros_like(u)
+    av = torch.zeros_like(u)
+    a2 = torch.zeros_like(u)
+    for kc in range(n):
+        for lc in range(n):
+            wt = float(gk[kc] * gk[lc])         # the float32 product
+            dmc = cp[lc:lc + h, kc:kc + w] - cth
+            a1 = wt * torch.exp(dmc * dmc * sigpix2)
+            au = au + up[lc:lc + h, kc:kc + w] * a1
+            av = av + vp[lc:lc + h, kc:kc + w] * a1
+            a2 = a2 + a1
+    return torch.stack([au / a2, av / a2])
+
+
+def _check(u, v, cth, p):
+    if u.dim() != 2:
+        raise ValueError(f"bilateral: u must be (H, W), got {tuple(u.shape)}")
+    for name, t in (("u", u), ("v", v), ("cth", cth)):
+        if t.shape != u.shape:
+            raise ValueError(f"bilateral: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(u.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"bilateral: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous() or t.device != u.device:
+            raise ValueError("bilateral: inputs must be contiguous and on one device")
+    if min(u.shape) < p + 1:
+        raise ValueError(f"bilateral: the reflect boundary needs H, W >= {p + 1} "
+                         f"for a {2 * p + 1}-tap window, got {tuple(u.shape)}")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bilateral: unsupported device {u.device}")
+
+
+def bilateral(u: torch.Tensor, v: torch.Tensor, cth: torch.Tensor,
+              gk, sigpix2: float) -> torch.Tensor:
+    """(2, H, W) smoothed (u, v); see the module docstring."""
+    gk = np.ascontiguousarray(gk, np.float32)
+    p = (len(gk) - 1) // 2
+    if len(gk) != 2 * p + 1 or p > MAX_P:
+        raise ValueError(f"bilateral: gk must hold an odd number of taps, at most "
+                         f"{2 * MAX_P + 1}, got {len(gk)}")
+    _check(u, v, cth, p)
+    if u.device.type == "cpu":
+        bilateral.plain_calls += 1
+        return bilateral_plain(u, v, cth, gk, sigpix2)
+    lib = load_kernels()
+    h, w = u.shape
+    out = torch.empty((2, h, w), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        status = lib.octane_bilateral(
+            u.data_ptr(), v.data_ptr(), cth.data_ptr(), out.data_ptr(), gk.ctypes.data,
+            h, w, p, sigpix2, torch.cuda.current_stream(u.device).cuda_stream)
+    check_status(status, "octane_bilateral")
+    bilateral.launches += 1
+    return out
+
+
+bilateral.launches = 0
+bilateral.plain_calls = 0

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "octane_pcg_pass_b": (I, [P] * 6 + [I] * 2 + [P]),
     "octane_assemble_cf": (I, [P] * 10 + [I] * 5 + [F] * 5 + [P]),
     "octane_sor_sweep": (I, [P] * 4 + [I] * 4 + [F, P]),
+    "octane_bilateral": (I, [P] * 5 + [I] * 3 + [F, P]),
     "octane_error_string": (ctypes.c_char_p, [I]),
 }
 

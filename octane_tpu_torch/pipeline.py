@@ -1,8 +1,9 @@
 """End-to-end pair pipeline: ingest -> flow -> navigation -> product
 (counterpart of octane_tpu.pipeline.run_pipeline; src/main.cc:398-480).
 
-Ported: one GOES channel-1 pair on one device.  Cloud-top height, first
-guess, extra channels and temporal interpolation raise NotImplementedError.
+Ported: one GOES channel-1 pair on one device, with the cloud-top height
+(CTP product, SRSAL smoothing) and the first-guess winds.  Extra channels
+and temporal interpolation raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import List, Optional
 
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow.dispatcher import compute_flow
-from octane_tpu_torch.io.readers import read_scene
+from octane_tpu_torch.io.readers import read_cth, read_first_guess, read_scene
 from octane_tpu_torch.io.writers import write_product
 
 
@@ -28,9 +29,7 @@ def run_pipeline(
     device="cuda",
 ) -> List[str]:
     """Run the pair pipeline on ``device``; returns the list of files written."""
-    for name, val in (("cloud-top height", cth_file),
-                      ("first guess", firstguess_file),
-                      ("channel 2", channel2), ("channel 3", channel3)):
+    for name, val in (("channel 2", channel2), ("channel 3", channel3)):
         if val is not None:
             raise NotImplementedError(f"{name} input is not ported yet")
     if cfg.do_interp:
@@ -40,6 +39,13 @@ def run_pipeline(
     scene2 = read_scene(file2, cfg, donav=False, device=device)
     scene1.nav.g2x_offset = scene2.nav.x_offset
     scene1.nav.g2y_offset = scene2.nav.y_offset
+    # a CTH file turns CTH on even under -ahi, as in octane_tpu
+    if cth_file is not None:
+        cfg = cfg.replace(do_cth=True)
+        read_cth(cth_file, scene1, cfg)
+    if firstguess_file is not None:
+        cfg = cfg.replace(do_firstguess=True)
+        read_first_guess(firstguess_file, scene1)
     cfg = cfg.replace(nchannels=scene1.nchannels)
 
     compute_flow(scene1, scene2, cfg)

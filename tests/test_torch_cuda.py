@@ -4,8 +4,9 @@ Marked ``cuda``: they skip where no CUDA device is present.  Run them on
 the GPU with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Budgets: the warp is bit-exact (samples, flags and tile statistics); so
 are the PCG passes, the fused assembly and the SOR half-sweeps, block
-partials included (the plain versions sum in the kernels' order), and the
-PCG and SOR drivers; a 30-iteration PCG solve agrees to rel 5e-4 with the
+partials included (the plain versions sum in the kernels' order), the PCG
+and SOR drivers, and the SRSAL bilateral smoother (PyTorch's CUDA exp is
+the accurate expf the kernel calls); a 30-iteration PCG solve agrees to rel 5e-4 with the
 reference loop flow.cg.pcg_solve, a 30-sweep SOR solve to rel 2e-5 with
 flow.cg.sor_solve (docs/PARITY.md).
 """
@@ -17,7 +18,8 @@ import torch
 from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.flow.cg import pcg_solve, sor_solve
 from octane_tpu_torch.flow.stencil import StencilSystem, apply_stencil
-from octane_tpu_torch.ops import assemble, pcg, sor, warp
+from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
+from octane_tpu_torch.ops import assemble, bilateral, pcg, sor, warp
 
 pytestmark = pytest.mark.cuda
 
@@ -149,3 +151,27 @@ def test_sor_driver_kernels_match_plain(dev, hw, quad):
     assert torch.equal(ku, pu) and torch.equal(kv, pv)
     tu, tv = sor_solve(s, 1e-8, 30)
     assert max(_rel(ku, tu), _rel(kv, tv)) <= 2e-5
+
+
+@pytest.mark.parametrize("cth", ["uniform", "steps"])
+@pytest.mark.parametrize("hw", [(512, 512), (500, 372), (64, 80), (19, 19)])
+def test_bilateral_kernel_bit_exact(dev, hw, cth):
+    """Ragged tiles (500 x 372), reflect edges in every tile (64 x 80), the
+    19-px minimum; ``steps``: 2-km plateaus, so the range weight bites."""
+    h, w = hw
+    rng = np.random.default_rng(5)
+    u, v = (torch.from_numpy(rng.normal(0, 2, hw).astype(np.float32)).to(dev)
+            for _ in range(2))
+    if cth == "uniform":
+        c = rng.uniform(0, 12000, hw)
+    else:
+        c = 5000.0 + 2000.0 * np.kron(rng.integers(0, 6, (h // 8 + 1, w // 8 + 1)),
+                                      np.ones((8, 8)))[:h, :w]
+    c = torch.from_numpy(c.astype(np.float32)).to(dev)
+    gk = gaussian_kernel_1d(9.0, 18)
+    before = bilateral.bilateral.launches
+    k = bilateral.bilateral(u, v, c, gk, -1.0 / 800.0)
+    assert bilateral.bilateral.launches == before + 1
+    p = bilateral.bilateral_plain(u, v, c, gk, -1.0 / 800.0)
+    assert k.shape == (2, h, w) and torch.isfinite(k).all()
+    assert torch.equal(k, p)

@@ -33,8 +33,11 @@ def test_port_imports_without_jax():
     code = (
         "import pkgutil, sys, importlib\n"
         "import octane_tpu_torch, octane_tpu_torch.cli\n"
-        "for m in pkgutil.walk_packages(octane_tpu_torch.__path__, 'octane_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(octane_tpu_torch.__path__,\n"
+        "                                                 'octane_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'octane_tpu_torch.post.srsal', 'octane_tpu_torch.ops.bilateral'} <= set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'octane_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -13,7 +13,14 @@ the product file, against octane_tpu and the product fixture.
 * the port's reader against octane_tpu's (data, navigation, constants), and
   torch_fixtures.goes_arrays (the no-h5py path on the card) against both;
 * the port's writer against octane_tpu's: same variables, dtypes, values
-  and attributes for the same scene.
+  and attributes for the same scene;
+* the CTH + first-guess + SRSAL product path (``-i1cth -firstguess -srsal
+  -pd``) through the port's CLI against octane_tpu's ``run_pipeline`` on
+  the same 128^2 files, each relaxer, band 13 (CTH on the image grid) and
+  band 2 (a 32^2 CTH field zoomed in, bicubic and -nncth), and -ahi with a
+  CTH file: Upix/Vpix (the smoothed flow) within 1e-4 px, CTP exact, the
+  pixel and wind shorts within 1 count (torch_fixtures.EXACT_SHARE), every
+  other variable and every attribute equal.
 """
 
 import dataclasses
@@ -28,6 +35,7 @@ from octane_tpu.config import OFConfig as JaxOFConfig
 from octane_tpu.flow.dispatcher import compute_flow as jax_compute_flow
 from octane_tpu.io.readers import read_scene as jax_read_scene
 from octane_tpu.io.writers import write_product as jax_write_product
+from octane_tpu.pipeline import run_pipeline as jax_run_pipeline
 from octane_tpu_torch import cli, ops
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow.dispatcher import compute_flow
@@ -36,7 +44,7 @@ from octane_tpu_torch.io.readers import read_scene, scene_from_goes_arrays
 from octane_tpu_torch.io.writers import write_product
 from octane_tpu_torch.pipeline import run_pipeline
 from tests import torch_fixtures as fx
-from tests.synth import make_goes_file
+from tests.synth import make_cth_file, make_firstguess_file, make_goes_file
 
 torch.set_num_threads(2)
 PRODUCT512 = os.path.join(os.path.dirname(__file__), "golden", "product_512.npz")
@@ -206,3 +214,63 @@ def test_unported_options_raise(pair512, tmp_path):
         run_pipeline(f1, f2, OFConfig(do_interp=True), outdir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError):
         read_scene(f1, OFConfig(grid="polar"))
+
+
+@pytest.fixture(scope="module")
+def extras128(tmp_path_factory):
+    """Per band: a 128^2 pair shifted by (1.5, -0.75) px, a CLAVR-x CTH file
+    on the band's CTH grid (128^2 for band 13, 32^2 for band 2: plateaus 2 km
+    apart, within int16 range) and first-guess winds near the true motion
+    (~45, ~20 m/s)."""
+    out = {}
+    for band, ch in ((13, 128), (2, 32)):
+        d = tmp_path_factory.mktemp(f"extras{band}")
+        f1 = make_goes_file(str(d / "a.nc"), fx.fixture_counts(0, 0, 128, 128), band=band)
+        f2 = make_goes_file(str(d / "b.nc"), fx.fixture_counts(1.5, -0.75, 128, 128),
+                            band=band, t=T0 + 60.0)
+        yy, xx = np.mgrid[0:ch, 0:ch]
+        cth = 6000 + 2000.0 * ((xx // (ch // 4) + yy // (ch // 4)) % 3) + 30 * np.sin(xx / 3.0)
+        rng = np.random.default_rng(band)
+        out[band] = (f1, f2, make_cth_file(str(d / "cth.nc"), cth.astype(np.float32)),
+                     make_firstguess_file(str(d / "fg.nc"),
+                                          45 + rng.normal(0, 3, (128, 128)),
+                                          20 + rng.normal(0, 3, (128, 128))))
+    return out
+
+
+@pytest.mark.parametrize("band,solver,extra", [
+    (13, "pcg", []), (13, "sor", []), (2, "pcg", ["-nncth"]), (2, "sor", []),
+    (13, "pcg", ["-ahi"])])
+def test_cth_firstguess_srsal_product_matches_jax(extras128, tmp_path, band, solver, extra):
+    f1, f2, cthf, fgf = extras128[band]
+    argv = ["-i1", f1, "-i2", f2, "-i1cth", cthf, "-firstguess", fgf, "-srsal", "-pd",
+            "-solver", solver, *extra]
+    ops.reset_counters()
+    assert cli.main(argv + ["-o", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert ops.counters()["bilateral"] == (0, 1)      # plain version on the CPU
+    # -ahi clears do_cth in the config; both pipelines turn it on for the file
+    cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+    assert cfg.do_cth == ("-ahi" not in extra)
+    jax_run_pipeline(f1, f2, _jax_cfg(cfg), outdir=str(tmp_path / "jax"),
+                     cth_file=cthf, firstguess_file=fgf)
+    a = _dump(str(tmp_path / "jax" / "outfile.nc"))
+    b = _dump(str(tmp_path / "port" / "outfile.nc"))
+    assert a.keys() == b.keys() and {"CTP", "Upix", "Vpix"} <= a.keys()
+    for name in a:
+        (da, sa, va, aa), (db, sb, vb, ab) = a[name], b[name]
+        assert (da, sa) == (db, sb), name
+        if name in ("Upix", "Vpix"):
+            np.testing.assert_allclose(vb, va, rtol=0, atol=1e-4, err_msg=name)
+        elif name in fx.EXACT_SHARE:
+            d = np.abs(va.astype(np.int32) - vb.astype(np.int32))
+            assert d.max() <= 1 and (d == 0).mean() > fx.EXACT_SHARE[name], name
+        else:
+            np.testing.assert_array_equal(va, vb, err_msg=name)
+        assert aa.keys() == ab.keys(), name
+        for k in aa:
+            np.testing.assert_array_equal(aa[k], ab[k], err_msg=f"{name}.{k}")
+    assert b["CTP"][3]["interpcth"] == (0.0 if "-nncth" in extra else 1.0)
+    assert b["optical_flow_settings"][3]["dofirstguess"] == 1
+    # the smoothing reached the product: Upix is not the unsmoothed flow's
+    # 0.01-px shorts
+    assert np.abs(b["Upix"][2] - b["U_raw"][2] * 0.01).max() > 0.01
