@@ -8,17 +8,18 @@ Phases, one line each (any failure exits non-zero):
   2. build the CUDA kernels from octane_tpu_torch/csrc (one nvcc per source,
      in parallel);
   3. warp kernel vs its plain version: bit-exact samples and flags, exact
-     tile statistics, both the staged and the global-memory branch;
+     tile statistics, smooth flow, a +-40 px jet and +-40 px noise;
   4. Jacobi-PCG passes vs their plain versions (bit-exact, block partials
      included: the plain versions sum in the kernels' order) and 30-iteration
      solves vs the reference loop flow.cg.pcg_solve (rel <= 5e-4), quad and
      robust;
   5. the fused assembly vs its plain version (bit-exact, ||b||^2 partials
      included) at 512^2 and 500x372, GNC steps al1 = 1, 0.5, 0;
-  6. the SOR half-sweeps (in place, and with the residual) vs their plain
-     version, bit-exact, and 30-sweep solves of the driver with the kernel
-     vs with the plain half-sweep (bit-identical) and vs the reference loop
-     flow.cg.sor_solve (rel <= 2e-5), quad and robust;
+  6. the SOR pass kernel (8 sweeps, the 6-sweep remainder, 1 sweep) vs its
+     plain version, iterate and residual partials bit-exact, and 30-sweep
+     solves of sor_solve_fused with the kernel vs with the plain pass
+     (bit-identical) and vs the reference loop flow.cg.sor_solve (rel <=
+     2e-5), quad and robust;
   7. the main path on the 512^2 product fixture pair (tests/golden/
      product_512.npz): through the CLI where h5py is installed, else through
      scene_from_goes_arrays -> compute_flow; with the default PCG solver the
@@ -41,10 +42,16 @@ Phases, one line each (any failure exits non-zero):
      their plain versions (the solver's internal plain route); the two flows
      must be bit-identical and the median flow within 0.1 px of the truth.
      Every kernel is held bit-exact against its plain version at every
-     pyramid level's shape (5424^2 .. 678^2) and timed beside it at 5424^2;
-     each solver's 5424^2 flow is smoothed by SRSAL with a synthetic 5424^2
-     CTH (band 13: no regrid), kernel vs plain bit-exact and timed.
-The line before the last is the kernels' JSON record; the last line is
+     pyramid level's shape (5424^2 .. 678^2) and timed beside it at 5424^2
+     with its bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s);
+     the warp (with F.grid_sample's time as its yardstick) and the SOR pass
+     (8 sweeps and the 6-sweep remainder, quad and robust) are timed with
+     their bounds at every level's shape; each solver's 5424^2 flow is
+     smoothed by SRSAL with a synthetic 5424^2 CTH (band 13: no regrid),
+     kernel vs plain bit-exact and timed.
+The line before the last is the kernels' JSON record (launches on the
+5424^2 pairs and the SRSAL product path, max |d|, ms, plain ms, bound ms and
+what bounds it, library ms); the last line is
 {"ok": true, "device": {...}}.  ``--only`` runs a subset, e.g.
 ``--only build,warp,pcg,assemble,sor``.
 """
@@ -75,12 +82,21 @@ KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
      "octane_tpu/ops/pallas/cg.py:141 _pass_b", "pcg_pass_b_robust"),
     ("assemble_cf", "assemble_cf", "octane_tpu_torch/csrc/assemble.cu",
      "octane_tpu/ops/pallas/assemble.py:52 _kernel", "assemble_cf_robust"),
-    ("sor_sweep", "sor_sweep", "octane_tpu_torch/csrc/sor.cu",
-     "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_sweep_robust"),
+    ("sor_pass", "sor_pass", "octane_tpu_torch/csrc/sor.cu",
+     "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_pass_robust"),
     ("bilateral", "bilateral", "octane_tpu_torch/csrc/bilateral.cu",
      "octane_tpu/ops/pallas/bilateral.py:45 _kernel", "bilateral"),
 )
 SIGPIX2 = -1.0 / (2.0 * 20.0 * 20.0)     # SRSAL's range weight, sigma 20
+HBM_BYTES_S = 3.35e12    # H100 SXM device memory rate (data sheet)
+FP32_FLOP_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+
+
+def bound(nbytes, flops):
+    """(least ms the card could take, what bounds it): the bytes moved over
+    the memory rate or the float32 operations over the peak rate."""
+    t_mem, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
 def say(phase, msg):
@@ -190,7 +206,6 @@ def phase_warp(dev, report):
     from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense, warp_block_stats
 
     rng = np.random.default_rng(0)
-    staged_tiles = global_tiles = 0
     worst = 0.0
     for (h, w) in ((512, 512), (500, 372)):
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -207,24 +222,17 @@ def phase_warp(dev, report):
                              ("noise40", noise)):
             u = torch.from_numpy(u.astype(np.float32)).to(dev)
             v = torch.from_numpy(v.astype(np.float32)).to(dev)
-            s, bx, by, stats, staged = warp(fields, u, v, with_stats=True)
+            s, bx, by, stats = warp(fields, u, v, with_stats=True)
             ps, pbx, pby = warp_bilinear_dense(fields, u, v)
             pstats = warp_block_stats(u, v)
             torch.cuda.synchronize()
             err = float((s - ps).abs().max())
             ok = (torch.equal(s, ps) and torch.equal(bx, pbx) and torch.equal(by, pby)
                   and torch.equal(stats, pstats))
-            n_st = int(staged.sum())
-            staged_tiles += n_st
-            global_tiles += staged.numel() - n_st
             worst = max(worst, err)
-            say("warp", f"{h}x{w} {name}: max|d| {err:.3e}, flags/stats equal "
-                        f"{ok}, tiles staged {n_st} / global {staged.numel() - n_st}")
+            say("warp", f"{h}x{w} {name}: max|d| {err:.3e}, flags/stats equal {ok}")
             if not ok:
                 raise AssertionError(f"warp {h}x{w} {name}: kernel differs from plain")
-    say("warp", f"tiles staged {staged_tiles}, global {global_tiles}")
-    if staged_tiles == 0 or global_tiles == 0:
-        raise AssertionError("warp: both branches must be taken")
     report["warp_bilinear"] = {"max_abs_err": worst}
 
 
@@ -269,17 +277,23 @@ def phase_pcg(dev, report):
     report["pcg_pass_b"] = {"max_abs_err": err_b}
 
 
-def assembly_inputs(g1, g2, u, v):
+def sample_stack(g2):
+    """The warp's source stack [geo2, gx2, gy2, gxx, gxy, gyy] of a level."""
+    from octane_tpu_torch.core.gradients import gradient_4th
+
+    gx2, gy2 = gradient_4th(g2)
+    gxx, _ = gradient_4th(gx2)
+    gxy, gyy = gradient_4th(gy2)
+    return torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
+
+
+def assembly_inputs(g1, stack, u, v):
     """One GNC round's assembly inputs at (u, v): the warp kernel's samples
-    of the pair's stack, the level stack [geo1, gx1, gy1] and hint fields."""
+    of the level's sample stack, the stack [geo1, gx1, gy1] and hint fields."""
     from octane_tpu_torch.core.gradients import gradient_4th
     from octane_tpu_torch.ops.warp import warp
 
     gx1, gy1 = gradient_4th(g1)
-    gx2, gy2 = gradient_4th(g2)
-    gxx, _ = gradient_4th(gx2)
-    gxy, gyy = gradient_4th(gy2)
-    stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
     u, v = u.contiguous(), v.contiguous()
     samples, bc_x, bc_y = warp(stack, u, v)
     return samples, bc_x, bc_y, torch.cat([g1, gx1, gy1]).contiguous(), u, v, 0.5 * u, 0.5 * v
@@ -300,22 +314,18 @@ def compare_assembly(inputs, al1):
             float((kcf - pcf).abs().max()))
 
 
-def compare_sweeps(x, cf):
-    """Both colours' SOR half-sweeps, with the residual and in place, kernel
-    vs plain version: (bit-equal, max |d|)."""
-    from octane_tpu_torch.ops.sor import sor_sweep, sor_sweep_plain
+def compare_pass(x, cf, sweeps=(8, 6)):
+    """The SOR pass kernel vs its plain version for each count of sweeps:
+    (iterate and residual partials bit-equal, max |d|)."""
+    from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain
 
     equal, err = True, 0.0
-    for colour in (0, 1):
-        kx, kpart = sor_sweep(x, cf, colour, resid=True)
-        px, ppart = sor_sweep_plain(x, cf, colour, resid=True)
-        ki, pi = x.clone(), x.clone()
-        sor_sweep(ki, cf, colour)
-        sor_sweep_plain(pi, cf, colour)
+    for k in sweeps:
+        kx, kpart = sor_pass(x, cf, k)
+        px, ppart = sor_pass_plain(x, cf, k)
         torch.cuda.synchronize()
-        equal = (equal and torch.equal(kx, px) and torch.equal(kpart, ppart)
-                 and torch.equal(ki, pi))
-        err = max(err, float((kx - px).abs().max()), float((ki - pi).abs().max()))
+        equal = equal and torch.equal(kx, px) and torch.equal(kpart, ppart)
+        err = max(err, float((kx - px).abs().max()))
     return equal, err
 
 
@@ -339,7 +349,8 @@ def phase_assemble(dev, report):
     say("assemble", f"torch CUDA t / 5.0 equals t * float32(1 / 5.0): {probe}")
     worst = 0.0
     for (h, w) in ((512, 512), (500, 372)):
-        inputs = assembly_inputs(*bench_images(h, w, dev), *noisy_flow(h, w, dev, 5))
+        g1, g2 = bench_images(h, w, dev)
+        inputs = assembly_inputs(g1, sample_stack(g2), *noisy_flow(h, w, dev, 5))
         for al1 in (1.0, 0.5, 0.0):
             equal, err = compare_assembly(inputs, al1)
             worst = max(worst, err)
@@ -352,7 +363,7 @@ def phase_assemble(dev, report):
 
 def phase_sor(dev, report):
     from octane_tpu_torch.flow.cg import sor_solve
-    from octane_tpu_torch.ops.sor import build_cf, sor_solve_fused, sor_sweep_plain
+    from octane_tpu_torch.ops.sor import build_cf, sor_pass_plain, sor_solve_fused
 
     rng = np.random.default_rng(6)
     worst = 0.0
@@ -360,21 +371,22 @@ def phase_sor(dev, report):
         for quad in (True, False):
             s = pcg_system(h, w, quad, dev)
             x = torch.from_numpy(rng.normal(0, 3, (2, h, w)).astype(np.float32)).to(dev)
-            equal, err = compare_sweeps(x, build_cf(s))
+            equal, err = compare_pass(x, build_cf(s), (8, 6, 1))
             ku, kv = sor_solve_fused(s, 1e-8, 30)
-            pu, pv = sor_solve_fused(s, 1e-8, 30, sweep=sor_sweep_plain)
+            pu, pv = sor_solve_fused(s, 1e-8, 30, pass_fn=sor_pass_plain)
             tu, tv = sor_solve(s, 1e-8, 30)
             torch.cuda.synchronize()
             same = torch.equal(ku, pu) and torch.equal(kv, pv)
             ds = max(rel(ku, tu), rel(kv, tv))
             mode = "quad" if quad else "robust"
-            say("sor", f"{h}x{w} {mode}: half-sweeps bit-exact {equal} (max|d| {err:.3e}), "
+            say("sor", f"{h}x{w} {mode}: passes of 8, 6, 1 sweeps bit-exact {equal} "
+                       f"(max|d| {err:.3e}), "
                        f"30-sweep driver kernel vs plain bit-identical {same}, "
                        f"vs sor_solve rel {ds:.2e}")
             if not (equal and same and ds <= 2e-5):
                 raise AssertionError(f"sor {h}x{w} {mode}: outside the budget")
             worst = max(worst, err)
-    report["sor_sweep"] = {"max_abs_err": worst}
+    report["sor_pass"] = {"max_abs_err": worst}
 
 
 def _check_counters(phase, *paths):
@@ -580,6 +592,19 @@ def phase_srsal(dev, report):
             raise AssertionError("srsal: the CTH regrid differs from the CPU's")
 
 
+def grid_sample_fn(stack, u, v):
+    """F.grid_sample on the warp's inputs (bilinear, border padding, corners
+    aligned), the warp's yardstick: not the same function (no conditional
+    clamp past n - 1, no flags), and the port never calls it."""
+    _, h, w = stack.shape
+    cols = torch.arange(w, device=u.device, dtype=torch.float32)[None, :]
+    rows = torch.arange(h, device=u.device, dtype=torch.float32)[:, None]
+    grid = torch.stack([(cols + u) * (2.0 / (w - 1)) - 1.0,
+                        (rows + v) * (2.0 / (h - 1)) - 1.0], dim=-1)[None]
+    return lambda: torch.nn.functional.grid_sample(
+        stack[None], grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+
 def time_pair(run):
     """One warm-up, then one pair timed with CUDA events after the counters
     are reset: (u, v, ms, peak GiB)."""
@@ -608,7 +633,7 @@ def phase_fulldisk(dev, report):
     from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
     from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                           pcg_pass_b_plain)
-    from octane_tpu_torch.ops.sor import sor_sweep, sor_sweep_plain
+    from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain
     from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 
     fx = load_tests_module("torch_fixtures")
@@ -663,22 +688,15 @@ def phase_fulldisk(dev, report):
         flows[solver] = (u.contiguous(), v.contiguous())
     report["_launches"] = launches
 
-    # the warp at the finest level's shape, on the final PCG flow
+    # the PCG passes' systems at 5424^2 are assembled around the final PCG flow
     u, v = flows["pcg"]
     gx2, gy2 = gradient_4th(g2)
     gxx, _ = gradient_4th(gx2)
     gxy, gyy = gradient_4th(gy2)
     gx1, gy1 = gradient_4th(g1)
     stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
-    kw, pw = warp(stack, u, v), warp_bilinear_dense(stack, u, v)
-    if not all(torch.equal(a, b) for a, b in zip(kw, pw)):
-        raise AssertionError(f"fulldisk: warp {h}x{w} differs from its plain version")
-    err = float((kw[0] - pw[0]).abs().max())
-    report["warp_bilinear"]["max_abs_err"] = max(report["warp_bilinear"]["max_abs_err"], err)
-    times = {"warp_bilinear": (cuda_ms(lambda: warp(stack, u, v)),
-                               cuda_ms(lambda: warp_bilinear_dense(stack, u, v), n=3))}
-    say("fulldisk", f"warp_bilinear {h}x{w}x6: bit-exact True, "
-                    f"{times['warp_bilinear'][0]:.3f} ms (plain {times['warp_bilinear'][1]:.3f} ms)")
+    plane = h * w * 4
+    times, bounds, library = {}, {}, {}
 
     # both PCG passes at every level's shape: at 5424^2 on systems assembled
     # around the final flow (timed), below on random systems
@@ -714,6 +732,11 @@ def phase_fulldisk(dev, report):
                 tb = (cuda_ms(lambda: pcg_pass_b(r, ap, cf, alpha)),
                       cuda_ms(lambda: pcg_pass_b_plain(r, ap, cf, alpha), n=3))
                 times[f"pcg_pass_a_{mode}"], times[f"pcg_pass_b_{mode}"] = ta, tb
+                # pass A: x, r, p, cf in, x, p', ap out; pass B: r, ap and
+                # the diagonal in, r out
+                bounds[f"pcg_pass_a_{mode}"] = bound((12 + cf.shape[0]) * plane,
+                                                     (20 if quad else 30) * h * w)
+                bounds[f"pcg_pass_b_{mode}"] = bound(8 * plane, 14 * h * w)
                 line += (f", pcg_pass_a {ta[0]:.3f} ms (plain {ta[1]:.3f} ms), "
                          f"pcg_pass_b {tb[0]:.3f} ms (plain {tb[1]:.3f} ms)")
             say("fulldisk", line)
@@ -722,45 +745,76 @@ def phase_fulldisk(dev, report):
                                      f"from their plain versions (partial sums rel "
                                      f"{part_rel:.2e})")
 
-    # the SOR path's assembly and half-sweeps at every level's shape: at
-    # 5424^2 around the final SOR flow (timed), below on the pair downsampled
-    # the solver's way with a noisy flow
+    # the SOR path's warp, assembly and pass kernel at every level's shape:
+    # at 5424^2 around the final SOR flow, below on the pair downsampled the
+    # solver's way with a noisy flow; the warp and the pass timed at each
+    # level (their plain versions and the assembly at 5424^2)
     for k in reversed(range(cfg.kiters)):
         factor = float(np.float32(cfg.scale_factor) ** (cfg.kiters - k - 1))
         lh, lw = zoom_size(h, factor), zoom_size(w, factor)
-        if k == cfg.kiters - 1:
+        top = k == cfg.kiters - 1
+        if top:
             lg1, lg2 = g1, g2
             lu, lv = flows["sor"]
         else:
             lvl = pyramid_downsample(torch.cat([g1, g2]), factor)
             lg1, lg2 = lvl[:1].contiguous(), lvl[1:].contiguous()
             lu, lv = noisy_flow(lh, lw, dev, k)
-        inputs = assembly_inputs(lg1, lg2, lu, lv)
+        lplane = lh * lw * 4
+        lstack = sample_stack(lg2)
+        kw, pw = warp(lstack, lu, lv), warp_bilinear_dense(lstack, lu, lv)
+        if not all(torch.equal(a, b) for a, b in zip(kw, pw)):
+            raise AssertionError(f"fulldisk: warp {lh}x{lw} differs from its plain version")
+        err = float((kw[0] - pw[0]).abs().max())
+        report["warp_bilinear"]["max_abs_err"] = max(report["warp_bilinear"]["max_abs_err"], err)
+        tw = cuda_ms(lambda: warp(lstack, lu, lv))
+        tg = cuda_ms(grid_sample_fn(lstack, lu, lv))
+        # u, v and the six planes in, six samples and two flag bytes out
+        bw = bound(14 * lplane + 2 * lh * lw, 52 * lh * lw)
+        line = (f"{lh}x{lw} warp_bilinear x6: bit-exact True, {tw:.3f} ms (bound {bw[0]:.3f} "
+                f"ms, F.grid_sample {tg:.3f} ms)")
+        if top:
+            times["warp_bilinear"] = (tw, cuda_ms(lambda: warp_bilinear_dense(lstack, lu, lv),
+                                                  n=3))
+            bounds["warp_bilinear"], library["warp_bilinear"] = bw, tg
+            line += f", plain {times['warp_bilinear'][1]:.3f} ms"
+        say("fulldisk", line)
+        inputs = assembly_inputs(lg1, lstack, lu, lv)
         for al1 in (1.0, 0.5):
             mode = "quad" if al1 == 1.0 else "robust"
             equal, ea = compare_assembly(inputs, al1)
             cf, _ = assemble_cf(*inputs, al1, *ASM_SCALARS, True)
             x = 0.1 * torch.stack([lu, lv])
-            s_equal, es = compare_sweeps(x, cf)
+            s_equal, es = compare_pass(x, cf)
             report["assemble_cf"]["max_abs_err"] = max(report["assemble_cf"]["max_abs_err"], ea)
-            report["sor_sweep"]["max_abs_err"] = max(report["sor_sweep"]["max_abs_err"], es)
-            line = f"{lh}x{lw} {mode}: assemble_cf bit-exact {equal}, sor_sweep bit-exact {s_equal}"
-            if k == cfg.kiters - 1:
-                args = (*inputs, al1, *ASM_SCALARS, True)
-                ta = (cuda_ms(lambda: assemble_cf(*args)),
-                      cuda_ms(lambda: assemble_cf_plain(*args), n=3))
-                xk, xp = x.clone(), x.clone()
-                ts = (cuda_ms(lambda: sor_sweep(xk, cf, 0)),
-                      cuda_ms(lambda: sor_sweep_plain(xp, cf, 0), n=3))
-                tr = cuda_ms(lambda: sor_sweep(x, cf, 0, resid=True))
-                times[f"assemble_cf_{mode}"], times[f"sor_sweep_{mode}"] = ta, ts
-                line += (f", assemble_cf {ta[0]:.3f} ms (plain {ta[1]:.3f} ms), "
-                         f"sor_sweep half-sweep {ts[0]:.3f} ms (plain {ts[1]:.3f} ms), "
-                         f"with the residual {tr:.3f} ms")
-            say("fulldisk", line)
+            report["sor_pass"]["max_abs_err"] = max(report["sor_pass"]["max_abs_err"], es)
             if not (equal and s_equal):
                 raise AssertionError(f"fulldisk: the SOR path's kernels at {lh}x{lw} {mode} "
                                      "differ from their plain versions")
+            nc = cf.shape[0]
+            xo = torch.empty_like(x)
+            # x and the nc planes in, x out; per sweep and pixel one residual
+            # and block solve of 36 (robust) or 28 (quad) flops
+            pb = {n: bound((4 + nc) * lplane, n * (28 if al1 == 1.0 else 36) * lh * lw)
+                  for n in (8, 6)}
+            ts = {n: cuda_ms(lambda: sor_pass(x, cf, n, out=xo)) for n in (8, 6)}
+            line = (f"{lh}x{lw} {mode}: assemble_cf and sor_pass (8 and 6 sweeps) bit-exact "
+                    f"True; sor_pass 8 sweeps {ts[8]:.3f} ms (bound {pb[8][0]:.3f} ms), "
+                    f"6 sweeps {ts[6]:.3f} ms (bound {pb[6][0]:.3f} ms)")
+            if top:
+                args = (*inputs, al1, *ASM_SCALARS, True)
+                ta = (cuda_ms(lambda: assemble_cf(*args)),
+                      cuda_ms(lambda: assemble_cf_plain(*args), n=3))
+                times[f"assemble_cf_{mode}"] = ta
+                # samples, g1 stack, u, v and the hints in, flags as bytes
+                bounds[f"assemble_cf_{mode}"] = bound(13 * plane + 2 * h * w + nc * plane,
+                                                      150 * h * w)
+                times[f"sor_pass_{mode}"] = (
+                    ts[8], cuda_ms(lambda: sor_pass_plain(x, cf, 8, out=xo), n=1))
+                bounds[f"sor_pass_{mode}"] = pb[8]
+                line += (f"; plain 8 sweeps {times[f'sor_pass_{mode}'][1]:.3f} ms; "
+                         f"assemble_cf {ta[0]:.3f} ms (plain {ta[1]:.3f} ms)")
+            say("fulldisk", line)
 
     # SRSAL on each solver's 5424^2 flow with a synthetic full-disk CTH (band
     # 13: the CTH grid is the image grid, so there is no regrid)
@@ -781,11 +835,16 @@ def phase_fulldisk(dev, report):
     tb = (cuda_ms(lambda: bilateral(u, v, cth, gk, SIGPIX2), n=5),
           cuda_ms(lambda: bilateral_plain(u, v, cth, gk, SIGPIX2), n=1))
     times["bilateral"] = tb
+    # u, v, cth in, the smoothed pair out; per tap a difference, its
+    # square, the scale, expf, the weight, two products and three sums
+    bounds["bilateral"] = bound(5 * plane, 10 * h * w * 37 * 37)
     shares = ", ".join(f"{100 * tb[0] / (pair_ms[sv] + tb[0]):.1f} % of the {sv} product"
                        for sv in ("sor", "pcg"))
     say("fulldisk", f"bilateral {h}x{w}: {tb[0]:.3f} ms (plain {tb[1]:.3f} ms); SRSAL is "
                     f"{shares} (pair + SRSAL)")
     report["_times"] = times
+    report["_bounds"] = bounds
+    report["_library"] = library
 
 
 def main(argv=None):
@@ -821,14 +880,16 @@ def main(argv=None):
         # launches: each solver path's from the 5424^2 pair, the bilateral
         # kernel's from the SRSAL product path
         launches = dict(report["_launches"], srsal=report["_launches_srsal"])
-        times = report["_times"]
+        times, bounds, library = report["_times"], report["_bounds"], report["_library"]
         entries = []
         for name, wrapper, src, replaces, tkey in KERNELS:
             path = next(p for p in ("pcg", "sor", "srsal") if wrapper in ops.PATHS[p])
             entries.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces, "launches": launches[path][wrapper][0],
                             "max_abs_err": report[name]["max_abs_err"],
-                            "ms": times[tkey][0], "plain_ms": times[tkey][1]})
+                            "ms": times[tkey][0], "plain_ms": times[tkey][1],
+                            "bound_ms": bounds[tkey][0], "bound_by": bounds[tkey][1],
+                            "library_ms": library.get(tkey)})
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

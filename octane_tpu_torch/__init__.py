@@ -15,7 +15,7 @@ counterpart is found under the same name:
   io/           <- data model, GOES L1b, CLAVR-x CTH and first-guess
                    readers, product writer, native helpers
   ops/          <- kernel wrappers (warp, Jacobi-PCG passes, fused assembly,
-                   SOR half-sweep, bilateral), the SOR driver and the
+                   SOR pass, bilateral), the SOR solve loop and the
                    kernels' build
   csrc/         <- the CUDA sources
   pipeline/cli  <- the pair pipeline and its command line

@@ -1,40 +1,65 @@
-// Red-black SOR half-sweeps on the coupled 5-point system.
+// Red-black SOR: one launch per pass of k red+black sweeps, temporally
+// blocked in shared memory.
 //
 // Replaces the Pallas TPU kernel _kernel of octane_tpu/ops/pallas/sor.py
-// (:257, called at :421).  The update is that kernel's (and the reference
-// loop flow/cg.py sor_solve's): the residual r = b - A x under the
-// mirror-at-1 edges, the exact 2 x 2 block solve (a1 a2; a2 a4) with the
-// hoisted reciprocal determinant, and x += omega * block solve on one colour
-// ((row + column) even is red).  Each product and sum is rounded on its own
-// in the order of ops/sor.py sor_sweep_plain, so the kernels equal the plain
-// version bit for bit.
+// (:257, called at :421): S = k sweeps per streaming pass over the grid,
+// exact by the overlap argument of sor.py:18-26, plus the full-grid
+// residual ||b - A x||^2 of the pass's incoming iterate for the stopping
+// rule.  The update is that kernel's (and the reference loop flow/cg.py
+// sor_solve's): the residual r = b - A x under the mirror-at-1 edges, the
+// exact 2 x 2 block solve (a1 a2; a2 a4) with the hoisted reciprocal
+// determinant, and x += omega * block solve on one colour ((row + column)
+// even is red).  Each product and sum is rounded on its own in the order of
+// ops/sor.py sor_sweep_plain, so the kernel equals the plain pass
+// (sor_pass_plain: 2k plain half-sweeps) bit for bit.
 //
 // Layout: x is (2, h, w) (u then v); cf is the coefficient stack of
 // ops/sor.py build_cf, [a1, a4, a2, bu, bv, rdet] (quad: off-diagonals the
 // scalar -1) or [a1, a4, a2, bu, bv, a5, a6, a7, a8, rdet].
 //
-// Two kernels:
-//   * sor_update: one colour in place, one thread per cell of that colour.
-//     A cell reads only its own value and the other colour's, so there is
-//     no race inside the launch.
-//   * sor_resid: the first half-sweep of a pass.  One thread per pixel
-//     takes the pre-update residual of both colours from x and writes the
-//     updated colour and a copy of the other one to a second buffer (in
-//     place, the black residual would race with the red writes), plus one
-//     partial of ||r||^2 per 32 x 8 block, summed in a fixed order (no
-//     atomics).  That is the stopping rule's full-grid residual of the
-//     pass's incoming iterate (sor.py:325-345).
+// Bound: memory.  A pass must read x and the nc coefficient planes once
+// and write x once: 14 planes (robust, nc = 10) or 10 (quad), 0.49 / 0.35
+// ms at 5424^2 on 3.35 TB/s; its ~8 G single-rounded flops are under that.
+// A kernel per half-sweep reads all of them 2k times.
 //
-// Left behind from the TPU kernel: the temporal blocking over 2S overlap
-// rows in VMEM, the colour packing (_deinterleave/_interleave), the band
-// height model and the identity padding rows: cells are indexed directly
-// and the edges are index fix-ups.
-//
-// Bound: memory.  A half-sweep reads every 32-byte sector of the nc
-// coefficient planes and the 2 state planes (a colour's cells are every
-// other float) and writes half of the state: ~12 plane reads in the robust
-// steps, ~1.4 GB at 5424^2.  Temporal blocking in shared memory is the
-// later optimisation.
+// Design: streaming temporal blocking.  A block owns a strip of `strip`
+// interior columns (a multiple of 32) and a segment of `seg` interior rows
+// (a multiple of 8), and loads 2k halo columns and rows on each side,
+// clipped to the grid; at a real edge the mirror-at-1 neighbours apply.  A
+// cell next to a cut (a halo edge that is not a grid edge) is never
+// updated, so the stale region grows one cell per half-sweep and the
+// interior, 2k cells in, is exact.  The block walks down its rows with a
+// ring of R = 4k + 4 rows of x and the coefficients in dynamic shared
+// memory (up to 227 KB: one block of 512 threads per SM); at step s it
+//   * reads local row s + 2 into registers (16-byte loads where the rows
+//     allow), two steps ahead of its use: row s + 1, read a step earlier,
+//     goes into the ring at the end of the step;
+//   * takes the residual of local row s - 1 on the incoming iterate (rows
+//     s - 2 .. s are untouched yet): per interior row, a 32-column warp sum
+//     (the shuffle tree of common.cuh, deferred one step) added to the row
+//     block's running sum in row order, so each 32 x 8 partial is
+//     block_sum's, bit for bit.  The first warps take it; the staging of
+//     rows and the write-out go to the last ones, since the step waits for
+//     its slowest warp;
+//   * runs half-sweep t = 1 .. 2k on local row s - 2t - 1.  Half-sweep t at
+//     row j needs half-sweep t - 1 at rows j - 1 .. j + 1, which ran in the
+//     steps before; within a step the updated rows are all of one parity
+//     and read only rows of the other, so one barrier per step is enough
+//     and all 2k half-sweeps of a step run in parallel.  A thread takes the
+//     half-sweeps 2p + 1 and 2p + 2 at one column: the column is red on one
+//     of their two rows and black on the other, so every lane works and a
+//     warp reads consecutive words;
+//   * writes out local row s - 4k - 2, final since step s - 1.
+// Read amplification is (strip + 4k) / strip on columns and (seg + 4k) /
+// seg on rows (1.39 at k = 8, strip 96, seg 608).  What limits it on the
+// H100: one block per SM (the ring fills shared memory) and the fixed cost
+// of each barrier-separated row step, most of a step's time even without
+// its cell updates; so default_geometry sizes the segments to the fewest
+// steps on the busiest SM (see PERF.md).  Left behind from the TPU kernel: the colour packing
+// (_deinterleave/_interleave), the 256-lane alignment, the band-height VMEM
+// model and the identity padding rows.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -44,117 +69,356 @@ using octane::add;
 using octane::mul;
 using octane::sub;
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
-constexpr int kWarps = kBX * kBY / 32;
+constexpr int kThreads = 512;
+constexpr int kMaxItems = 4;      // cells per thread and step: k (strip + 4k) <= 2048
+constexpr int kMaxStage = 4;      // floats per thread of a prefetched row: (2 + nc) (strip + 4k) <= 2048
 
 struct Cell {
   float xu, xv, ru, rv;
 };
 
-// x and the pre-update residual at one pixel
+// The values one cell update reads: x at the cell and its four
+// neighbours, and the nc coefficients [a1, a4, a2, bu, bv, (a5 .. a8,)
+// rdet] of the cell.
 template <bool QUAD>
-__device__ __forceinline__ Cell residual(const float* x, const float* cf,
-                                         size_t plane, const octane::Stencil5& n) {
-  const float* xv_p = x + plane;
-  Cell c;
-  c.xu = x[n.o];
-  c.xv = xv_p[n.o];
-  const float wu = x[n.ow], eu = x[n.oe], nu = x[n.on], su = x[n.os];
-  const float wv = xv_p[n.ow], ev = xv_p[n.oe], nv = xv_p[n.on], sv = xv_p[n.os];
+struct Taps {
+  float xu, xv, wu, eu, nu, su, wv, ev, nv, sv;
+  float c[QUAD ? 6 : 10];
+};
+
+// The taps at column q of a ring row; rn / rs are the north and south rows,
+// qw / qe the west and east columns (mirror-at-1 applied).  Plane p of a
+// ring row starts WS floats after plane p - 1: x_u, x_v, then the nc
+// coefficient planes.  WS is a compile-time constant, so every load of a
+// cell is one address and an immediate offset.
+template <bool QUAD, int WS>
+__device__ __forceinline__ Taps<QUAD> gather(const float* row, const float* rn,
+                                             const float* rs, int q, int qw, int qe) {
+  constexpr int ws = WS;
+  const float* xu = row;
+  const float* xv = row + ws;
+  Taps<QUAD> t;
+  t.xu = xu[q];
+  t.xv = xv[q];
+  t.wu = xu[qw];
+  t.eu = xu[qe];
+  t.nu = rn[q];
+  t.su = rs[q];
+  t.wv = xv[qw];
+  t.ev = xv[qe];
+  t.nv = rn[ws + q];
+  t.sv = rs[ws + q];
+#pragma unroll
+  for (int p = 0; p < (QUAD ? 6 : 10); ++p) t.c[p] = row[(2 + p) * ws + q];
+  return t;
+}
+
+// x and the pre-update residual b - A x of a cell
+template <bool QUAD>
+__device__ __forceinline__ Cell residual(const Taps<QUAD>& t) {
   float off_u, off_v;
   if (QUAD) {
-    off_u = add(add(add(-wu, -eu), -nu), -su);
-    off_v = add(add(add(-wv, -ev), -nv), -sv);
+    off_u = add(add(add(-t.wu, -t.eu), -t.nu), -t.su);
+    off_v = add(add(add(-t.wv, -t.ev), -t.nv), -t.sv);
   } else {
-    const float a5 = cf[5 * plane + n.o], a6 = cf[6 * plane + n.o];
-    const float a7 = cf[7 * plane + n.o], a8 = cf[8 * plane + n.o];
-    off_u = add(add(add(mul(a5, wu), mul(a7, eu)), mul(a6, nu)), mul(a8, su));
-    off_v = add(add(add(mul(a5, wv), mul(a7, ev)), mul(a6, nv)), mul(a8, sv));
+    const float a5 = t.c[5], a6 = t.c[6], a7 = t.c[7], a8 = t.c[8];
+    off_u = add(add(add(mul(a5, t.wu), mul(a7, t.eu)), mul(a6, t.nu)), mul(a8, t.su));
+    off_v = add(add(add(mul(a5, t.wv), mul(a7, t.ev)), mul(a6, t.nv)), mul(a8, t.sv));
   }
-  const float a1 = cf[n.o], a4 = cf[plane + n.o], a2 = cf[2 * plane + n.o];
-  const float au = add(add(mul(a1, c.xu), mul(a2, c.xv)), off_u);
-  const float av = add(add(mul(a2, c.xu), mul(a4, c.xv)), off_v);
-  c.ru = sub(cf[3 * plane + n.o], au);
-  c.rv = sub(cf[4 * plane + n.o], av);
-  return c;
+  const float a1 = t.c[0], a4 = t.c[1], a2 = t.c[2];
+  const float au = add(add(mul(a1, t.xu), mul(a2, t.xv)), off_u);
+  const float av = add(add(mul(a2, t.xu), mul(a4, t.xv)), off_v);
+  return Cell{t.xu, t.xv, sub(t.c[3], au), sub(t.c[4], av)};
 }
 
-// x + omega * (a1 a2; a2 a4)^-1 r, written to out at pixel o
-template <bool QUAD>
-__device__ __forceinline__ void update(const Cell& c, const float* cf, size_t plane,
-                                       size_t o, float omega, float* out) {
-  const float a1 = cf[o], a4 = cf[plane + o], a2 = cf[2 * plane + o];
-  const float rdet = cf[(QUAD ? 5 : 9) * plane + o];
-  const float ndu = mul(sub(mul(a4, c.ru), mul(a2, c.rv)), rdet);
-  const float ndv = mul(sub(mul(a1, c.rv), mul(a2, c.ru)), rdet);
-  out[o] = add(c.xu, mul(omega, ndu));
-  out[plane + o] = add(c.xv, mul(omega, ndv));
+__device__ __forceinline__ float& component(float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-template <bool QUAD>
-__global__ void __launch_bounds__(kBX * kBY) sor_update(
-    float* x, const float* __restrict__ cf, int h, int w, int colour, float omega) {
-  const int i = blockIdx.y * kBY + threadIdx.y;
-  const int j = 2 * (blockIdx.x * kBX + threadIdx.x) + ((i + colour) & 1);
-  if (i >= h || j >= w) return;
-  const size_t plane = (size_t)h * w;
-  const octane::Stencil5 n = octane::stencil5(i, j, h, w);
-  const Cell c = residual<QUAD>(x, cf, plane, n);
-  update<QUAD>(c, cf, plane, n.o, omega, x);
-}
+// ring slot arithmetic, 0 <= d < n
+__device__ __forceinline__ int add_slot(int a, int d, int n) { return a + d >= n ? a + d - n : a + d; }
+__device__ __forceinline__ int sub_slot(int a, int d, int n) { return a < d ? a - d + n : a - d; }
 
-template <bool QUAD>
-__global__ void __launch_bounds__(kBX * kBY) sor_resid(
+template <bool QUAD, int WS>
+__global__ void __launch_bounds__(kThreads, 1) sor_pass(
     const float* __restrict__ x, float* __restrict__ x_out,
     const float* __restrict__ cf, float* __restrict__ partials,
-    int h, int w, int colour, float omega) {
-  __shared__ float scratch[kWarps];
-  const int j = blockIdx.x * kBX + threadIdx.x;
-  const int i = blockIdx.y * kBY + threadIdx.y;
-  const int tid = threadIdx.y * kBX + threadIdx.x;
+    int h, int w, int k, int strip, int seg, float omega) {
+  extern __shared__ float smem[];
+  constexpr int kNc = QUAD ? 6 : 10;
+  constexpr int kNp = 2 + kNc;
+  const int tid = threadIdx.x;
   const size_t plane = (size_t)h * w;
-  float part = 0.f;
-  if (i < h && j < w) {
-    const octane::Stencil5 n = octane::stencil5(i, j, h, w);
-    const Cell c = residual<QUAD>(x, cf, plane, n);
-    part = add(mul(c.ru, c.ru), mul(c.rv, c.rv));
-    if (((i + j) & 1) == colour) {
-      update<QUAD>(c, cf, plane, n.o, omega, x_out);
-    } else {
-      x_out[n.o] = c.xu;
-      x_out[plane + n.o] = c.xv;
+
+  // interior [c0, c1) x [r0, r1), loaded [lc, rc) x [lr, rr)
+  const int c0 = blockIdx.x * strip, c1 = min(c0 + strip, w);
+  const int r0 = blockIdx.y * seg, r1 = min(r0 + seg, h);
+  const int halo = 2 * k;
+  const int lc = max(0, c0 - halo), rc = min(w, c1 + halo);
+  const int lr = max(0, r0 - halo), rr = min(h, r1 + halo);
+  const int wl = rc - lc, nl = rr - lr;
+  const bool cut_w = lc > 0, cut_e = rc < w, cut_n = lr > 0, cut_s = rr < h;
+  constexpr int ws = WS;                    // floats per plane of a ring row, >= wl
+  const int nring = 2 * halo + 4;           // ring rows: local row l in slot l % nring
+  auto ring_row = [&](int slot) { return smem + slot * (kNp * ws); };
+
+  // The next row is read into registers while a step computes and stored
+  // into the ring at the end of the step.  Element m of this thread is
+  // plane p, loaded column q of the row: 16 bytes (register m) where every
+  // row of the window starts on 16 bytes, else 4 bytes (component m % 4 of
+  // register m / 4).
+  const bool vec = (w & 3) == 0 && (lc & 3) == 0 && (wl & 3) == 0;
+  const int vw = vec ? 4 : 1;
+  const int row_elems = kNp * (wl / vw);
+  const int n_stage = vec ? kMaxStage / 4 : kMaxStage;
+  // from the last thread down, so that the residual's warps stage nothing
+  const int stid = kThreads - 1 - tid;
+  const float* st_src[kMaxStage];
+  int st_dst[kMaxStage];
+#pragma unroll
+  for (int m = 0; m < kMaxStage; ++m) {
+    const int e = stid + m * kThreads;
+    const int p = e / (wl / vw), q = (e - p * (wl / vw)) * vw;
+    st_src[m] = (p < 2 ? x + p * plane : cf + (p - 2) * plane) + lc + q;
+    st_dst[m] = p * ws + q;
+  }
+  using Stage = float4[kMaxStage / 4];
+  auto fetch_row = [&](int l, Stage& buf) {
+    if (l >= nl) return;
+    const size_t row = (size_t)(lr + l) * w;
+#pragma unroll
+    for (int m = 0; m < kMaxStage; ++m) {
+      if (m >= n_stage || stid + m * kThreads >= row_elems) break;
+      if (vec) {
+        buf[m] = __ldg(reinterpret_cast<const float4*>(st_src[m] + row));
+      } else {
+        component(buf[m / 4], m % 4) = __ldg(st_src[m] + row);
+      }
+    }
+  };
+  auto store_row = [&](int l, int slot, Stage& buf) {
+    if (l >= nl) return;
+    float* dst = ring_row(slot);
+#pragma unroll
+    for (int m = 0; m < kMaxStage; ++m) {
+      if (m >= n_stage || stid + m * kThreads >= row_elems) break;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst + st_dst[m]) = buf[m];
+      } else {
+        dst[st_dst[m]] = component(buf[m / 4], m % 4);
+      }
+    }
+  };
+
+  // This thread's cells: item m is the pair of half-sweeps 2tp + 1 (red)
+  // and 2tp + 2 (black) at loaded column q, the same for every step.  At
+  // step s they run on local rows l1 = s - 4tp - 3 and l1 - 2, of one
+  // parity, so column q is red on one of them and black on the other: the
+  // thread updates that cell, and the lanes of a warp read consecutive
+  // columns of two rows an even number of floats apart (no bank conflicts).
+  const int n_items = k * wl;
+  int it_l1[kMaxItems], it_q[kMaxItems], it_qw[kMaxItems], it_qe[kMaxItems];
+  int it_slot[kMaxItems];
+#pragma unroll
+  for (int m = 0; m < kMaxItems; ++m) {
+    const int item = tid + m * kThreads;
+    const int tp = item / wl;
+    const int q = item - tp * wl, j = lc + q;
+    it_l1[m] = -4 * tp - 3;                 // row l1 at step 0
+    it_slot[m] = (it_l1[m] % nring + nring) % nring;
+    // a cell next to a cut column, or past the last item, is never updated
+    const bool live = item < n_items && !(cut_w && j == lc) && !(cut_e && j == rc - 1);
+    it_q[m] = live ? q : -1;
+    it_qw[m] = (j == 0 ? 1 : j - 1) - lc;
+    it_qe[m] = (j == w - 1 ? w - 2 : j + 1) - lc;
+  }
+
+  const int gw = (w + 31) / 32;
+  const int lane = tid & 31, warp = tid >> 5;
+  const bool resid_warp = warp < strip / 32;
+  float racc = 0.f;                         // lane 0: the row block's sum so far
+  float pend = 0.f;                         // the last step's residual term
+  int pend_i = -1;                          // and its row (-1: none)
+
+  // Rows are read two steps ahead: at step s row s + 2 goes into one
+  // register buffer while row s + 1, read at step s - 1, waits in the
+  // other to be stored at the end of the step, so each load has two steps
+  // to arrive.  The loop is unrolled by two to keep the buffers in
+  // registers.
+  Stage ahead0, ahead1;
+  fetch_row(0, ahead0);
+  store_row(0, 0, ahead0);
+  fetch_row(1, ahead0);
+  const int nsteps = nl + 2 * halo + 2;
+  int s_slot = 0;                           // s % nring
+  auto step = [&](int s, Stage& cur, Stage& nxt) {
+    __syncthreads();
+    fetch_row(s + 2, nxt);
+
+    // the sum of the last step's residual row (deferred a step so that its
+    // shuffle chain overlaps the next row's terms)
+    if (resid_warp && pend_i >= 0) {
+      const float rsum = octane::warp_sum(pend);
+      const int i = pend_i;
+      if (lane == 0) {
+        racc = (i & 7) == 0 ? rsum : add(racc, rsum);
+        if (((i & 7) == 7 || i == h - 1) && c0 + 32 * warp < w) {
+          partials[(size_t)(i >> 3) * gw + (c0 >> 5) + warp] = racc;
+        }
+      }
+      pend_i = -1;
+    }
+
+    // the residual terms of the incoming iterate at local row s - 1
+    const int lres = s - 1;
+    if (resid_warp && lres >= 0 && lres < nl && lr + lres >= r0 && lr + lres < r1) {
+      const int i = lr + lres;
+      const int col = c0 + tid;
+      float part = 0.f;
+      if (col < w) {
+        const int sp = sub_slot(s_slot, 2, nring);
+        const float* row = ring_row(sub_slot(s_slot, 1, nring));
+        const float* rn = ring_row(i == 0 ? s_slot : sp);
+        const float* rs = ring_row(i == h - 1 ? sp : s_slot);
+        const int cw = col == 0 ? 1 : col - 1, ce = col == w - 1 ? w - 2 : col + 1;
+        const Cell c = residual<QUAD>(gather<QUAD, WS>(row, rn, rs, col - lc, cw - lc, ce - lc));
+        part = add(mul(c.ru, c.ru), mul(c.rv, c.rv));
+      }
+      pend = part;
+      pend_i = i;
+    }
+
+    // half-sweeps 2tp + 1 and 2tp + 2 on local rows s - 4tp - 3, - 5
+#pragma unroll
+    for (int m = 0; m < kMaxItems; ++m) {
+      const int sl1 = it_slot[m];
+      it_slot[m] = add_slot(sl1, 1, nring);
+      const int q = it_q[m];
+      const int l1 = it_l1[m] + s;
+      const bool red = ((lr + l1 + lc + q) & 1) == 0;
+      const int l = red ? l1 : l1 - 2;
+      if (q < 0 || l < 0 || l >= nl || (cut_n && l == 0) || (cut_s && l == nl - 1)) continue;
+      const int i = lr + l;
+      const int sl = red ? sl1 : sub_slot(sl1, 2, nring);
+      const int sn = sub_slot(sl, 1, nring), ss = add_slot(sl, 1, nring);
+      float* row = ring_row(sl);
+      const Taps<QUAD> t = gather<QUAD, WS>(row, ring_row(i == 0 ? ss : sn),
+                                            ring_row(i == h - 1 ? sn : ss), q, it_qw[m],
+                                            it_qe[m]);
+      const Cell c = residual<QUAD>(t);
+      const float a1 = t.c[0], a4 = t.c[1], a2 = t.c[2], rdet = t.c[kNc - 1];
+      const float ndu = mul(sub(mul(a4, c.ru), mul(a2, c.rv)), rdet);
+      const float ndv = mul(sub(mul(a1, c.rv), mul(a2, c.ru)), rdet);
+      row[q] = add(c.xu, mul(omega, ndu));
+      row[ws + q] = add(c.xv, mul(omega, ndv));
+    }
+
+    // local row s - 4k - 2 (slot (s + 2) % nring) is final: write its
+    // interior columns
+    const int lw = s - 2 * halo - 2;
+    if (lw >= 0 && lw < nl && lr + lw >= r0 && lr + lw < r1) {
+      const size_t orow = (size_t)(lr + lw) * w;
+      const float* src = ring_row(add_slot(s_slot, 2, nring)) - lc;
+      // by the last warps: the first ones take the residual
+      for (int j = c0 + kThreads - 1 - tid; j < c1; j += kThreads) {
+        x_out[orow + j] = src[j];
+        x_out[plane + orow + j] = src[ws + j];
+      }
+    }
+    s_slot = add_slot(s_slot, 1, nring);
+    store_row(s + 1, s_slot, cur);
+  };
+  for (int s = 0; s < nsteps; s += 2) {
+    step(s, ahead0, ahead1);
+    if (s + 1 < nsteps) step(s + 1, ahead1, ahead0);
+  }
+}
+
+// floats per plane of a ring row: one of two compile-time widths
+int ring_ws(int sweeps, int strip) { return strip + 4 * sweeps <= 128 ? 128 : 160; }
+
+size_t ring_bytes(int quad, int sweeps, int strip) {
+  return (size_t)(4 * sweeps + 4) * (2 + (quad ? 6 : 10)) * ring_ws(sweeps, strip)
+         * sizeof(float);
+}
+
+bool strip_fits(int quad, int sweeps, int strip, int optin) {
+  const int np = 2 + (quad ? 6 : 10), wl = strip + 4 * sweeps;
+  return strip >= 32 && strip % 32 == 0 && wl <= 160 && sweeps * wl <= kMaxItems * kThreads
+         && np * wl <= kMaxStage * kThreads && ring_bytes(quad, sweeps, strip) <= (size_t)optin;
+}
+
+// The default block geometry: the widest strip whose ring fits, and the
+// segment height with the fewest row steps on the busiest SM.  One block
+// runs per SM (512 threads of ~120 registers fill the register file), and
+// a block of seg interior rows takes about seg + 8k + 2 steps of nearly
+// fixed cost, so the launch takes waves x steps of them; each count n of
+// row segments is tried with its least height, ceil(h / n) rounded up to 8.
+void default_geometry(int h, int w, int quad, int sweeps, int optin, int sms, int* strip,
+                      int* seg) {
+  constexpr int kStrips[] = {128, 96, 64, 32};
+  *strip = 0;
+  for (int s : kStrips) {
+    if (strip_fits(quad, sweeps, s, optin)) {
+      *strip = s;
+      break;
     }
   }
-  const float s = octane::block_sum<kWarps>(part, tid, scratch);
-  if (tid == 0) partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+  if (*strip == 0) return;
+  const long strips = (w + *strip - 1) / *strip;
+  long best = -1;
+  for (int n = 1; n <= (h + 7) / 8; ++n) {
+    const int sg = ((h + n - 1) / n + 7) / 8 * 8;
+    if ((h + sg - 1) / sg != n) continue;     // the height of a smaller n
+    const long waves = (strips * n + sms - 1) / sms;
+    const long cost = waves * (std::min(h, sg + 4 * sweeps) + 4 * sweeps + 2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *seg = sg;
+    }
+  }
+}
+
+template <bool QUAD, int WS>
+void launch(dim3 grid, size_t bytes, cudaStream_t s, int optin, const float* x, float* x_out,
+            const float* cf, float* partials, int h, int w, int sweeps, int strip, int seg,
+            float omega) {
+  cudaFuncSetAttribute(sor_pass<QUAD, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  sor_pass<QUAD, WS><<<grid, kThreads, bytes, s>>>(x, x_out, cf, partials, h, w, sweeps, strip,
+                                                   seg, omega);
 }
 
 }  // namespace
 
-// One half-sweep of colour ``colour`` (0 red, 1 black).  With partials ==
-// nullptr it updates x in place (x_out is ignored); otherwise it reads x,
-// writes the updated grid to x_out and one ||r||^2 partial per 32 x 8
-// block of pixels (row-major over the blocks) to partials.
-extern "C" int octane_sor_sweep(float* x, float* x_out, const float* cf,
-                                float* partials, int h, int w, int quad,
-                                int colour, float omega, void* stream) {
-  const dim3 block(kBX, kBY);
+// One pass of `sweeps` red+black sweeps (1 .. 8) of x into x_out (another
+// buffer), and one ||r||^2 partial of the incoming x per 32 x 8 block of
+// pixels (row-major over the blocks) into partials.  The blocks are
+// `strip` columns (a multiple of 32, strip + 4 sweeps <= 160, its ring
+// within the card's shared memory) by `seg` rows (a multiple of 8); 0 for
+// both takes default_geometry's, which the solver uses (other values serve
+// tuning and tests).
+extern "C" int octane_sor_pass(const float* x, float* x_out, const float* cf,
+                               float* partials, int h, int w, int quad, int sweeps,
+                               int strip, int seg, float omega, void* stream) {
+  int dev = 0, optin = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sweeps < 1 || sweeps > 8 || h < 2 || w < 2) return (int)cudaErrorInvalidValue;
+  if (strip == 0 && seg == 0) default_geometry(h, w, quad, sweeps, optin, sms, &strip, &seg);
+  if (!strip_fits(quad, sweeps, strip, optin) || seg < 8 || seg % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = ring_bytes(quad, sweeps, strip);
+  const dim3 grid((w + strip - 1) / strip, (h + seg - 1) / seg);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (partials == nullptr) {
-    const dim3 grid(((w + 1) / 2 + kBX - 1) / kBX, (h + kBY - 1) / kBY);
-    if (quad) {
-      sor_update<true><<<grid, block, 0, s>>>(x, cf, h, w, colour, omega);
-    } else {
-      sor_update<false><<<grid, block, 0, s>>>(x, cf, h, w, colour, omega);
-    }
+  const bool narrow = ring_ws(sweeps, strip) == 128;
+  if (quad) {
+    (narrow ? launch<true, 128> : launch<true, 160>)(grid, bytes, s, optin, x, x_out, cf,
+                                                     partials, h, w, sweeps, strip, seg, omega);
   } else {
-    const dim3 grid((w + kBX - 1) / kBX, (h + kBY - 1) / kBY);
-    if (quad) {
-      sor_resid<true><<<grid, block, 0, s>>>(x, x_out, cf, partials, h, w, colour, omega);
-    } else {
-      sor_resid<false><<<grid, block, 0, s>>>(x, x_out, cf, partials, h, w, colour, omega);
-    }
+    (narrow ? launch<false, 128> : launch<false, 160>)(grid, bytes, s, optin, x, x_out, cf,
+                                                       partials, h, w, sweeps, strip, seg, omega);
   }
   return (int)cudaGetLastError();
 }

@@ -9,19 +9,22 @@
 //     prefetched scalar pass placed each block's DMA window; here each block
 //     computes the same integers for its own tile with a block reduction.
 //
-// One block owns a bh x 128 output tile (bh = 64, or 32 below 64 rows, as
-// _pick_bh in warp.py).  Step 1 computes the clamp flags and the tile's
-// statistics.  Step 2 samples: when the tile's source window (the rows and
-// columns its bilinear taps touch) fits the shared-memory budget, the
-// window is staged one plane at a time and sampled from shared memory;
-// otherwise each pixel reads its four taps of each plane from global
-// memory.  Either way the displacement is unbounded: there is no window
-// slack to overflow.
+// One pass per pixel: a block owns a bh x 128 output tile (bh = 64, or 32
+// below 64 rows, as _pick_bh in warp.py) and each thread takes every other
+// row of one column of it.  Per pixel the thread reads u and v once,
+// computes its bilinear cell and weights once (sample_coefs), writes its
+// two clamp flags once, folds the pixel into the tile's statistics, and
+// produces all K planes from registers: the four taps of each plane come
+// through the read-only data path (__ldg).  For smooth flow the 32 lanes of a warp
+// read neighbouring addresses, so a tap row of a plane is one or two cache
+// lines, and the window of a tile is read from device memory about once;
+// for any other flow the taps are scattered reads, so the reach is
+// unbounded.  After its rows the block reduces the statistics.
 //
-// Bound: memory.  Per pixel the kernel moves 6 planes x 4 B out, the flow
-// in, and (staged) about 6 x 4 B of window in; it does a few dozen flops.
-// The staging turns the four scattered tap reads of smooth flow into one
-// coalesced read of the window.
+// Bound: memory.  Per pixel the card must read u, v and the K source
+// values and write K samples and two flag bytes: 14.5 planes at K = 6,
+// 1.71 GB and 0.51 ms at 5424^2 on 3.35 TB/s; the few dozen flops per
+// pixel are far under that.
 //
 // Arithmetic follows warp_bilinear_dense (flow/stencil.py of octane_tpu,
 // :91-98 and :124) in the same order with round-to-nearest intrinsics and
@@ -35,9 +38,6 @@ namespace {
 constexpr int kTileW = 128;
 constexpr int kThreads = 256;
 constexpr int kRowStep = kThreads / kTileW;
-// staging budget: 47.5 KB, which with the reduction scratch stays under the
-// 48 KB of static shared memory a block may declare
-constexpr int kSmemFloats = 12160;
 constexpr int kBig = 1 << 30;
 
 struct Coefs {
@@ -77,11 +77,8 @@ __global__ void __launch_bounds__(kThreads) warp_bilinear(
     const float* __restrict__ fields, const float* __restrict__ u,
     const float* __restrict__ v, float* __restrict__ out,
     uint8_t* __restrict__ bcx, uint8_t* __restrict__ bcy,
-    int32_t* __restrict__ stats, uint8_t* __restrict__ staged,
-    int k, int h, int w, int bh) {
-  __shared__ float win[kSmemFloats];
-  __shared__ int wred[7][kThreads / 32];
-  __shared__ int bred[7];
+    int32_t* __restrict__ stats, int k, int h, int w, int bh) {
+  __shared__ int wred[5][kThreads / 32];
 
   const int tid = threadIdx.x;
   const int cb = blockIdx.x, rb = blockIdx.y;
@@ -89,96 +86,50 @@ __global__ void __launch_bounds__(kThreads) warp_bilinear(
   const int col = cb * kTileW + (tid % kTileW);
   const int lj0 = tid / kTileW;
   const size_t plane = (size_t)h * w;
-  const bool col_ok = col < w;
 
-  // ---- step 1: flags and tile statistics --------------------------------
   // Row statistic as _block_stats: jv1 + bh - lj over pixels whose sample
   // row is not clamped; column statistic: iv1 over all pixels (the TPU
   // layout's CPAD offset is not added); eflag: any row-clamped pixel.
-  // jmin/jmax (all pixels) bound the staging window.
   int rmin = kBig, rmax = -kBig, cmin = kBig, cmax = -kBig, ef = 0;
-  int jmin = kBig, jmax = -kBig;
-  for (int lj = lj0; lj < bh; lj += kRowStep) {
-    const int row = rb * bh + lj;
-    if (!col_ok || row >= h) continue;
-    const size_t o = (size_t)row * w + col;
-    const Coefs c = sample_coefs(row, col, u[o], v[o], h, w);
-    bcx[o] = c.bx;
-    bcy[o] = c.by;
-    cmin = min(cmin, c.iv1);
-    cmax = max(cmax, c.iv1);
-    jmin = min(jmin, c.jv1);
-    jmax = max(jmax, c.jv1);
-    if (c.by) {
-      ef = 1;
-    } else {
-      rmin = min(rmin, c.jv1 + bh - lj);
-      rmax = max(rmax, c.jv1 + bh - lj);
-    }
-  }
-  // all seven as min-reductions
-  int vals[7] = {rmin, -rmax, cmin, -cmax, -ef, jmin, -jmax};
-#pragma unroll
-  for (int i = 0; i < 7; ++i) vals[i] = octane::warp_min(vals[i]);
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int i = 0; i < 7; ++i) wred[i][tid >> 5] = vals[i];
-  }
-  __syncthreads();
-  if (tid < 7) {
-    int m = wred[tid][0];
-    for (int j = 1; j < kThreads / 32; ++j) m = min(m, wred[tid][j]);
-    bred[tid] = m;
-  }
-  __syncthreads();
-  jmin = bred[5];
-  jmax = -bred[6];
-  cmin = bred[2];
-  cmax = -bred[3];
-  const int win_h = jmax - jmin + 2;
-  const int win_w = cmax - cmin + 2;
-  const bool stage = (long long)win_h * win_w <= kSmemFloats;
-  if (tid == 0) {
-    const size_t nb = (size_t)gh * gw, b = (size_t)rb * gw + cb;
-    stats[b] = bred[0];
-    stats[nb + b] = -bred[1];
-    stats[2 * nb + b] = cmin;
-    stats[3 * nb + b] = cmax;
-    stats[4 * nb + b] = -bred[4];
-    staged[b] = stage;
-  }
-
-  // ---- step 2: sample ---------------------------------------------------
-  if (stage) {
-    for (int ch = 0; ch < k; ++ch) {
-      const float* f = fields + ch * plane;
-      __syncthreads();                     // previous plane's readers done
-      for (int i = tid; i < win_h * win_w; i += kThreads) {
-        const int r = i / win_w;
-        win[i] = f[(size_t)(jmin + r) * w + cmin + (i - r * win_w)];
-      }
-      __syncthreads();
-      for (int lj = lj0; lj < bh; lj += kRowStep) {
-        const int row = rb * bh + lj;
-        if (!col_ok || row >= h) continue;
-        const size_t o = (size_t)row * w + col;
-        const Coefs c = sample_coefs(row, col, u[o], v[o], h, w);
-        const float* t = win + (c.jv1 - jmin) * win_w + (c.iv1 - cmin);
-        out[ch * plane + o] = bilerp(c, t[0], t[1], t[win_w], t[win_w + 1]);
-      }
-    }
-  } else {
+  if (col < w) {
     for (int lj = lj0; lj < bh; lj += kRowStep) {
       const int row = rb * bh + lj;
-      if (!col_ok || row >= h) continue;
+      if (row >= h) break;
       const size_t o = (size_t)row * w + col;
-      const Coefs c = sample_coefs(row, col, u[o], v[o], h, w);
-      const size_t base = (size_t)c.jv1 * w + c.iv1;
-      for (int ch = 0; ch < k; ++ch) {
-        const float* f = fields + ch * plane + base;
-        out[ch * plane + o] = bilerp(c, f[0], f[1], f[w], f[w + 1]);
+      const Coefs c = sample_coefs(row, col, __ldg(u + o), __ldg(v + o), h, w);
+      bcx[o] = c.bx;
+      bcy[o] = c.by;
+      cmin = min(cmin, c.iv1);
+      cmax = max(cmax, c.iv1);
+      if (c.by) {
+        ef = 1;
+      } else {
+        rmin = min(rmin, c.jv1 + bh - lj);
+        rmax = max(rmax, c.jv1 + bh - lj);
+      }
+      const float* f = fields + (size_t)c.jv1 * w + c.iv1;
+      float* dst = out + o;
+#pragma unroll 6
+      for (int ch = 0; ch < k; ++ch, f += plane, dst += plane) {
+        *dst = bilerp(c, __ldg(f), __ldg(f + 1), __ldg(f + w), __ldg(f + w + 1));
       }
     }
+  }
+
+  // the tile's statistics, all five as min-reductions
+  int vals[5] = {rmin, -rmax, cmin, -cmax, -ef};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) vals[i] = octane::warp_min(vals[i]);
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) wred[i][tid >> 5] = vals[i];
+  }
+  __syncthreads();
+  if (tid < 5) {
+    int m = wred[tid][0];
+    for (int j = 1; j < kThreads / 32; ++j) m = min(m, wred[tid][j]);
+    const size_t nb = (size_t)gh * gw, b = (size_t)rb * gw + cb;
+    stats[tid * nb + b] = (tid == 0 || tid == 2) ? m : -m;   // max = -min(-x)
   }
 }
 
@@ -186,11 +137,11 @@ __global__ void __launch_bounds__(kThreads) warp_bilinear(
 
 extern "C" int octane_warp(const float* fields, const float* u, const float* v,
                            float* out, uint8_t* bcx, uint8_t* bcy,
-                           int32_t* stats, uint8_t* staged, int k, int h, int w,
-                           int bh, void* stream) {
+                           int32_t* stats, int k, int h, int w, int bh,
+                           void* stream) {
   const dim3 grid((w + kTileW - 1) / kTileW, (h + bh - 1) / bh);
   warp_bilinear<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      fields, u, v, out, bcx, bcy, stats, staged, k, h, w, bh);
+      fields, u, v, out, bcx, bcy, stats, k, h, w, bh);
   return (int)cudaGetLastError();
 }
 

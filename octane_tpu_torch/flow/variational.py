@@ -35,7 +35,7 @@ from octane_tpu_torch.flow.stencil import assemble
 from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
 from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                       pcg_pass_b_plain, pcg_solve_fused)
-from octane_tpu_torch.ops.sor import sor_solve_cf, sor_sweep, sor_sweep_plain
+from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain, sor_solve_cf
 from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 
 
@@ -56,7 +56,7 @@ _PLAIN_WARP = _counted_plain(warp, warp_bilinear_dense)
 _PLAIN_PASSES = (_counted_plain(pcg_pass_a, pcg_pass_a_plain),
                  _counted_plain(pcg_pass_b, pcg_pass_b_plain))
 _PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
-_PLAIN_SWEEP = _counted_plain(sor_sweep, sor_sweep_plain)
+_PLAIN_PASS = _counted_plain(sor_pass, sor_pass_plain)
 
 
 def solve_level(
@@ -85,14 +85,14 @@ def solve_level(
         # [geo1, gx1, gy1] is loop-invariant
         g1s = torch.cat([g1, gx1, gy1], dim=0).contiguous()
         asm_fn = _PLAIN_ASSEMBLE if plain else assemble_cf
-        sweep = _PLAIN_SWEEP if plain else sor_sweep
+        pass_fn = _PLAIN_PASS if plain else sor_pass
 
         def round_(u, v, al1):
             samples, bc_x, bc_y = warp_fn(stack, u, v)
             cf, partials = asm_fn(samples, bc_x, bc_y, g1s, u, v, uhat, vhat,
                                   al1, lambdac, alpha, lam_over_alpha, dozim)
             return sor_solve_cf(cf, torch.sum(partials), tol, cgiters,
-                                sor_omega, sweep)
+                                sor_omega, pass_fn)
     else:
         passes = _PLAIN_PASSES if plain else (pcg_pass_a, pcg_pass_b)
 

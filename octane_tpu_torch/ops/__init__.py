@@ -1,6 +1,6 @@
 """Kernel wrappers: the bilinear warp (``ops.warp``), the two Jacobi-PCG
 passes (``ops.pcg``), the fused assembly (``ops.assemble``), the SOR
-half-sweep (``ops.sor``) and the SRSAL bilateral smoother
+pass (``ops.sor``) and the SRSAL bilateral smoother
 (``ops.bilateral``), built by ``ops.build``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
@@ -18,9 +18,9 @@ from octane_tpu_torch.ops import warp as _warp
 
 WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "pcg_pass_b": _pcg.pcg_pass_b, "assemble_cf": _assemble.assemble_cf,
-            "sor_sweep": _sor.sor_sweep, "bilateral": _bilateral.bilateral}
+            "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral}
 PATHS = {"pcg": ("warp", "pcg_pass_a", "pcg_pass_b"),
-         "sor": ("warp", "assemble_cf", "sor_sweep"),
+         "sor": ("warp", "assemble_cf", "sor_pass"),
          "srsal": ("bilateral",)}
 
 

@@ -1,4 +1,4 @@
-"""Red-black SOR: the CUDA half-sweep kernel, its plain version and the driver.
+"""Red-black SOR: the CUDA pass kernel, its plain version and the solve loop.
 
 The port of octane_tpu/ops/pallas/sor.py.  The system is the coefficient
 stack of ``build_cf``: (nc, h, w) float32 planes [a1, a4, a2, bu, bv, rdet]
@@ -8,16 +8,21 @@ hoisted reciprocal block determinant (flow.cg.sor_rdet).  The fused
 assembly (ops.assemble) writes it directly.
 
 ``sor_sweep(x, cf, colour, omega, resid)`` is one colour half-sweep of the
-(2, h, w) iterate x (u then v; colour 0 is red, (row + column) even): the
-residual r = b - A x under the mirror-at-1 edges, then x += omega times the
-exact 2 x 2 block solve on that colour's cells.  Without ``resid`` it
-updates x in place and returns (x, None).  With ``resid`` it leaves x as
-it is and returns a new iterate with the partials of the full-grid
-pre-update ||r||^2, one per 32 x 8 block in the kernels' summation order
-(``ops.pcg.block_partials``), so the plain version gives the kernel's
-result bit for bit.  On a CUDA tensor it launches ``csrc/sor.cu``; on a CPU
-tensor it runs ``sor_sweep_plain``.  ``sor_sweep.launches`` /
-``.plain_calls`` count them.
+(2, h, w) iterate x (u then v; colour 0 is red, (row + column) even) in
+plain PyTorch, on any device: the residual r = b - A x under the
+mirror-at-1 edges, then x += omega times the exact 2 x 2 block solve on
+that colour's cells.  Without ``resid`` it updates x in place and returns
+(x, None).  With ``resid`` it leaves x as it is and returns a new iterate
+with the partials of the full-grid pre-update ||r||^2, one per 32 x 8
+block in the kernels' summation order (``ops.pcg.block_partials``).
+
+``sor_pass(x, cf, sweeps, omega, out)`` is one pass of ``sweeps`` (1 .. 8)
+red+black sweeps: it returns the new iterate (in ``out`` when given, never
+in x) and the residual partials of the incoming x.  On a CUDA tensor it
+launches ``csrc/sor.cu`` (temporally blocked: one launch, x and the
+coefficients read about once); on a CPU tensor it runs ``sor_pass_plain``,
+2 * sweeps plain half-sweeps, which the kernel equals bit for bit.
+``sor_pass.launches`` / ``.plain_calls`` count them.
 
 ``sor_solve_cf`` is the driver (sor.py:482): passes of S = min(8, iters)
 red+black sweeps, the stopping test ||r||^2 <= tol read on the host once
@@ -42,6 +47,7 @@ from octane_tpu_torch.ops.pcg import block_partials, num_partials
 
 OMEGA = 1.9            # the SOR over-relaxation factor (config.sor_omega)
 PASS_SWEEPS = 8        # red+black sweeps per pass (sor.py:499)
+MAX_SWEEPS = 8         # sweeps one kernel launch may run (csrc/sor.cu)
 
 
 def build_cf(sysm) -> torch.Tensor:
@@ -88,6 +94,19 @@ def sor_sweep_plain(x, cf, colour: int, omega: float = OMEGA, resid: bool = Fals
     return x, None
 
 
+def sor_pass_plain(x, cf, sweeps: int, omega: float = OMEGA, out=None):
+    """Plain pass: 2 * sweeps half-sweeps, red first, with the residual
+    partials of the incoming x from the first."""
+    new, part = sor_sweep_plain(x, cf, 0, omega, resid=True)
+    sor_sweep_plain(new, cf, 1, omega)
+    for _ in range(sweeps - 1):
+        sor_sweep_plain(new, cf, 0, omega)
+        sor_sweep_plain(new, cf, 1, omega)
+    if out is not None:
+        new = out.copy_(new)
+    return new, part
+
+
 def _check_cf(name, cf):
     """Raise ValueError unless ``cf`` is an (6|10, h, w) float32 contiguous
     coefficient stack with h, w >= 2."""
@@ -104,46 +123,71 @@ def _check_cf(name, cf):
         raise ValueError(f"{name}: unsupported device {cf.device}")
 
 
-def sor_sweep(x, cf, colour: int, omega: float = OMEGA, resid: bool = False):
-    """One half-sweep of ``colour``; see the module docstring."""
-    _check_cf("sor_sweep", cf)
+def _check_iterate(name, x, cf):
     if x.shape != (2, *cf.shape[1:]):
-        raise ValueError(f"sor_sweep: x must be (2, h, w) = (2, {cf.shape[1]}, "
+        raise ValueError(f"{name}: x must be (2, h, w) = (2, {cf.shape[1]}, "
                          f"{cf.shape[2]}), got {tuple(x.shape)}")
     if x.dtype != torch.float32 or not x.is_contiguous() or x.device != cf.device:
-        raise ValueError("sor_sweep: x must be contiguous float32 on the device of cf")
+        raise ValueError(f"{name}: x must be contiguous float32 on the device of cf")
+
+
+def sor_sweep(x, cf, colour: int, omega: float = OMEGA, resid: bool = False):
+    """One plain half-sweep of ``colour`` with its inputs checked; see the
+    module docstring.  The reference the pass kernel is held to."""
+    _check_cf("sor_sweep", cf)
+    _check_iterate("sor_sweep", x, cf)
     if colour not in (0, 1):
         raise ValueError(f"sor_sweep: colour must be 0 (red) or 1 (black), got {colour}")
+    return sor_sweep_plain(x, cf, colour, omega, resid)
+
+
+def sor_pass(x, cf, sweeps: int, omega: float = OMEGA, out=None):
+    """One pass of ``sweeps`` red+black sweeps; returns (new iterate,
+    partials of the incoming ||r||^2)."""
+    _check_cf("sor_pass", cf)
+    _check_iterate("sor_pass", x, cf)
+    if not 1 <= sweeps <= MAX_SWEEPS:
+        raise ValueError(f"sor_pass: sweeps must be in 1 .. {MAX_SWEEPS}, got {sweeps}")
+    if out is not None:
+        _check_iterate("sor_pass", out, cf)
+        if out.data_ptr() == x.data_ptr():
+            raise ValueError("sor_pass: out must not be x")
     if x.device.type == "cpu":
-        sor_sweep.plain_calls += 1
-        return sor_sweep_plain(x, cf, colour, omega, resid)
+        sor_pass.plain_calls += 1
+        return sor_pass_plain(x, cf, sweeps, omega, out)
+    result = _launch_pass(x, cf, sweeps, omega, out)
+    sor_pass.launches += 1
+    return result
+
+
+sor_pass.launches = 0
+sor_pass.plain_calls = 0
+
+
+def _launch_pass(x, cf, sweeps, omega, out=None, strip=0, seg=0):
+    """Launch the pass kernel on checked CUDA inputs.  The kernel picks its
+    block geometry (csrc/sor.cu default_geometry) unless ``strip`` and
+    ``seg`` name one, as tuning and the card tests do."""
+    nc, h, w = cf.shape
     lib = load_kernels()
-    _, h, w = x.shape
-    x_out = partials = None
-    if resid:
-        x_out = torch.empty_like(x)
-        partials = torch.empty(num_partials(h, w), dtype=torch.float32, device=x.device)
+    x_out = torch.empty_like(x) if out is None else out
+    partials = torch.empty(num_partials(h, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        status = lib.octane_sor_sweep(
-            x.data_ptr(), None if x_out is None else x_out.data_ptr(), cf.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            h, w, int(cf.shape[0] == 6), colour, omega,
+        status = lib.octane_sor_pass(
+            x.data_ptr(), x_out.data_ptr(), cf.data_ptr(), partials.data_ptr(),
+            h, w, int(nc == 6), sweeps, strip, seg, omega,
             torch.cuda.current_stream(x.device).cuda_stream)
-    check_status(status, "octane_sor_sweep")
-    sor_sweep.launches += 1
-    return (x_out, partials) if resid else (x, None)
+    check_status(status, "octane_sor_pass")
+    return x_out, partials
 
 
-sor_sweep.launches = 0
-sor_sweep.plain_calls = 0
-
-
-def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, sweep=sor_sweep):
+def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_pass):
     """Multi-sweep SOR from x = 0 on a coefficient stack; returns (du, dv).
 
     ``resid0`` is ||b||^2 (a device scalar, e.g. the sum of the assembly's
-    partials); ``sweep`` defaults to the wrapper, and the solver's plain
-    route passes the counted plain version.
+    partials); ``pass_fn`` defaults to the wrapper, and the solver's plain
+    route passes the counted plain version.  The passes ping-pong between
+    two iterate buffers.
     """
     _check_cf("sor_solve_cf", cf)
     if iters < 1:
@@ -152,35 +196,33 @@ def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, sweep=sor_sw
     s_main = min(PASS_SWEEPS, iters)
     n_main, s_rem = divmod(iters, s_main)
     tol32 = float(np.float32(tol))
+    bufs = [torch.zeros((2, h, w), dtype=torch.float32, device=cf.device),
+            torch.empty((2, h, w), dtype=torch.float32, device=cf.device)]
 
-    def run(x, ns):
-        x, part = sweep(x, cf, 0, omega, resid=True)
-        sweep(x, cf, 1, omega)
-        for _ in range(ns - 1):
-            sweep(x, cf, 0, omega)
-            sweep(x, cf, 1, omega)
-        return x, torch.sum(part)
+    def run(ns):
+        _, part = pass_fn(bufs[0], cf, ns, omega, out=bufs[1])
+        bufs.reverse()
+        return torch.sum(part)
 
-    x = torch.zeros((2, h, w), dtype=torch.float32, device=cf.device)
     resid = resid0
     for _ in range(n_main):
         sor_solve_cf.host_syncs += 1
         if not float(resid) > tol32:
             break
-        x, resid = run(x, s_main)
+        resid = run(s_main)
     else:
         if s_rem:
             sor_solve_cf.host_syncs += 1
             if float(resid) > tol32:
-                x, _ = run(x, s_rem)
-    return x[0], x[1]
+                run(s_rem)
+    return bufs[0][0], bufs[0][1]
 
 
 sor_solve_cf.host_syncs = 0
 
 
-def sor_solve_fused(sysm, tol, iters: int, omega: float = OMEGA, sweep=sor_sweep):
+def sor_solve_fused(sysm, tol, iters: int, omega: float = OMEGA, pass_fn=sor_pass):
     """Drop-in for flow.cg.sor_solve (octane_tpu's sor_solve_fused): the
     driver on ``build_cf(sysm)`` with resid0 = ||b||^2."""
     resid0 = torch.sum(sysm.bu * sysm.bu) + torch.sum(sysm.bv * sysm.bv)
-    return sor_solve_cf(build_cf(sysm), resid0, tol, iters, omega, sweep)
+    return sor_solve_cf(build_cf(sysm), resid0, tol, iters, omega, pass_fn)

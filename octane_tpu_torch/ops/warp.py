@@ -7,8 +7,7 @@
 ``csrc/warp.cu`` (the port of the Pallas kernels ``_kernel`` and
 ``_stats_kernel`` of octane_tpu/ops/pallas/warp.py); on a CPU tensor it runs
 the plain PyTorch version ``warp_bilinear_dense``.  The kernel also writes
-each tile's window statistics (``warp_block_stats`` is their plain version)
-and whether the tile was staged in shared memory.
+each tile's window statistics (``warp_block_stats`` is their plain version).
 
 ``warp.launches`` counts kernel launches, ``warp.plain_calls`` the calls
 served by the plain version.
@@ -128,12 +127,12 @@ def _check_inputs(fields, u, v):
 def warp(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
          with_stats: bool = False):
     """(samples, bc_x, bc_y); with ``with_stats`` also the (5, gh, gw) tile
-    statistics and the (gh, gw) staged-tile map (None on the CPU)."""
+    statistics."""
     _check_inputs(fields, u, v)
     if fields.device.type == "cpu":
         warp.plain_calls += 1
         out = warp_bilinear_dense(fields, u, v)
-        return (*out, warp_block_stats(u, v), None) if with_stats else out
+        return (*out, warp_block_stats(u, v)) if with_stats else out
     if fields.device.type != "cuda":
         raise ValueError(f"warp: unsupported device {fields.device}")
     lib = load_kernels()
@@ -145,16 +144,15 @@ def warp(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     bc_x = torch.empty((h, w), dtype=torch.bool, device=dev)
     bc_y = torch.empty((h, w), dtype=torch.bool, device=dev)
     stats = torch.empty((5, gh, gw), dtype=torch.int32, device=dev)
-    staged = torch.empty((gh, gw), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         status = lib.octane_warp(
             fields.data_ptr(), u.data_ptr(), v.data_ptr(), samples.data_ptr(),
-            bc_x.data_ptr(), bc_y.data_ptr(), stats.data_ptr(), staged.data_ptr(),
-            k, h, w, bh, torch.cuda.current_stream(dev).cuda_stream)
+            bc_x.data_ptr(), bc_y.data_ptr(), stats.data_ptr(), k, h, w, bh,
+            torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "octane_warp")
     warp.launches += 1
     if with_stats:
-        return samples, bc_x, bc_y, stats, staged
+        return samples, bc_x, bc_y, stats
     return samples, bc_x, bc_y
 
 

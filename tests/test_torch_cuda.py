@@ -3,7 +3,7 @@
 Marked ``cuda``: they skip where no CUDA device is present.  Run them on
 the GPU with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Budgets: the warp is bit-exact (samples, flags and tile statistics); so
-are the PCG passes, the fused assembly and the SOR half-sweeps, block
+are the PCG passes, the fused assembly and the SOR pass kernel, block
 partials included (the plain versions sum in the kernels' order), the PCG
 and SOR drivers, and the SRSAL bilateral smoother (PyTorch's CUDA exp is
 the accurate expf the kernel calls); a 30-iteration PCG solve agrees to rel 5e-4 with the
@@ -35,21 +35,30 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("spread", [2.0, 40.0])
+@pytest.mark.parametrize("spread", [2.0, 40.0, "jet40"])
 @pytest.mark.parametrize("hw", [(256, 384), (250, 131), (40, 70)])
 def test_warp_kernel_bit_exact(dev, hw, spread):
+    """Random flow of +-2 and +-40 px, and ``jet40``: a smooth +-40 px
+    shear of v across rows, the large reach that no shared-memory window
+    of a tile would hold."""
     h, w = hw
     rng = np.random.default_rng(0)
     fields = torch.from_numpy(rng.normal(0, 1, (6, h, w)).astype(np.float32)).to(dev)
-    u = torch.from_numpy(rng.uniform(-spread, spread, (h, w)).astype(np.float32)).to(dev)
-    v = torch.from_numpy(rng.uniform(-spread, spread, (h, w)).astype(np.float32)).to(dev)
+    if spread == "jet40":
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        u_np = 2.0 + np.sin(xx / 17.0)
+        v_np = 40.0 * np.tanh((yy - h / 2) / 6.0) + 0.5 * np.cos(xx / 11.0)
+    else:
+        u_np = rng.uniform(-spread, spread, (h, w))
+        v_np = rng.uniform(-spread, spread, (h, w))
+    u = torch.from_numpy(u_np.astype(np.float32)).to(dev)
+    v = torch.from_numpy(v_np.astype(np.float32)).to(dev)
     before = warp.warp.launches
-    s, bx, by, stats, staged = warp.warp(fields, u, v, with_stats=True)
+    s, bx, by, stats = warp.warp(fields, u, v, with_stats=True)
     assert warp.warp.launches == before + 1
     ps, pbx, pby = warp.warp_bilinear_dense(fields, u, v)
     assert torch.equal(s, ps) and torch.equal(bx, pbx) and torch.equal(by, pby)
     assert torch.equal(stats, warp.warp_block_stats(u, v))
-    assert staged.shape == stats.shape[1:]
 
 
 @pytest.mark.parametrize("quad", [True, False])
@@ -125,21 +134,36 @@ def _sor_system(h, w, quad, dev, seed=3):
                          arr(-1, 1), arr(-1, 1))
 
 
+@pytest.mark.parametrize("sweeps", [1, 6, 8])
 @pytest.mark.parametrize("quad", [True, False])
-@pytest.mark.parametrize("hw", SHAPES)
-def test_sor_sweep_kernel_bit_exact(dev, hw, quad):
+@pytest.mark.parametrize("hw", [(512, 512), (500, 372), (19, 40)])
+def test_sor_pass_kernel_bit_exact(dev, hw, quad, sweeps):
+    """One launch of the temporally blocked pass against 2 * sweeps plain
+    half-sweeps: the iterate and the residual partials bit for bit, and x
+    left as it was."""
     h, w = hw
     cf = sor.build_cf(_sor_system(h, w, quad, dev))
     x = torch.from_numpy(np.random.default_rng(4).normal(0, 0.3, (2, h, w))
                          .astype(np.float32)).to(dev)
-    for colour in (0, 1):
-        kx, kpart = sor.sor_sweep(x, cf, colour, 1.9, resid=True)
-        px, ppart = sor.sor_sweep_plain(x, cf, colour, 1.9, resid=True)
-        assert torch.equal(kx, px) and torch.equal(kpart, ppart)
-        kx, px = x.clone(), x.clone()
-        sor.sor_sweep(kx, cf, colour, 1.9)
-        sor.sor_sweep_plain(px, cf, colour, 1.9)
-        assert torch.equal(kx, px)
+    x0 = x.clone()
+    before = sor.sor_pass.launches
+    kx, kpart = sor.sor_pass(x, cf, sweeps, 1.9)
+    assert sor.sor_pass.launches == before + 1
+    px, ppart = sor.sor_pass_plain(x, cf, sweeps, 1.9)
+    assert torch.equal(kx, px) and torch.equal(kpart, ppart)
+    assert torch.equal(x, x0)
+
+
+@pytest.mark.parametrize("strip,seg", [(32, 8), (64, 24), (128, 40), (96, 512)])
+def test_sor_pass_kernel_geometries(dev, strip, seg):
+    """Strips and segments of other sizes give the same pass."""
+    cf = sor.build_cf(_sor_system(133, 257, False, dev))
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 0.3, (2, 133, 257))
+                         .astype(np.float32)).to(dev)
+    k = 4 if strip == 128 else 8
+    kx, kpart = sor._launch_pass(x, cf, k, 1.9, strip=strip, seg=seg)
+    px, ppart = sor.sor_pass_plain(x, cf, k, 1.9)
+    assert torch.equal(kx, px) and torch.equal(kpart, ppart)
 
 
 @pytest.mark.parametrize("quad", [True, False])
@@ -147,7 +171,7 @@ def test_sor_sweep_kernel_bit_exact(dev, hw, quad):
 def test_sor_driver_kernels_match_plain(dev, hw, quad):
     s = _sor_system(*hw, quad, dev)
     ku, kv = sor.sor_solve_fused(s, 1e-8, 30)
-    pu, pv = sor.sor_solve_fused(s, 1e-8, 30, sweep=sor.sor_sweep_plain)
+    pu, pv = sor.sor_solve_fused(s, 1e-8, 30, pass_fn=sor.sor_pass_plain)
     assert torch.equal(ku, pu) and torch.equal(kv, pv)
     tu, tv = sor_solve(s, 1e-8, 30)
     assert max(_rel(ku, tu), _rel(kv, tv)) <= 2e-5

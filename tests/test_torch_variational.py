@@ -116,7 +116,7 @@ def test_golden_epe_sor(name, kiters):
     c = ops.counters()
     rounds = kiters * 9
     assert c["warp"] == (0, rounds) and c["assemble_cf"] == (0, rounds)
-    assert c["sor_sweep"] == (0, rounds * 2 * 30)    # the tolerance never binds here
+    assert c["sor_pass"] == (0, rounds * 4)    # 3 x 8 + 6 sweeps: tol never binds here
     assert c["sor_host_syncs"] == rounds * 4 and c["pcg_pass_a"] == (0, 0)
 
 

@@ -8,7 +8,7 @@ once under ``torch.profiler``.  Prints both wall times, the peak device
 memory, the summed device time and the device's idle share, 1 - device
 busy / unprofiled wall (the profiler's own host cost would inflate a wall
 taken under it), and the device time by kernel grouped into the port's
-layers (warp, PCG passes, fused assembly, SOR half-sweeps, the scalar glue
+layers (warp, PCG passes, fused assembly, SOR passes, the scalar glue
 and the eager assembly's elementwise work, shifts/gathers, reductions,
 matmuls).  Writes the chrome trace to chiprun_out/profile_pair_<solver>.json.
 """
@@ -31,8 +31,7 @@ from chip_smoke import load_tests_module  # noqa: E402
 
 GROUPS = (("warp_bilinear", "warp kernel"), ("pcg_pass_a", "PCG pass A"),
           ("pcg_pass_b", "PCG pass B"), ("assemble_cf", "fused assembly kernel"),
-          ("sor_update", "SOR half-sweep, in place"),
-          ("sor_resid", "SOR half-sweep with the residual"), ("gemm", "matmul (zoom)"),
+          ("sor_pass", "SOR pass kernel"), ("gemm", "matmul (zoom)"),
           ("index", "index_select (shifts, subsample)"),
           ("reduce", "reductions (sums)"), ("elementwise", "elementwise"),
           ("copy", "copies / cat / stack"), ("fill", "fills"))
