@@ -28,13 +28,17 @@ Phases, one line each (any failure exits non-zero):
      -150); each path launched its kernels and called no plain version;
   8. the 256^2 oracle fixture (variational_256.npz), both solvers: mean EPE
      < 0.01 px, max < 0.1 px;
-  9. SRSAL: the bilateral kernel vs its plain version, bit-exact, at 512^2,
-     500x372 (ragged tiles), 64x80 (reflect edges in every tile) and on a
-     CTH of 2-km steps; the CTH + first-guess + SRSAL product path on the
+  9. SRSAL: the bilateral kernel vs its plain version within rel 1e-5
+     (max |d| / max |plain|, each of u and v; docs/PARITY.md:91: its
+     weights are one base-2 exponent on the card's approximate ex2, not
+     bit-exact) at 512^2, 500x372 (ragged tiles), 64x80 (reflect edges in
+     every tile, also with the 13-tap p = 6 window), each with a uniform
+     CTH and one of 2-km steps; the CTH + first-guess + SRSAL product path on the
      512^2 fixture pair (scene_from_goes_arrays -> cth_onto_scene ->
      first_guess_onto_scene -> compute_flow with do_cth, do_firstguess and
      do_srsal), per solver: the bilateral kernel launched and no plain
-     version called, u_pix smoothed, CTP the regridded CTH as int16; the CTH
+     version called, u_pix equal to srsal_smooth of the unsmoothed flow
+     (kernel against kernel), CTP the regridded CTH as int16; the CTH
      regrid of a band-2-like 2000^2 scene from a 500^2 field, bicubic and
      nearest, against the same call on the CPU (rel <= 1e-5);
  10. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow and
@@ -48,7 +52,8 @@ Phases, one line each (any failure exits non-zero):
      (8 sweeps and the 6-sweep remainder, quad and robust) are timed with
      their bounds at every level's shape; each solver's 5424^2 flow is
      smoothed by SRSAL with a synthetic 5424^2 CTH (band 13: no regrid),
-     kernel vs plain bit-exact and timed.
+     kernel vs plain within rel 1e-5, timed beside its bound and the floor
+     of one ex2 per tap at the SFU's rate.
 The line before the last is the kernels' JSON record (launches on the
 5424^2 pairs and the SRSAL product path, max |d|, ms, plain ms, bound ms and
 what bounds it, library ms); the last line is
@@ -88,8 +93,10 @@ KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
      "octane_tpu/ops/pallas/bilateral.py:45 _kernel", "bilateral"),
 )
 SIGPIX2 = -1.0 / (2.0 * 20.0 * 20.0)     # SRSAL's range weight, sigma 20
+BILATERAL_REL = 1e-5     # the bilateral kernel vs its plain version (docs/PARITY.md:91)
 HBM_BYTES_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 FP32_FLOP_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+SFU_CLOCK_HZ = 1.98e9    # the SM clock of that rate: 132 SMs x 128 lanes x 2 x 1.98 GHz
 
 
 def bound(nbytes, flops):
@@ -198,7 +205,7 @@ def phase_build():
     say("build", f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
                  f"(nvcc {info.get('seconds', 0.0):.2f} s)")
     for line in info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(key in line for key in ("registers", "Compiling entry", "spill")):
             say("build", line.strip())
 
 
@@ -485,29 +492,20 @@ def phase_golden(dev):
             raise AssertionError(f"golden: {solver} EPE outside the budget")
 
 
-def cth_steps(h, w, step=2000.0, seed=7):
-    """A synthetic cloud-top height (m): 64-px plateaus 2 km apart plus a
-    +-30 m ripple, within int16 range."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    levels = rng.integers(0, 6, (h // 64 + 1, w // 64 + 1)).astype(np.float32)
-    plateaus = levels[(yy // 64).astype(np.int64), (xx // 64).astype(np.int64)]
-    return (4000.0 + step * plateaus + 30.0 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
-            ).astype(np.float32)
-
-
-def compare_bilateral(u, v, cth):
-    """The bilateral kernel vs its plain version: (bit-equal, max |d|)."""
+def compare_bilateral(u, v, cth, p=18):
+    """The bilateral kernel vs its plain version with the 2p+1 taps of
+    gaussian_kernel_1d(p / 2, p): (max over u and v of max |kernel - plain|
+    / max |plain|, max |d| in px)."""
     from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
     from octane_tpu_torch.ops.bilateral import bilateral, bilateral_plain
 
-    gk = gaussian_kernel_1d(9.0, 18)
+    gk = gaussian_kernel_1d(p / 2.0, p)
     k = bilateral(u, v, cth, gk, SIGPIX2)
-    p = bilateral_plain(u, v, cth, gk, SIGPIX2)
+    q = bilateral_plain(u, v, cth, gk, SIGPIX2)
     torch.cuda.synchronize()
-    if not (k.shape == p.shape == (2, *u.shape) and torch.isfinite(k).all()):
+    if not (k.shape == q.shape == (2, *u.shape) and torch.isfinite(k).all()):
         raise AssertionError(f"srsal: bilateral {tuple(u.shape)}: wrong shape or non-finite")
-    return torch.equal(k, p), float((k - p).abs().max())
+    return max(rel(k[i], q[i]) for i in (0, 1)), float((k - q).abs().max())
 
 
 def phase_srsal(dev, report):
@@ -519,24 +517,26 @@ def phase_srsal(dev, report):
                                              scene_from_goes_arrays, set_goes_grid)
     from octane_tpu_torch.post.srsal import srsal_smooth
 
+    fx = load_tests_module("torch_fixtures")
     rng = np.random.default_rng(8)
     worst = 0.0
     for (h, w) in ((512, 512), (500, 372), (64, 80)):
         u, v = (torch.from_numpy(rng.normal(0, 2, (h, w)).astype(np.float32)).to(dev)
                 for _ in range(2))
         for name, c in (("uniform", rng.uniform(0, 12000, (h, w)).astype(np.float32)),
-                        ("2-km steps", cth_steps(h, w))):
-            equal, err = compare_bilateral(u, v, torch.from_numpy(c).to(dev))
-            worst = max(worst, err)
-            say("srsal", f"bilateral {h}x{w} cth {name}: bit-exact {equal} (max|d| {err:.3e})")
-            if not equal:
-                raise AssertionError(f"srsal: bilateral {h}x{w} differs from its plain version")
+                        ("2-km steps", fx.cth_steps(h, w))):
+            for p in ((18, 6) if (h, w) == (64, 80) else (18,)):
+                r, err = compare_bilateral(u, v, torch.from_numpy(c).to(dev), p)
+                worst = max(worst, err)
+                say("srsal", f"bilateral {h}x{w} cth {name} p={p}: rel {r:.3e} (budget "
+                             f"{BILATERAL_REL:.0e}), max|d| {err:.3e} px")
+                if not r <= BILATERAL_REL:
+                    raise AssertionError(f"srsal: bilateral {h}x{w} p={p} outside the budget")
     report["bilateral"] = {"max_abs_err": worst}
 
     # the product path on the 512^2 fixture pair through the array halves
-    fx = load_tests_module("torch_fixtures")
     c1, c2 = fx.fixture_counts(0, 0), fx.fixture_counts(3.0, -1.5)
-    cth = cth_steps(512, 512)
+    cth = fx.cth_steps(512, 512)
     frng = np.random.default_rng(9)
     ufg = (100.0 + frng.normal(0, 5, (512, 512))).astype(np.float32)
     vfg = (50.0 + frng.normal(0, 5, (512, 512))).astype(np.float32)
@@ -579,7 +579,7 @@ def phase_srsal(dev, report):
     # the CTH regrid of a band-2-like mesoscale scene: 2000^2 from 500^2
     h = w = 2000
     nav = set_goes_grid(NavConstants(grid="goes"), h, w, 2)
-    field = cth_steps(nav.max_yc, nav.max_xc, seed=10)
+    field = fx.cth_steps(nav.max_yc, nav.max_xc, seed=10)
     for bicubic in (True, False):
         cfg = OFConfig(do_cth=True, interp_cth_bicubic=bicubic)
         scenes = {d: cth_onto_scene(field, Scene(nav=nav, data=torch.zeros((1, h, w), device=d)),
@@ -821,27 +821,36 @@ def phase_fulldisk(dev, report):
     from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
     from octane_tpu_torch.ops.bilateral import bilateral, bilateral_plain
 
-    cth = torch.from_numpy(cth_steps(h, w)).to(dev)
+    cth = torch.from_numpy(fx.cth_steps(h, w)).to(dev)
     for solver, (u, v) in flows.items():
-        equal, err = compare_bilateral(u, v, cth)
+        r, err = compare_bilateral(u, v, cth)
         report.setdefault("bilateral", {"max_abs_err": 0.0})
         report["bilateral"]["max_abs_err"] = max(report["bilateral"]["max_abs_err"], err)
-        say("fulldisk", f"bilateral {h}x{w} on the {solver} flow: bit-exact {equal} "
-                        f"(max|d| {err:.3e})")
-        if not equal:
-            raise AssertionError(f"fulldisk: bilateral {h}x{w} differs from its plain version")
+        say("fulldisk", f"bilateral {h}x{w} on the {solver} flow: rel {r:.3e} (budget "
+                        f"{BILATERAL_REL:.0e}), max|d| {err:.3e} px")
+        if not r <= BILATERAL_REL:
+            raise AssertionError(f"fulldisk: bilateral {h}x{w} outside the budget")
     gk = gaussian_kernel_1d(9.0, 18)
     u, v = flows["sor"]
     tb = (cuda_ms(lambda: bilateral(u, v, cth, gk, SIGPIX2), n=5),
           cuda_ms(lambda: bilateral_plain(u, v, cth, gk, SIGPIX2), n=1))
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True)
     times["bilateral"] = tb
-    # u, v, cth in, the smoothed pair out; per tap a difference, its
-    # square, the scale, expf, the weight, two products and three sums
-    bounds["bilateral"] = bound(5 * plane, 10 * h * w * 37 * 37)
+    taps = h * w * 37 * 37
+    # u, v, cth in, the smoothed pair out; per tap ten operations (a
+    # difference, its square, the scale, exp, the weight, two products and
+    # three sums); beside it the floor of one ex2 per tap at the SFU's 16 per
+    # clock per SM and the 1.98-GHz clock of the 67-TFLOP/s figure
+    bounds["bilateral"] = bound(5 * plane, 10 * taps)
+    sfu_ms = taps / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+                     * SFU_CLOCK_HZ) * 1e3
     shares = ", ".join(f"{100 * tb[0] / (pair_ms[sv] + tb[0]):.1f} % of the {sv} product"
                        for sv in ("sor", "pcg"))
-    say("fulldisk", f"bilateral {h}x{w}: {tb[0]:.3f} ms (plain {tb[1]:.3f} ms); SRSAL is "
-                    f"{shares} (pair + SRSAL)")
+    say("fulldisk", f"bilateral {h}x{w}: {tb[0]:.3f} ms (plain {tb[1]:.3f} ms; bound "
+                    f"{bounds['bilateral'][0]:.3f} ms, SFU floor {sfu_ms:.3f} ms; SM clock "
+                    f"after timing, max: {clocks.stdout.strip()}); SRSAL is {shares} "
+                    f"(pair + SRSAL)")
     report["_times"] = times
     report["_bounds"] = bounds
     report["_library"] = library

@@ -59,8 +59,9 @@ def _h5py():
 
 
 def read_scene(path: str, cfg: OFConfig, donav: bool = True,
-               device="cpu") -> Scene:
-    """Read one GOES-R L1b file (channel 1) into a Scene on ``device``."""
+               device="cuda") -> Scene:
+    """Read one GOES-R L1b file (channel 1) into a Scene on ``device`` (the
+    card unless the caller names another device, as run_pipeline does)."""
     if cfg.grid != "goes":
         raise NotImplementedError(f"{cfg.grid!r} ingest is not ported yet")
     with _h5py().File(path, "r") as f:

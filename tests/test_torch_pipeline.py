@@ -24,6 +24,7 @@ the product file, against octane_tpu and the product fixture.
 """
 
 import dataclasses
+import inspect
 import os
 
 import h5py
@@ -103,6 +104,14 @@ def test_cli_sor_recovers_the_shift(pair512, tmp_path):
     assert abs(med[0] - 300) <= 5 and abs(med[1] + 150) <= 5, med
     c = ops.counters()
     assert all(c[k][1] > 0 for k in ops.PATHS["sor"]) and c["pcg_pass_a"] == (0, 0)
+
+
+def test_entry_points_default_to_the_card():
+    """read_scene, run_pipeline and the CLI compute on the card unless the
+    caller asks for another device."""
+    assert inspect.signature(read_scene).parameters["device"].default == "cuda"
+    assert inspect.signature(run_pipeline).parameters["device"].default == "cuda"
+    assert cli.build_parser().get_default("device") == "cuda"
 
 
 def test_reader_matches_jax_and_smoke_arrays(pair512):

@@ -72,3 +72,15 @@ def bench_pair(h, w, seed=0, shift=2.4):
                 + 50.0 + rng.normal(0, 2.0, (h, w)).astype(np.float32))
 
     return scene(0.0).astype(np.float32), scene(shift).astype(np.float32)
+
+
+def cth_steps(h, w, step=2000.0, seed=7):
+    """A synthetic cloud-top height (m): 64-px plateaus 2 km apart plus a
+    +-30 m ripple, within int16 range.  Across a step every range weight of
+    SRSAL underflows; within a plateau the ripple keeps them below 1."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    levels = rng.integers(0, 6, (h // 64 + 1, w // 64 + 1)).astype(np.float32)
+    plateaus = levels[(yy // 64).astype(np.int64), (xx // 64).astype(np.int64)]
+    return (4000.0 + step * plateaus + 30.0 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
+            ).astype(np.float32)
