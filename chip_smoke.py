@@ -53,17 +53,39 @@ Phases, one line each (any failure exits non-zero):
      their bounds at every level's shape; each solver's 5424^2 flow is
      smoothed by SRSAL with a synthetic 5424^2 CTH (band 13: no regrid),
      kernel vs plain within rel 1e-5, timed beside its bound and the floor
-     of one ex2 per tap at the SFU's rate.
+     of one ex2 per tap at the SFU's rate;
+ 11. hybrid (patch-match initialization + variational refinement): at
+     1024^2 on the bench pair, patch_match_flow on the card equal to the
+     same call on the CPU (whole-pixel offsets everywhere, u and v within
+     1e-5 px), and per solver the refinement of its flow with the kernels
+     torch.equal to the plain route; at 5424^2, kernels only, per solver, a
+     hybrid pair through compute_flow (algorithm="hybrid"; the warm-up),
+     then the same two calls (patch_match_flow, variational_flow) timed
+     apart with CUDA events and counted (each kernel of the solver
+     launched, no other kernel, no plain version called), their flow equal
+     to compute_flow's and its interior median within 0.1 px of the truth
+     (2.4, 0): the pair's ms, patch-match's share, peak memory; the
+     first-guess gather path at a 2000^2
+     mesoscale-sector shape with a constant guess (1.4, 0.6) px, timed,
+     its median within 0.5 px (the parabola's pixel locking) of the truth;
+ 12. interp: interpolate_frame on the SOR 5424^2 hybrid flow and its pair
+     at frac 1/3 and 2/3 (deltat 200 s of a 600-s pair), timed with CUDA
+     events: no -999 hole left after the fill (its steps and time, one
+     step's and one host check's time printed), the occlusion shares, the
+     frames requantized to counts on the host as interpolate_sequence
+     does; on a 1024^2 crop the card against the CPU: the splat (ut, vt)
+     and the occlusion mask equal, the image within 1e-4.
 The line before the last is the kernels' JSON record (launches on the
-5424^2 pairs and the SRSAL product path, max |d|, ms, plain ms, bound ms and
-what bounds it, library ms); the last line is
-{"ok": true, "device": {...}}.  ``--only`` runs a subset, e.g.
+5424^2 pairs and the SRSAL product path, launches on the 5424^2 hybrid
+pair, max |d|, ms, plain ms, bound ms and what bounds it, library ms); the
+last line is {"ok": true, "device": {...}}.  ``--only`` runs a subset, e.g.
 ``--only build,warp,pcg,assemble,sor``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -77,7 +99,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
 PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
-          "fulldisk")
+          "fulldisk", "hybrid", "interp")
+SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
+MESO = 2000             # a mesoscale-sector shape for the first-guess gather path
 KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
     ("warp_bilinear", "warp", "octane_tpu_torch/csrc/warp.cu",
      "octane_tpu/ops/pallas/warp.py:80 _kernel + :284 _stats_kernel", "warp_bilinear"),
@@ -856,12 +880,194 @@ def phase_fulldisk(dev, report):
     report["_library"] = library
 
 
+def phase_hybrid(dev, report):
+    """Returns the SOR 5424^2 hybrid flow and its pair for the interp phase."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.flow.patch_match import patch_match_flow
+    from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
+    from octane_tpu_torch.io.datamodel import Scene
+
+    fx = load_tests_module("torch_fixtures")
+
+    # patch-match on the card against the CPU, and the refinement of its
+    # flow with the kernels against the plain route, at 1024^2
+    g1, g2 = bench_images(SECTOR, SECTOR, dev)
+    pu, pv = patch_match_flow(g1[0], g2[0], None, None, 2, 2)
+    cu, cv = patch_match_flow(g1[0].cpu(), g2[0].cpu(), None, None, 2, 2)
+    whole = (torch.equal(torch.round(pu).cpu(), torch.round(cu))
+             and torch.equal(torch.round(pv).cpu(), torch.round(cv)))
+    err = max(float((pu.cpu() - cu).abs().max()), float((pv.cpu() - cv).abs().max()))
+    say("hybrid", f"{SECTOR}x{SECTOR} patch_match_flow card vs CPU: whole-pixel offsets "
+                  f"equal {whole}, max |d| {err:.3e} px (budget 1e-5)")
+    if not (whole and err <= 1e-5):
+        raise AssertionError("hybrid: patch-match on the card differs from the CPU")
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=4, solver=solver)
+        ku, kv = variational_flow(g1, g2, pu, pv, cfg)
+        qu, qv = _coarse_to_fine(g1, g2, pu, pv, cfg, plain=True)
+        torch.cuda.synchronize()
+        same = torch.equal(ku, qu) and torch.equal(kv, qv)
+        m = SECTOR // 8
+        say("hybrid", f"{SECTOR}x{SECTOR} {solver}: refinement of the patch-match flow, "
+                      f"kernels vs plain route torch.equal {same}; median "
+                      f"({float(ku[m:-m, m:-m].median()):.4f}, "
+                      f"{float(kv[m:-m, m:-m].median()):.4f}) px, truth (2.4, 0)")
+        if not same:
+            raise AssertionError(f"hybrid: the {solver} refinement differs from the plain route")
+
+    # the full-disk hybrid pair, kernels only
+    h = w = FULLDISK
+    g1, g2 = bench_images(h, w, dev)
+    _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
+    m = min(512, h // 4)
+    # patch-match's bound: g1, g2 in, u, v out; per pixel and offset of the
+    # factored cost one subtraction, one square and T - 1 window sums (T
+    # taps), four ops of the running minimum per spiral step, and per
+    # refinement offset the cost plus four ops for each of five selects
+    cfg = OFConfig()
+    taps, spiral = (2 * cfg.rad + 1) ** 2, (2 * cfg.srad + 1) ** 2
+    refine = (2 * cfg.srad + 3) ** 2 - 4
+    pm_bound = bound(4 * h * w * 4, h * w * (spiral * (taps + 1) + 4 * (spiral - 1)
+                                            + refine * (taps + 21) + 16))
+    launches, flows = {}, {}
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=4, solver=solver, algorithm="hybrid")
+
+        def run():
+            return compute_flow(Scene(nav=dataclasses.replace(nav), data=g1, t=fx.FIXTURE_T0),
+                                Scene(nav=nav, data=g2, t=fx.FIXTURE_T0 + 60.0), cfg)
+
+        # compute_flow warms up and gives the flow the counted, timed run
+        # of its two calls must equal
+        s1 = run()
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        u, v = patch_match_flow(g1[0], g2[0], None, None, cfg.rad, cfg.srad)
+        ev[1].record()
+        ru, rv = variational_flow(g1, g2, u, v, cfg)
+        ev[2].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        c = launches[solver] = _check_counters("hybrid", solver)
+        stray = {n: c[n][0] for n in ops.WRAPPERS if n not in ops.PATHS[solver] and c[n][0]}
+        if stray:
+            raise AssertionError(f"hybrid: the {solver} pair launched kernels off its "
+                                 f"path: {stray}")
+        pm_ms, ref_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        same = torch.equal(ru, s1.u_pix) and torch.equal(rv, s1.v_pix)
+        med = (float(ru[m:-m, m:-m].median()), float(rv[m:-m, m:-m].median()))
+        pm_med = (float(u[m:-m, m:-m].median()), float(v[m:-m, m:-m].median()))
+        say("hybrid", f"{h}x{w} {solver}: patch_match_flow {pm_ms:.1f} ms (bound "
+                      f"{pm_bound[0]:.3f} ms, {pm_bound[1]}) + variational_flow "
+                      f"{ref_ms:.1f} ms = {pm_ms + ref_ms:.1f} ms per pair ({wall:.1f} ms "
+                      f"wall), patch-match share {100 * pm_ms / (pm_ms + ref_ms):.1f} %, "
+                      f"peak {peak:.2f} GiB; equal to compute_flow(hybrid)'s {same}; median "
+                      f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0); patch-match alone "
+                      f"({pm_med[0]:.4f}, {pm_med[1]:.4f}) px")
+        if not (same and abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1
+                and torch.isfinite(ru).all() and s1.u_wind.shape == (h, w)):
+            raise AssertionError(f"hybrid: the {solver} 5424^2 pair is off")
+        flows[solver] = (ru, rv)
+    report["_launches_hybrid"] = launches
+
+    # the first-guess gather path at a mesoscale-sector shape: the patches
+    # centre on trunc(i + 1.4), trunc(j + 0.6), and the flow there is the
+    # pair's (2.4, 0)
+    g1m, g2m = bench_images(MESO, MESO, dev)
+    guess = (torch.full((MESO, MESO), 1.4, device=dev), torch.full((MESO, MESO), 0.6, device=dev))
+    ms = cuda_ms(lambda: patch_match_flow(g1m[0], g2m[0], *guess), n=2)
+    u, v = patch_match_flow(g1m[0], g2m[0], *guess)
+    mm = MESO // 8
+    med = (float(u[mm:-mm, mm:-mm].median()), float(v[mm:-mm, mm:-mm].median()))
+    say("hybrid", f"{MESO}x{MESO} patch_match_flow with a first guess (1.4, 0.6) px: "
+                  f"{ms:.1f} ms, median ({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0)")
+    if not (abs(med[0] - 2.4) < 0.5 and abs(med[1]) < 0.5 and torch.isfinite(u).all()):
+        raise AssertionError("hybrid: the first-guess patch-match flow misses the truth")
+    return (*flows["sor"], g1, g2, nav)
+
+
+def phase_interp(dev, hybrid):
+    from octane_tpu_torch.io.native import requantize
+    from octane_tpu_torch.post.temporal import (_fill_step, fill_holes, forward_splat,
+                                                interpolate_frame)
+
+    u, v, g1, g2, nav = hybrid
+    h, w = u.shape
+    fracs = (1.0 / 3.0, 2.0 / 3.0)          # deltat 200 s of a 600-s pair
+    interpolate_frame(u, v, g1, g2, fracs[0])
+    for frac in fracs:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        img, occ = interpolate_frame(u, v, g1, g2, frac)
+        ev[1].record()
+        torch.cuda.synchronize()
+        # the hole fill apart: its steps, its time, one step's and one host
+        # check's time
+        ut, vt = forward_splat(u, v, g1[0], g2[0],
+                               torch.tensor(frac, dtype=torch.float32, device=dev))
+        splat_holes = int((ut < -998.0).sum())
+        uv, steps = torch.stack([ut, vt]), 0
+        while bool((uv[0] < -998.0).any()):
+            uv, steps = _fill_step(uv), steps + 1
+        fu, fv = fill_holes(ut, vt)
+        holes = int((fu < -998.0).sum())
+        fill_ms = cuda_ms(lambda: fill_holes(ut, vt), n=2)
+        step_ms = cuda_ms(lambda: _fill_step(uv), n=2)
+        check_ms = cuda_ms(lambda: bool((uv[0] < -998.0).any()), n=10)
+        share = (torch.bincount(occ.reshape(-1).to(torch.int64), minlength=3).double()
+                 / (h * w)).tolist()
+        counts = requantize(img[0].cpu().numpy(), 0.0, 255.0, nav.rad_scale[0],
+                            nav.rad_offset[0])
+        say("interp", f"{h}x{w} frac {frac:.4f}: interpolate_frame {ev[0].elapsed_time(ev[1]):.1f} "
+                      f"ms; the splat left {splat_holes} holes, fill_holes closed them in "
+                      f"{steps} steps, {fill_ms:.3f} ms (one step {step_ms:.3f} ms, one "
+                      f"host check {check_ms:.3f} ms), holes left {holes}; occlusion shares "
+                      f"both/only-1/only-2 {share[0]:.5f}/{share[1]:.5f}/{share[2]:.5f}; "
+                      f"requantized {counts.dtype} {counts.shape}")
+        if not (holes == 0 and torch.equal(fu, uv[0]) and torch.equal(fv, uv[1])
+                and img.shape == (1, h, w) and torch.isfinite(img).all()
+                and counts.shape == (h, w) and counts.dtype == np.int16):
+            raise AssertionError(f"interp: the 5424^2 frame at {frac:.4f} is off")
+
+    # a 1024^2 crop on the card against the CPU
+    y0 = x0 = (h - SECTOR) // 2
+    crop = (slice(y0, y0 + SECTOR), slice(x0, x0 + SECTOR))
+    args = {d: (u[crop].contiguous().to(d), v[crop].contiguous().to(d),
+                g1[(slice(None), *crop)].contiguous().to(d),
+                g2[(slice(None), *crop)].contiguous().to(d)) for d in (dev, "cpu")}
+    for frac in fracs:
+        got = {}
+        for d, (cu, cv, c1, c2) in args.items():
+            t = torch.tensor(frac, dtype=torch.float32, device=d)
+            got[d] = (*forward_splat(cu, cv, c1[0], c2[0], t),
+                      *interpolate_frame(cu, cv, c1, c2, frac))
+        (kut, kvt, kimg, kocc), (put, pvt, pimg, pocc) = [
+            [x.cpu() for x in got[d]] for d in (dev, "cpu")]
+        splat_eq = torch.equal(kut, put) and torch.equal(kvt, pvt)
+        occ_eq = torch.equal(kocc, pocc)
+        err = float((kimg - pimg).abs().max())
+        say("interp", f"{SECTOR}x{SECTOR} crop frac {frac:.4f}, card vs CPU: splat equal "
+                      f"{splat_eq}, occlusion equal {occ_eq}, image max |d| {err:.3e} "
+                      f"(budget 1e-4)")
+        if not (splat_eq and occ_eq and err <= 1e-4):
+            raise AssertionError("interp: the card differs from the CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
+    if "interp" in only and "hybrid" not in only:
+        ap.error("the interp phase runs on the hybrid phase's flow: add hybrid")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -882,19 +1088,30 @@ def main(argv=None):
         phase_srsal(dev, report)
     if "fulldisk" in only:
         phase_fulldisk(dev, report)
+    if "hybrid" in only:
+        hybrid = phase_hybrid(dev, report)
+        if "interp" in only:
+            phase_interp(dev, hybrid)
+        del hybrid
 
-    if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk"} <= only:
+    if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk", "hybrid"} <= only:
         from octane_tpu_torch import ops
 
         # launches: each solver path's from the 5424^2 pair, the bilateral
         # kernel's from the SRSAL product path
         launches = dict(report["_launches"], srsal=report["_launches_srsal"])
+        hybrid_launches = report["_launches_hybrid"]
         times, bounds, library = report["_times"], report["_bounds"], report["_library"]
         entries = []
         for name, wrapper, src, replaces, tkey in KERNELS:
             path = next(p for p in ("pcg", "sor", "srsal") if wrapper in ops.PATHS[p])
+            # on the hybrid pair of its relaxer; a kernel of neither relaxer
+            # (the bilateral) sums both pairs' counts, held to 0 above
+            hybrid = sum(c[wrapper][0] for s, c in hybrid_launches.items()
+                         if s == path or path not in hybrid_launches)
             entries.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces, "launches": launches[path][wrapper][0],
+                            "hybrid_launches": hybrid,
                             "max_abs_err": report[name]["max_abs_err"],
                             "ms": times[tkey][0], "plain_ms": times[tkey][1],
                             "bound_ms": bounds[tkey][0], "bound_by": bounds[tkey][1],

@@ -4,8 +4,10 @@ plus ``--device`` (default ``cuda``).
 Usage example:
     python -m octane_tpu_torch.cli -i1 img1.nc -i2 img2.nc -o ./out/
 
-Flags of paths that are not ported yet are accepted and raise
-NotImplementedError when they are set.
+Every flag of the single-device pipeline is honoured, -sosm, -hybrid and
+-interp with -interploc included.  Flags of paths that are not ported yet
+(polar and mercator grids, channels 2 and 3, -mesh, -nprocs) are accepted
+and raise NotImplementedError when they are set.
 """
 
 from __future__ import annotations
@@ -123,7 +125,7 @@ def main(argv=None) -> int:
     written = run_pipeline(
         a.i1, a.i2, cfg, outdir=a.outdir,
         cth_file=a.i1cth, firstguess_file=a.firstguess,
-        channel2=ch2, channel3=ch3, device=a.device,
+        channel2=ch2, channel3=ch3, interp_dir=a.interploc, device=a.device,
     )
     for w in written:
         print(f"{w} written")

@@ -5,8 +5,9 @@ Writes the same variables and attributes as the JAX package's writer, as
 HDF5 with netCDF-style dimension scales: x, y (int16 + scale/offset), t,
 U/V (int16, 100*m/s), U_raw/V_raw (int16, 100*pixels), Upix/Vpix (-pd),
 CTP, Rad + planck/kappa scalars, goes_imager_projection and
-optical_flow_settings.  Tensors are copied to host memory for writing.
-Interpolated-frame products (Occlusion, frdt) are not ported yet.
+optical_flow_settings; an interpolated frame's product (``interp=True``)
+takes t from ``t_interp``, adds the ``frdt`` attribute to t and the
+Occlusion variable (int16).  Tensors are copied to host memory for writing.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def _var2d(f, name, data, xdim, ydim, **attrs):
     return d
 
 
-def write_product(path: str, scene: Scene, cfg: OFConfig) -> str:
+def write_product(path: str, scene: Scene, cfg: OFConfig, interp: bool = False) -> str:
     """Write the flow product for ``scene``; returns the path."""
     if cfg.grid != "goes":
         raise NotImplementedError(f"{cfg.grid!r} products are not ported yet")
@@ -57,13 +58,15 @@ def write_product(path: str, scene: Scene, cfg: OFConfig) -> str:
         xd = _dimvar(f, "x", _np(x, np.int16), nav.x_scale, nav.x_offset)
         yd = _dimvar(f, "y", _np(y, np.int16), nav.y_scale, nav.y_offset)
 
-        t = f.create_dataset("t", data=np.float64(scene.t))
+        t = f.create_dataset("t", data=np.float64(scene.t_interp if interp else scene.t))
         t.attrs["standard_name"] = "time"
         t.attrs["units"] = scene.t_units
         t.attrs["axis"] = "T"
         t.attrs["bounds"] = "time_bounds"
         t.attrs["long_name"] = (
             "J2000 epoch mid-point between the start and end image scan in seconds")
+        if interp:
+            t.attrs["frdt"] = np.float32(scene.frdt)
 
         grid_map = "goes_imager_projection"
         units_uv = "meters per second" if not cfg.pixuv else "x-pixels"
@@ -87,6 +90,10 @@ def write_product(path: str, scene: Scene, cfg: OFConfig) -> str:
                    long_name="Upix", grid_mapping=grid_map)
             _var2d(f, "Vpix", _np(scene.v_pix, np.float32), xd, yd,
                    long_name="Vpix", grid_mapping=grid_map)
+        if interp and scene.occlusion is not None:
+            _var2d(f, "Occlusion", _np(scene.occlusion, np.int16), xd, yd,
+                   long_name="Occlusion Masks",
+                   key="0 - both, 1 - only in image 1, 2 - only in image 2")
         if cfg.out_ctp and cfg.do_cth and scene.ctp is not None:
             _var2d(f, "CTP", _np(scene.ctp, np.int16), xd, yd,
                    long_name="CTP", grid_mapping=grid_map,

@@ -9,7 +9,9 @@ PCG and SOR solves; a 30-iteration PCG solve agrees to rel 5e-4 with the
 reference loop flow.cg.pcg_solve, a 30-sweep SOR solve to rel 2e-5 with
 flow.cg.sor_solve, and the SRSAL bilateral smoother, whose weights are one
 base-2 exponent on the card's approximate ex2, to rel 1e-5 with its plain
-version (docs/PARITY.md).
+version (docs/PARITY.md).  Patch-match and the interpolated frame, plain
+PyTorch without a kernel, equal the CPU's results on the card (the image
+within 1e-4).
 """
 
 import numpy as np
@@ -210,3 +212,39 @@ def test_bilateral_kernel_within_budget(dev, hw, cth, p):
     q = bilateral.bilateral_plain(u, v, c, gk, -1.0 / 800.0)
     assert k.shape == (2, h, w) and torch.isfinite(k).all()
     assert max(_rel(k[0], q[0]), _rel(k[1], q[1])) <= 1e-5
+
+
+@pytest.mark.parametrize("form", ["sector", "factored", "first_guess"])
+def test_patch_match_card_equals_cpu(dev, monkeypatch, form):
+    """patch_match_flow has no kernel of its own: plain PyTorch on the card
+    gives the CPU's flow (no FMA contraction in eager ops)."""
+    from octane_tpu_torch.flow import patch_match as pm
+
+    if form == "factored":
+        monkeypatch.setattr(pm, "FIRST_GUESS_MAX_PIXELS", 1000)
+    rng = np.random.default_rng(5)
+    im1 = rng.normal(100, 25, (96, 120)).astype(np.float32)
+    im2 = (np.roll(im1, (1, 2), axis=(0, 1)) + rng.normal(0, 0.5, im1.shape)).astype(np.float32)
+    guess = (None, None)
+    if form == "first_guess":
+        guess = (np.full(im1.shape, 1.4, np.float32), np.full(im1.shape, 0.6, np.float32))
+    got = pm.patch_match_flow(im1, im2, *guess, device=dev)
+    want = pm.patch_match_flow(im1, im2, *guess, device="cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+
+
+def test_interpolate_frame_card_equals_cpu(dev):
+    from octane_tpu_torch.post.temporal import interpolate_frame
+
+    rng = np.random.default_rng(13)
+    h, w = 200, 176
+    arrs = (rng.normal(2.4, 1.5, (h, w)), rng.normal(0, 1.5, (h, w)),
+            rng.normal(120, 20, (1, h, w)), rng.normal(120, 20, (1, h, w)))
+    cpu = [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+    for frac in (1.0 / 3.0, 2.0 / 3.0):
+        img, occ = interpolate_frame(*[t.to(dev) for t in cpu], frac)
+        pimg, pocc = interpolate_frame(*cpu, frac)
+        assert torch.equal(occ.cpu(), pocc)
+        assert float((img.cpu() - pimg).abs().max()) <= 1e-4

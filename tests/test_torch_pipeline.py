@@ -20,7 +20,14 @@ the product file, against octane_tpu and the product fixture.
   band 2 (a 32^2 CTH field zoomed in, bicubic and -nncth), and -ahi with a
   CTH file: Upix/Vpix (the smoothed flow) within 1e-4 px, CTP exact, the
   pixel and wind shorts within 1 count (torch_fixtures.EXACT_SHARE), every
-  other variable and every attribute equal.
+  other variable and every attribute equal;
+* patch-match (``-sosm``) and hybrid through ``compute_flow`` against
+  octane_tpu's on the 128^2 pair (shorts within 1 count, u_pix within
+  5e-3 px), and through the CLI against octane_tpu's ``run_pipeline``;
+* temporal interpolation (``do_interp``, ``-interp -interploc``): the
+  frames' files against octane_tpu's (t, frdt and Occlusion equal, Rad
+  within 1 count), and the writer's interp and oftype-4 products against
+  octane_tpu's writer.
 """
 
 import dataclasses
@@ -107,11 +114,18 @@ def test_cli_sor_recovers_the_shift(pair512, tmp_path):
 
 
 def test_entry_points_default_to_the_card():
-    """read_scene, run_pipeline and the CLI compute on the card unless the
-    caller asks for another device."""
+    """read_scene, run_pipeline, patch_match_flow (for arrays) and the CLI
+    compute on the card unless the caller asks for another device; the
+    interpolated frames go where octane_tpu puts them."""
+    from octane_tpu_torch.flow.patch_match import patch_match_flow
+
     assert inspect.signature(read_scene).parameters["device"].default == "cuda"
     assert inspect.signature(run_pipeline).parameters["device"].default == "cuda"
+    assert inspect.signature(patch_match_flow).parameters["device"].default == "cuda"
     assert cli.build_parser().get_default("device") == "cuda"
+    assert (inspect.signature(run_pipeline).parameters["interp_dir"].default
+            == inspect.signature(jax_run_pipeline).parameters["interp_dir"].default
+            == cli.build_parser().get_default("interploc"))
 
 
 def test_reader_matches_jax_and_smoke_arrays(pair512):
@@ -137,14 +151,19 @@ def test_reader_matches_jax_and_smoke_arrays(pair512):
 
 
 @pytest.fixture(scope="module")
-def jax_pair128(tmp_path_factory):
+def pair128(tmp_path_factory):
     d = tmp_path_factory.mktemp("pair128")
     c1 = fx.fixture_counts(0, 0, 128, 128)
     c2 = fx.fixture_counts(1.5, -0.75, 128, 128)
     f1 = make_goes_file(str(d / "a.nc"), c1, band=13)
     f2 = make_goes_file(str(d / "b.nc"), c2, band=13, t=T0 + 60.0)
+    return f1, f2
+
+
+@pytest.fixture(scope="module")
+def jax_pair128(pair128):
     cfg = OFConfig(kiters=3)
-    return (cfg, *_jax_flow(f1, f2, cfg))
+    return (cfg, *_jax_flow(*pair128, cfg))
 
 
 def _jax_flow(f1, f2, cfg):
@@ -218,9 +237,11 @@ def test_writer_matches_jax(jax_pair128, tmp_path, pixuv):
 def test_unported_options_raise(pair512, tmp_path):
     f1, f2 = pair512
     with pytest.raises(NotImplementedError):
-        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu", "-sosm"])
+        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
+                  "-ic21", f1, "-ic22", f2])
     with pytest.raises(NotImplementedError):
-        run_pipeline(f1, f2, OFConfig(do_interp=True), outdir=str(tmp_path), device="cpu")
+        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
+                  "-mesh", "2x2"])
     with pytest.raises(NotImplementedError):
         read_scene(f1, OFConfig(grid="polar"))
 
@@ -283,3 +304,131 @@ def test_cth_firstguess_srsal_product_matches_jax(extras128, tmp_path, band, sol
     # the smoothing reached the product: Upix is not the unsmoothed flow's
     # 0.01-px shorts
     assert np.abs(b["Upix"][2] - b["U_raw"][2] * 0.01).max() > 0.01
+
+
+def _assert_products_match(a, b, float_atol=1e-4, within_one_count=()):
+    """Two _dump()s: the same variables, dtypes, shapes and attributes; the
+    float flow within ``float_atol`` px, the shorts within 1 count
+    (torch_fixtures.EXACT_SHARE exact), the variables ``within_one_count``
+    within 1 count, every other variable equal."""
+    assert a.keys() == b.keys()
+    for name in a:
+        (da, sa, va, aa), (db, sb, vb, ab) = a[name], b[name]
+        assert (da, sa) == (db, sb), name
+        if name in within_one_count:
+            d = np.abs(va.astype(np.int32) - vb.astype(np.int32))
+            assert d.max() <= 1, f"{name}: max count diff {d.max()}"
+        elif name in ("Upix", "Vpix"):
+            np.testing.assert_allclose(vb, va, rtol=0, atol=float_atol, err_msg=name)
+        elif name in fx.EXACT_SHARE:
+            d = np.abs(va.astype(np.int32) - vb.astype(np.int32))
+            assert d.max() <= 1 and (d == 0).mean() > fx.EXACT_SHARE[name], name
+        else:
+            np.testing.assert_array_equal(va, vb, err_msg=name)
+        assert aa.keys() == ab.keys(), name
+        for k in aa:
+            np.testing.assert_array_equal(aa[k], ab[k], err_msg=f"{name}.{k}")
+            assert np.asarray(aa[k]).dtype == np.asarray(ab[k]).dtype, f"{name}.{k}"
+
+
+@pytest.mark.parametrize("algorithm,pixuv", [("hybrid", False), ("patch_match", True)])
+def test_patch_match_and_hybrid_compute_flow_match_jax(pair128, algorithm, pixuv):
+    """compute_flow with algorithm "hybrid" (patch-match initialization,
+    then the variational refiner) and "patch_match" (-sosm -pd) against
+    octane_tpu's on the same scenes."""
+    cfg = OFConfig(kiters=3, algorithm=algorithm, pixuv=pixuv)
+    fields1, fields2, js1 = _jax_flow(*pair128, cfg)
+    p1 = scene_from_numpy(fields1, "cpu")
+    p2 = scene_from_numpy(fields2, "cpu")
+    ops.reset_counters()
+    compute_flow(p1, p2, cfg)
+    c = ops.counters()
+    # only the refiner runs the solver's kernels (plain versions on the CPU)
+    assert all((c[k][1] > 0) == (algorithm == "hybrid") for k in ops.PATHS["pcg"])
+    for name in ("u_wind", "v_wind", "u_raw", "v_raw"):
+        d = np.abs(getattr(p1, name).numpy().astype(np.int32)
+                   - getattr(js1, name).astype(np.int32))
+        assert d.max() <= 1, f"{name}: max short diff {d.max()}"
+    for got, want in ((p1.u_pix, js1.u_pix), (p1.v_pix, js1.v_pix)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-3)
+    assert abs(float(p1.u_pix[16:-16, 16:-16].median()) - 1.5) < 0.1
+
+
+def test_patch_match_rejects_multichannel(pair128):
+    cfg = OFConfig(algorithm="patch_match")
+    s1 = read_scene(pair128[0], cfg, donav=True, device="cpu")
+    s2 = read_scene(pair128[1], cfg, donav=False, device="cpu")
+    s1.data, s2.data = s1.data.repeat(2, 1, 1), s2.data.repeat(2, 1, 1)
+    with pytest.raises(ValueError, match="single-channel"):
+        compute_flow(s1, s2, cfg)
+
+
+@pytest.mark.parametrize("flags", [["-sosm", "-pd"], ["-hybrid"], ["-sosm", "-rad", "1",
+                                                                   "-srad", "3"]])
+def test_cli_patch_match_matches_jax(pair128, tmp_path, flags):
+    f1, f2 = pair128
+    argv = ["-i1", f1, "-i2", f2, "-kiters", "3", *flags]
+    assert cli.main(argv + ["-o", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+    assert cfg.algorithm == ("hybrid" if "-hybrid" in flags else "patch_match")
+    jax_run_pipeline(f1, f2, _jax_cfg(cfg), outdir=str(tmp_path / "jax"))
+    a = _dump(str(tmp_path / "jax" / "outfile.nc"))
+    b = _dump(str(tmp_path / "port" / "outfile.nc"))
+    _assert_products_match(a, b, float_atol=1e-4 if "-sosm" in flags else 5e-3)
+    settings = b["optical_flow_settings"]
+    assert int(settings[2]) == (4 if "-sosm" in flags else 1)
+    if "-sosm" in flags:
+        assert settings[3]["Rad"] == cfg.rad and settings[3]["SRad"] == cfg.srad
+
+
+def _interp_files(written):
+    return [w for w in written if "outfile_interp" in os.path.basename(w)]
+
+
+def test_run_pipeline_interp_matches_jax(pair128, tmp_path):
+    """do_interp with deltat 200 s of a 60-s pair's flow scaled to a 600-s
+    pair: frames at frt 1/3 and 2/3, as octane_tpu writes them."""
+    f1, _ = pair128
+    f2 = make_goes_file(str(tmp_path / "b600.nc"), fx.fixture_counts(1.5, -0.75, 128, 128),
+                        band=13, t=T0 + 600.0)
+    cfg = OFConfig(kiters=2, do_interp=True, deltat=200.0)
+    port = run_pipeline(f1, f2, cfg, outdir=str(tmp_path / "port"),
+                        interp_dir=str(tmp_path / "port_interp"), device="cpu")
+    jax = jax_run_pipeline(f1, f2, _jax_cfg(cfg), outdir=str(tmp_path / "jax"),
+                           interp_dir=str(tmp_path / "jax_interp"))
+    assert len(port) == len(jax) == 3
+    assert [os.path.basename(p) for p in port] == [os.path.basename(p) for p in jax]
+    for k, (pj, pp) in enumerate(zip(_interp_files(jax), _interp_files(port))):
+        a, b = _dump(pj), _dump(pp)
+        assert b["t"][3]["frdt"] == np.float32((k + 1) / 3.0)
+        assert b["t"][2] == pytest.approx(T0 + 200.0 * (k + 1))
+        assert b["Occlusion"][0] == "<i2"
+        # t, frdt and Occlusion equal; Rad requantized from images within 1e-4
+        _assert_products_match(a, b, within_one_count=("Rad",))
+
+
+def test_cli_interploc_is_honoured(pair128, tmp_path, monkeypatch):
+    f1, f2 = pair128
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-i1", f1, "-i2", f2, "-o", "out", "-kiters", "2", "-interp",
+                     "-deltat", "20", "-interploc", "frames", "--device", "cpu"]) == 0
+    assert sorted(os.listdir("frames")) == ["outfile_interp1.nc", "outfile_interp2.nc"]
+    assert sorted(os.listdir(".")) == ["frames", "out"]     # no ./interpolation
+
+
+@pytest.mark.parametrize("kind", ["interp", "oftype4"])
+def test_writer_interp_and_patch_match_products_match_jax(jax_pair128, tmp_path, kind):
+    cfg, _, _, js1 = jax_pair128
+    if kind == "interp":
+        rng = np.random.default_rng(4)
+        js1 = dataclasses.replace(
+            js1, occlusion=rng.integers(0, 3, js1.u_pix.shape).astype(np.int16),
+            frdt=1.0 / 3.0, t_interp=js1.t + 20.0)
+    else:
+        cfg = cfg.replace(algorithm="patch_match", rad=1, srad=3)
+    interp = kind == "interp"
+    ps1 = scene_from_numpy(dataclasses.asdict(js1), "cpu")
+    a = _dump(jax_write_product(str(tmp_path / "jax.nc"), js1, _jax_cfg(cfg), interp=interp))
+    b = _dump(write_product(str(tmp_path / "port.nc"), ps1, cfg, interp=interp))
+    assert ("Occlusion" in b) == interp and ("frdt" in b["t"][3]) == interp
+    _assert_products_match(a, b, float_atol=0.0)

@@ -1,10 +1,13 @@
 """Device-time breakdown of one octane_tpu_torch pair solve on a CUDA card.
 
     python3 tools/profile_torch_pair.py [--size 5424] [--kiters 4] [--solver pcg|sor]
+                                        [--hybrid]
 
-Runs the bench.py synthetic pair through ``variational_flow`` once to warm
-up, once timed without the profiler (wall clock, CUDA events around it) and
-once under ``torch.profiler``.  Prints both wall times, the peak device
+Runs the bench.py synthetic pair through ``variational_flow`` (with
+``--hybrid``: ``patch_match_flow``, then ``variational_flow`` from its flow,
+as compute_flow's "hybrid" does; patch-match is also profiled alone) once
+to warm up, once timed without the profiler (wall clock, CUDA events around
+it) and once under ``torch.profiler``.  Prints both wall times, the peak device
 memory, the summed device time and the device's idle share, 1 - device
 busy / unprofiled wall (the profiler's own host cost would inflate a wall
 taken under it), and the device time by kernel grouped into the port's
@@ -26,6 +29,7 @@ sys.path.insert(0, ROOT)
 
 from octane_tpu_torch import ops  # noqa: E402
 from octane_tpu_torch.config import OFConfig  # noqa: E402
+from octane_tpu_torch.flow.patch_match import patch_match_flow  # noqa: E402
 from octane_tpu_torch.flow.variational import variational_flow  # noqa: E402
 from chip_smoke import load_tests_module  # noqa: E402
 
@@ -47,11 +51,57 @@ def group(name):
     return "other"
 
 
+def profile(run, label, trace):
+    """Warm-up, a run timed without the profiler, a run under it; prints
+    the breakdown and writes the chrome trace."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ops.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) * 1e3
+    by_group = defaultdict(float)
+    counts = defaultdict(int)
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            by_group[group(ev.key)] += dt / 1e3
+            counts[group(ev.key)] += ev.count
+    busy = sum(by_group.values())
+    print(f"{label}: wall {wall:.1f} ms without "
+          f"the profiler (CUDA events {event_ms:.1f} ms, peak {peak:.2f} GiB), "
+          f"{wall_prof:.1f} ms under it; device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
+          f"wall; counters {ops.counters()}")
+    for name, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:36s} {ms:9.2f} ms  {ms / wall:6.1%} of wall  "
+              f"({counts[name]} launches)")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, f"profile_{trace}.json"))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=5424)
     ap.add_argument("--kiters", type=int, default=4)
     ap.add_argument("--solver", choices=("pcg", "sor"), default="pcg")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="patch-match initialization, then the variational refinement")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_pair: no CUDA device", file=sys.stderr)
@@ -63,45 +113,18 @@ def main():
     g2 = torch.from_numpy(im2[None]).to(dev)
     z = torch.zeros((h, w), device=dev)
     cfg = OFConfig(kiters=a.kiters, solver=a.solver)
-    variational_flow(g1, g2, z, z, cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    variational_flow(g1, g2, z, z, cfg)
-    end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    event_ms = start.elapsed_time(end)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ops.reset_counters()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        variational_flow(g1, g2, z, z, cfg)
-        torch.cuda.synchronize()
-        wall_prof = (time.perf_counter() - t0) * 1e3
-    by_group = defaultdict(float)
-    counts = defaultdict(int)
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
-            by_group[group(ev.key)] += dt / 1e3
-            counts[group(ev.key)] += ev.count
-    busy = sum(by_group.values())
-    print(f"{h}x{w} kiters={a.kiters} solver={a.solver}: wall {wall:.1f} ms without "
-          f"the profiler (CUDA events {event_ms:.1f} ms, peak {peak:.2f} GiB), "
-          f"{wall_prof:.1f} ms under it; device "
-          f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
-          f"wall; counters {ops.counters()}")
-    for label, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:36s} {ms:9.2f} ms  {ms / wall:6.1%} of wall  "
-              f"({counts[label]} launches)")
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    out = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, f"profile_pair_{a.solver}.json"))
+    label = f"{h}x{w} kiters={a.kiters} solver={a.solver}"
+    if not a.hybrid:
+        profile(lambda: variational_flow(g1, g2, z, z, cfg), label, f"pair_{a.solver}")
+        return 0
+
+    def patch_match():
+        return patch_match_flow(g1[0], g2[0], None, None, cfg.rad, cfg.srad)
+
+    profile(patch_match, f"{h}x{w} patch_match_flow rad={cfg.rad} srad={cfg.srad}",
+            "patch_match")
+    profile(lambda: variational_flow(g1, g2, *patch_match(), cfg), label + " hybrid",
+            f"hybrid_{a.solver}")
     return 0
 
 
