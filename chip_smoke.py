@@ -75,11 +75,43 @@ Phases, one line each (any failure exits non-zero):
      frames requantized to counts on the host as interpolate_sequence
      does; on a 1024^2 crop the card against the CPU: the splat (ut, vt)
      and the occlusion mask equal, the image within 1e-4.
+ 13. multichannel: (a) at C = 2 and 3 channels (the bench pair plus
+     channels of other seeds) the warp (K = 6C planes) and the fused
+     assembly bit-exact against their plain versions at every pyramid
+     level's shape, 5424^2 .. 678^2, and at 1024^2 variational_flow with
+     the kernels torch.equal to the plain route, per relaxer; (b) a
+     three-channel GOES full-disk pair through the array halves: channel 1
+     the bench pair as band-13 counts at 5424^2 (scene_from_goes_arrays),
+     channel 2 band-3-like 1-km counts at 10848^2 zoomed out onto it,
+     channel 3 band-8-like counts at 5424^2 (channel_onto_scene); per
+     relaxer compute_flow, kernels only, timed with CUDA events after a
+     warm-up: each kernel of the relaxer launched, no plain version called,
+     the interior median within 0.1 px of (2.4, 0), the pair's ms and peak
+     memory; the warp (K = 18) and the assembly (C = 3) timed at 5424^2
+     beside their bounds; (c) channel_onto_scene's zoom-in branch at a
+     2000^2 mesoscale shape (a 500^2 channel onto a band-2-like channel 1)
+     and the zoom-out branch of (b) against the same calls on the CPU: rel
+     <= 1e-5, the pseudo-counts equal;
+ 14. flatgrid: polar pairs at the pole (lat1 90) and at lat1 60 and a
+     mercator pair, 2048^2 (a correctness shape, not a published grid),
+     through scene_from_flat_arrays -> compute_flow (SOR) -> u_ms/v_ms:
+     the SOR kernels launched, no plain version called; lat/lon within
+     1e-9 deg and u_ms/v_ms within 1e-9 m/s of the same functions on the
+     CPU for the same flow;
+ 15. sequence: bench.py config 5 (12 frames of 500^2, kiters 3, lambdac
+     0.05), per relaxer, the pairs chained through compute_flow(...,
+     first_guess=previous flow) over in-memory scenes, as run_sequence's
+     loop chains them (run_sequence itself reads files, which needs h5py):
+     each pair torch.equal to the plain route's chain, ms per pair; where
+     h5py is installed, also run_sequence with a checkpoint, stopped after
+     2 pairs and resumed, its products equal to an uninterrupted run's.
 The line before the last is the kernels' JSON record (launches on the
 5424^2 pairs and the SRSAL product path, launches on the 5424^2 hybrid
-pair, max |d|, ms, plain ms, bound ms and what bounds it, library ms); the
-last line is {"ok": true, "device": {...}}.  ``--only`` runs a subset, e.g.
-``--only build,warp,pcg,assemble,sor``.
+pair and on the three-channel 5424^2 pair, max |d|, ms, plain ms, bound ms
+and what bounds it, library ms; the warp and the assembly also at C = 3);
+the last line is {"ok": true, "device": {...}}.  ``--only`` runs a subset,
+e.g. ``--only build,warp,pcg,assemble,sor`` or ``--only
+env,build,multichannel,flatgrid,sequence``.
 """
 
 from __future__ import annotations
@@ -99,9 +131,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
 PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
-          "fulldisk", "hybrid", "interp")
+          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
 MESO = 2000             # a mesoscale-sector shape for the first-guess gather path
+FLAT = 2048             # the flat-grid phase's correctness shape
 KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
     ("warp_bilinear", "warp", "octane_tpu_torch/csrc/warp.cu",
      "octane_tpu/ops/pallas/warp.py:80 _kernel + :284 _stats_kernel", "warp_bilinear"),
@@ -1060,6 +1093,427 @@ def phase_interp(dev, hybrid):
             raise AssertionError("interp: the card differs from the CPU")
 
 
+# ----------------------------------------------------------------------------
+# multichannel, flat grids and sequences
+# ----------------------------------------------------------------------------
+
+def bench_scene_cuda(h, w, shift, dev, seed, period=(9.0, 7.0)):
+    """bench.py's scene (bench.py:62-75) evaluated on the card, with the
+    noise from a CUDA generator seeded with ``seed`` and the texture's
+    periods ``period``: the extra channels, and inputs too large to make on
+    the host in the time."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    return (120.0 * torch.exp(-(((xx - shift - w / 3) ** 2 + (yy - h / 3) ** 2)
+                                / (2 * (w / 8) ** 2)))
+            + 60.0 * torch.sin((xx - shift) / period[0]) * torch.cos(yy / period[1]) + 50.0
+            + 2.0 * torch.randn((h, w), generator=gen, device=dev))
+
+
+def multichannel_pair(c, h, w, dev):
+    """The bench pair (true flow (2.4, 0) px) with c - 1 channels of other
+    seeds and textures: two (c, h, w) float32 stacks on the card."""
+    g1, g2 = bench_images(h, w, dev)
+    for k in range(1, c):
+        period = (9.0 + 4 * k, 7.0 - 2 * k)
+        g1 = torch.cat([g1, bench_scene_cuda(h, w, 0.0, dev, 2 * k, period)[None]])
+        g2 = torch.cat([g2, bench_scene_cuda(h, w, 2.4, dev, 2 * k + 1, period)[None]])
+    return g1.contiguous(), g2.contiguous()
+
+
+def counts_for(img, band, scale, offset):
+    """int16 counts (host) whose normalised radiance is ``img``: the
+    inverse of the reader's RAW calibration and normalisation."""
+    from octane_tpu_torch.core.normalize import band_min_max
+
+    vmin, vmax = band_min_max(band)
+    rad = img.double() / 255.0 * (vmax - vmin) + vmin
+    return torch.round((rad - offset) / scale).clamp_(-32768, 32767).to(torch.int16).cpu().numpy()
+
+
+def three_channel_scenes(nav, dev, t0):
+    """The three-channel full-disk pair of phase 13 (b) through the array
+    halves: (scene1, scene2, the inputs of channel 2 for the CPU check)."""
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.io.readers import channel_onto_scene, scene_from_goes_arrays
+
+    h = w = FULLDISK
+    cfg = OFConfig()
+    f32 = lambda v: float(np.float32(v))          # noqa: E731
+    g = bench_images(h, w, dev)
+    band2 = (3, f32(0.02), f32(-1.0))      # band-3-like, 1 km: 10848^2
+    band3 = (8, f32(0.0002), f32(3.0))     # band-8-like, 2 km: 5424^2
+    x1 = np.arange(w, dtype=np.int16)
+    y1 = np.arange(h, dtype=np.int16)
+    # the 1-km grid's counts that the channel-1 scan scales map onto its
+    # own scan angles (the reader navigates a channel through channel 1's)
+    x2 = (np.arange(2 * w) // 2).astype(np.int16)
+    y2 = (np.arange(2 * h) // 2).astype(np.int16)
+    scenes, ch2 = [], None
+    for i, shift in enumerate((0.0, 2.4)):
+        t = t0 + 60.0 * i
+        counts1 = counts_for(g[i][0], 13, nav.rad_scale[0], nav.rad_offset[0])
+        sc = scene_from_goes_arrays(counts1, x1, y1, dataclasses.replace(nav), cfg, dev,
+                                    donav=i == 0, t=t)
+        img2 = bench_scene_cuda(2 * h, 2 * w, 2 * shift, dev, 10 + i, (11.0, 13.0))
+        counts2 = counts_for(img2, *band2)
+        del img2
+        cal2 = dict(rad_scale=band2[1], rad_offset=band2[2], fk1=0.0, fk2=0.0, bc1=0.0,
+                    bc2=0.0, kap1=0.0)
+        channel_onto_scene(counts2, x2, y2, band2[0], sc, cfg, 2, cal2)
+        if i == 0:
+            ch2 = (counts1, counts2, x2, y2, cal2)
+        counts3 = counts_for(bench_scene_cuda(h, w, shift, dev, 20 + i, (17.0, 5.0)), *band3)
+        cal3 = dict(cal2, rad_scale=band3[1], rad_offset=band3[2])
+        channel_onto_scene(counts3, x1, y1, band3[0], sc, cfg, 3, cal3)
+        scenes.append(sc)
+    scenes[0].nav.g2x_offset = scenes[1].nav.x_offset
+    scenes[0].nav.g2y_offset = scenes[1].nav.y_offset
+    return scenes[0], scenes[1], ch2
+
+
+def phase_multichannel(dev, report):
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_size
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
+    from octane_tpu_torch.io.readers import (channel_onto_scene, scene_from_goes_arrays,
+                                             set_goes_grid)
+    from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+    from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
+
+    fx = load_tests_module("torch_fixtures")
+    for name, *_ in KERNELS:
+        report.setdefault(name, {"max_abs_err": 0.0})
+    t_phase = time.perf_counter()
+
+    # (a) the warp and the assembly at C = 2 and 3 at every level's shape,
+    # and the flow at 1024^2 against the plain route
+    kiters, scale = 4, 0.5
+    for c in (2, 3):
+        g1, g2 = multichannel_pair(c, FULLDISK, FULLDISK, dev)
+        for k in reversed(range(kiters)):
+            factor = float(np.float32(scale) ** (kiters - k - 1))
+            lh = lw = zoom_size(FULLDISK, factor)
+            if k == kiters - 1:
+                lg1, lg2 = g1, g2
+            else:
+                lvl = pyramid_downsample(torch.cat([g1, g2]), factor)
+                lg1, lg2 = lvl[:c].contiguous(), lvl[c:].contiguous()
+            lu, lv = noisy_flow(lh, lw, dev, 40 + k)
+            stack = sample_stack(lg2)
+            kw, pw = warp(stack, lu, lv), warp_bilinear_dense(stack, lu, lv)
+            torch.cuda.synchronize()
+            if not (stack.shape[0] == 6 * c and all(torch.equal(a, b) for a, b in zip(kw, pw))):
+                raise AssertionError(f"multichannel: warp K={6 * c} {lh}x{lw} differs from "
+                                     "its plain version")
+            err = float((kw[0] - pw[0]).abs().max())
+            report["warp_bilinear"]["max_abs_err"] = max(report["warp_bilinear"]["max_abs_err"],
+                                                         err)
+            inputs = assembly_inputs(lg1, stack, lu, lv)
+            for al1 in (1.0, 0.5, 0.0):
+                equal, ea = compare_assembly(inputs, al1)
+                report["assemble_cf"]["max_abs_err"] = max(
+                    report["assemble_cf"]["max_abs_err"], ea)
+                if not equal:
+                    raise AssertionError(f"multichannel: assemble_cf C={c} {lh}x{lw} "
+                                         f"al1={al1} differs from its plain version")
+            say("multichannel", f"C={c} {lh}x{lw}: warp (K={6 * c}) and assemble_cf "
+                                f"(al1 1, 0.5, 0) bit-exact True")
+            del kw, pw, inputs, stack
+        del g1, g2
+        s1, s2 = multichannel_pair(c, SECTOR, SECTOR, dev)
+        z = torch.zeros((SECTOR, SECTOR), device=dev)
+        for solver in ("pcg", "sor"):
+            cfg = OFConfig(kiters=4, solver=solver, nchannels=c)
+            ku, kv = variational_flow(s1, s2, z, z, cfg)
+            qu, qv = _coarse_to_fine(s1, s2, z, z, cfg, plain=True)
+            torch.cuda.synchronize()
+            same = torch.equal(ku, qu) and torch.equal(kv, qv)
+            m = SECTOR // 8
+            say("multichannel", f"C={c} {SECTOR}x{SECTOR} {solver}: variational_flow with "
+                                f"the kernels torch.equal to the plain route {same}; median "
+                                f"({float(ku[m:-m, m:-m].median()):.4f}, "
+                                f"{float(kv[m:-m, m:-m].median()):.4f}) px, truth (2.4, 0)")
+            if not same:
+                raise AssertionError(f"multichannel: the C={c} {solver} flow differs from "
+                                     "the plain route")
+    torch.cuda.empty_cache()
+
+    # (b) the three-channel full-disk pair, kernels only
+    h = w = FULLDISK
+    _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
+    t0 = time.perf_counter()
+    s1, s2, ch2 = three_channel_scenes(nav, dev, fx.FIXTURE_T0)
+    torch.cuda.synchronize()
+    say("multichannel", f"three-channel {h}x{w} pair made through scene_from_goes_arrays and "
+                        f"channel_onto_scene (channel 2 from {2 * h}x{2 * w}) in "
+                        f"{time.perf_counter() - t0:.2f} s; data {tuple(s1.data.shape)}, "
+                        f"pseudo-counts {tuple(s1.raw_counts.shape)} {s1.raw_counts.dtype}")
+    if not (s1.nchannels == s2.nchannels == 3 and s1.raw_counts.shape == (3, h, w)
+            and all(torch.isfinite(sc.data).all() for sc in (s1, s2))):
+        raise AssertionError("multichannel: the three-channel scenes are off")
+    m = h // 4          # the centre of the disk: no limb ramp there
+    launches, pair_ms, flows = {}, {}, {}
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=4, solver=solver, nchannels=3)
+        compute_flow(s1, s2, cfg)
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        compute_flow(s1, s2, cfg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        c = launches[solver] = _check_counters("multichannel", solver)
+        stray = {n: c[n][0] for n in ops.WRAPPERS if n not in ops.PATHS[solver] and c[n][0]}
+        if stray:
+            raise AssertionError(f"multichannel: the {solver} pair launched kernels off its "
+                                 f"path: {stray}")
+        u, v = s1.u_pix, s1.v_pix
+        med = (float(u[m:-m, m:-m].median()), float(v[m:-m, m:-m].median()))
+        pair_ms[solver] = ev[0].elapsed_time(ev[1])
+        say("multichannel", f"three-channel {h}x{w} {solver}: compute_flow {pair_ms[solver]:.1f} "
+                            f"ms per pair ({wall:.1f} ms wall), peak {peak:.2f} GiB; median "
+                            f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0)")
+        if not (abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1 and torch.isfinite(u).all()
+                and s1.u_wind.shape == (h, w)):
+            raise AssertionError(f"multichannel: the three-channel {solver} pair is off")
+        flows[solver] = (u.contiguous(), v.contiguous())
+    report["_launches_c3"] = launches
+
+    # rows 1 and 5 at C = 3 on the pair's data and its SOR flow
+    u, v = flows["sor"]
+    stack = sample_stack(s2.data)
+    plane = h * w * 4
+    tw = (cuda_ms(lambda: warp(stack, u, v)), cuda_ms(lambda: warp_bilinear_dense(stack, u, v),
+                                                      n=3))
+    tg = cuda_ms(grid_sample_fn(stack, u, v))
+    # u, v and the 18 planes in, 18 samples and two flag bytes out; per
+    # pixel 16 operations of the cell and 6 per plane
+    bw = bound((2 + 2 * 18) * plane + 2 * h * w, (16 + 6 * 18) * h * w)
+    inputs = assembly_inputs(s1.data, stack, u, v)
+    args = (*inputs, 0.5, *ASM_SCALARS, True)
+    ta = (cuda_ms(lambda: assemble_cf(*args)), cuda_ms(lambda: assemble_cf_plain(*args), n=3))
+    # 9C + 4 planes and the two flag bytes in, 10 planes out; ~100
+    # operations per pixel and ~50 per channel
+    ba = bound((9 * 3 + 4 + 10) * plane + 2 * h * w, (100 + 50 * 3) * h * w)
+    say("multichannel", f"{h}x{w} C=3: warp_bilinear x18 {tw[0]:.3f} ms (bound {bw[0]:.3f} ms, "
+                        f"{bw[1]}; plain {tw[1]:.3f} ms; F.grid_sample {tg:.3f} ms); "
+                        f"assemble_cf robust {ta[0]:.3f} ms (bound {ba[0]:.3f} ms, {ba[1]}; "
+                        f"plain {ta[1]:.3f} ms)")
+    report["_c3"] = {"warp_bilinear": (tw, bw, tg), "assemble_cf": (ta, ba, None)}
+    del stack, inputs, args, flows
+    torch.cuda.empty_cache()
+
+    # (c) the regrid branches on the card against the CPU: the zoom out of
+    # (b), and a zoom in at a mesoscale-sector shape
+    counts1, counts2, x2, y2, cal2 = ch2
+    got = {"zoom out": (s1.data[1], s1.raw_counts[1])}
+    cfg = OFConfig()
+    cpu = scene_from_goes_arrays(counts1, np.arange(w, dtype=np.int16),
+                                 np.arange(h, dtype=np.int16), dataclasses.replace(nav), cfg,
+                                 "cpu", donav=False, t=fx.FIXTURE_T0)
+    channel_onto_scene(counts2, x2, y2, 3, cpu, cfg, 2, cal2)
+    want = {"zoom out": (cpu.data[1], cpu.raw_counts[1])}
+    del cpu
+    # a band-2-like channel 1 (0.5 km) and a channel of a quarter its width
+    mnav = set_goes_grid(dataclasses.replace(nav, rad_scale=(cal2["rad_scale"], 1.0, 1.0),
+                                             rad_offset=(cal2["rad_offset"], 0.0, 0.0)),
+                         MESO, MESO, 2)
+    g = bench_images(MESO, MESO, dev)[0][0]
+    c1 = counts_for(g, 2, cal2["rad_scale"], cal2["rad_offset"])
+    small = counts_for(bench_scene_cuda(MESO // 4, MESO // 4, 0.0, dev, 30), 3, 0.02, -1.0)
+    xs = np.arange(MESO // 4, dtype=np.int16)
+    for d, out in ((dev, got), ("cpu", want)):
+        sc = scene_from_goes_arrays(c1, np.arange(MESO, dtype=np.int16),
+                                    np.arange(MESO, dtype=np.int16), dataclasses.replace(mnav),
+                                    cfg, d, donav=False, t=fx.FIXTURE_T0, band=2)
+        channel_onto_scene(small, xs, xs, 3, sc, cfg, 2, cal2)
+        out["zoom in"] = (sc.data[1], sc.raw_counts[1])
+    for branch, (gd, gc) in got.items():
+        wd, wc = want[branch]
+        r = rel(gd.cpu(), wd)
+        eq = torch.equal(gc.cpu(), wc)
+        say("multichannel", f"channel_onto_scene {branch} ({tuple(gd.shape)}) card vs CPU: "
+                            f"rel {r:.2e} (budget 1e-5), pseudo-counts equal {eq}")
+        if not (r <= 1e-5 and eq and torch.isfinite(gd).all()):
+            raise AssertionError(f"multichannel: the {branch} regrid differs from the CPU's")
+    say("multichannel", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def flat_scene_arrays(grid, lat1, h, w):
+    """A flat-grid pair: the bench pair as raw data on 2-km pixels, and the
+    NavConstants of its file (x = y = 0 on the grid's centre pixel)."""
+    from octane_tpu_torch.io.datamodel import NavConstants
+    from octane_tpu_torch.io.readers import set_flat_grid
+
+    im1, im2 = load_tests_module("torch_fixtures").bench_pair(h, w)
+    nav = NavConstants(grid=grid, R=6371000.0)
+    nav.x_scale = nav.y_scale = 2000.0
+    nav.x_offset, nav.y_offset = -2000.0 * (w // 2), -2000.0 * (h // 2)
+    if grid == "polar":
+        nav.lat1, nav.lon0_deg = lat1, -45.0
+    else:
+        nav.lon1 = -75.0 * np.pi / 180.0
+    return im1, im2, set_flat_grid(nav, h, w)
+
+
+def phase_flatgrid(dev):
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.io.readers import scene_from_flat_arrays
+    from octane_tpu_torch.nav.winds import pix2uv_ms
+
+    t_phase = time.perf_counter()
+    h = w = FLAT
+    x = np.arange(w, dtype=np.int16)
+    y = np.arange(h, dtype=np.int16)
+    m = h // 8
+    for grid, lat1 in (("polar", 90.0), ("polar", 60.0), ("mercator", 0.0)):
+        im1, im2, nav = flat_scene_arrays(grid, lat1, h, w)
+        cfg = OFConfig(grid=grid, solver="sor")
+        s1 = scene_from_flat_arrays(im1, x, y, dataclasses.replace(nav), cfg, dev, t=0.0)
+        s2 = scene_from_flat_arrays(im2, x, y, dataclasses.replace(nav), cfg, dev,
+                                    donav=False, t=600.0)
+        ops.reset_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        compute_flow(s1, s2, cfg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        _check_counters("flatgrid", "sor")
+        cpu = scene_from_flat_arrays(im1, x, y, dataclasses.replace(nav), cfg, "cpu", t=0.0)
+        ums, vms = pix2uv_ms(s1.u_pix.cpu(), s1.v_pix.cpu(), s1.nav, 600.0, grid=grid)
+        dlat = float((s1.lat.cpu() - cpu.lat).abs().max())
+        dlon = float((s1.lon.cpu() - cpu.lon).abs().max())
+        dwind = max(float((s1.u_ms.cpu() - ums).abs().max()),
+                    float((s1.v_ms.cpu() - vms).abs().max()))
+        med = (float(s1.u_pix[m:-m, m:-m].median()), float(s1.v_pix[m:-m, m:-m].median()))
+        say("flatgrid", f"{grid} lat1={lat1} {h}x{w}: scene_from_flat_arrays -> compute_flow "
+                        f"(sor) {ev[0].elapsed_time(ev[1]):.1f} ms; card vs CPU: lat/lon max "
+                        f"|d| {dlat:.2e} / {dlon:.2e} deg, u_ms/v_ms max |d| {dwind:.2e} m/s "
+                        f"(budgets 1e-9); u_ms dtype {s1.u_ms.dtype}, median flow "
+                        f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0)")
+        if not (dlat <= 1e-9 and dlon <= 1e-9 and dwind <= 1e-9
+                and s1.u_ms.dtype == torch.float64 and torch.isfinite(s1.u_ms).all()
+                and abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1):
+            raise AssertionError(f"flatgrid: the {grid} lat1={lat1} pair is off")
+    say("flatgrid", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def sequence_frames(dev, n=12, hw=500):
+    """bench.py config 5's frames (bench.py:140-159): frame i is the bench
+    scene with the noise of seed i."""
+    fx = load_tests_module("torch_fixtures")
+    return [torch.from_numpy(fx.bench_pair(hw, hw, seed=i)[0][None]).to(dev) for i in range(n)]
+
+
+def run_chain(frames, nav, cfg, t0, plain=False):
+    """The frames' consecutive pairs, each warm-started from the previous
+    pair's flow: through compute_flow(..., first_guess=...) over in-memory
+    scenes (run_sequence's loop), or through the plain route."""
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.flow.variational import _coarse_to_fine
+    from octane_tpu_torch.io.datamodel import Scene
+
+    flows, prev = [], None
+    for i in range(len(frames) - 1):
+        if plain:
+            z = torch.zeros(frames[i].shape[1:], device=frames[i].device)
+            u0, v0 = prev if prev is not None else (z, z)
+            prev = _coarse_to_fine(frames[i], frames[i + 1], u0, v0, cfg, plain=True)
+        else:
+            s1 = Scene(nav=dataclasses.replace(nav), data=frames[i], t=t0 + 60.0 * i)
+            s2 = Scene(nav=nav, data=frames[i + 1], t=t0 + 60.0 * (i + 1))
+            compute_flow(s1, s2, cfg, first_guess=prev)
+            prev = (s1.u_pix, s1.v_pix)
+        flows.append(prev)
+    return flows
+
+
+def sequence_files_resume(frames, nav, cfg, dev, outdir):
+    """run_sequence over the frames written as GOES files: uninterrupted,
+    and stopped after 2 pairs then resumed from its checkpoint.  Returns
+    whether every product of the two runs is equal."""
+    import h5py
+
+    from octane_tpu_torch.sequence import run_sequence
+
+    fx = load_tests_module("torch_fixtures")
+    make_goes_file = load_tests_module("synth").make_goes_file
+    files = [make_goes_file(os.path.join(outdir, f"f{i:02d}.nc"),
+                            counts_for(f[0], 13, nav.rad_scale[0], nav.rad_offset[0]),
+                            band=13, t=fx.FIXTURE_T0 + 60.0 * i) for i, f in enumerate(frames)]
+    whole = run_sequence(files, cfg, outdir=os.path.join(outdir, "whole"), device=dev)
+    ck = os.path.join(outdir, "ckpt.h5")
+    part = os.path.join(outdir, "part")
+    run_sequence(files[:3], cfg, outdir=part, checkpoint=ck, device=dev)
+    resumed = run_sequence(files, cfg, outdir=part, checkpoint=ck, device=dev)
+    if len(resumed) != len(files) - 3:
+        return False
+    for pw in whole:
+        with h5py.File(pw) as fw, h5py.File(pw.replace("whole", "part")) as fp:
+            if any(not np.array_equal(fw[k][()], fp[k][()]) for k in fw.keys()):
+                return False
+    return True
+
+
+def phase_sequence(dev, have_h5py):
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+
+    fx = load_tests_module("torch_fixtures")
+    t_phase = time.perf_counter()
+    frames = sequence_frames(dev)
+    _, _, _, nav, *_ = fx.goes_arrays(np.zeros((500, 500), np.int16), fx.FIXTURE_T0)
+    nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
+    npairs = len(frames) - 1
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=3, alpha=5.0, lambda_=1.0, lambdac=0.05, solver=solver)
+        run_chain(frames, nav, cfg, fx.FIXTURE_T0)           # warm-up
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        flows = run_chain(frames, nav, cfg, fx.FIXTURE_T0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        _check_counters("sequence", solver)
+        plain = run_chain(frames, nav, cfg, fx.FIXTURE_T0, plain=True)
+        same = all(torch.equal(a, b) for f, p in zip(flows, plain) for a, b in zip(f, p))
+        ms = ev[0].elapsed_time(ev[1]) / npairs
+        say("sequence", f"config 5 ({len(frames)} frames of 500x500, kiters 3, lambdac 0.05) "
+                        f"{solver}: {npairs} warm-started pairs through compute_flow(..., "
+                        f"first_guess=previous flow) over in-memory scenes (run_sequence's "
+                        f"loop; run_sequence itself reads files, which needs h5py) "
+                        f"{ms:.2f} ms per pair; every pair torch.equal to the plain chain "
+                        f"{same}; last median ({float(flows[-1][0].median()):.4f}, "
+                        f"{float(flows[-1][1].median()):.4f}) px, truth (0, 0)")
+        if not same:
+            raise AssertionError(f"sequence: the {solver} chain differs from the plain chain")
+        if have_h5py:
+            out = os.path.join(ROOT, "chiprun_out", f"chip_smoke_sequence_{solver}")
+            os.makedirs(out, exist_ok=True)
+            ok = sequence_files_resume(frames, nav, cfg, dev, out)
+            say("sequence", f"{solver}: run_sequence stopped after 2 pairs and resumed from "
+                            f"its checkpoint equals an uninterrupted run: {ok}")
+            if not ok:
+                raise AssertionError("sequence: the resumed run differs")
+    if not have_h5py:
+        say("sequence", "h5py is not installed: run_sequence's checkpoint/resume is not run "
+                        "here (tests/test_torch_sequence.py runs it on the CPU)")
+    say("sequence", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -1093,29 +1547,43 @@ def main(argv=None):
         if "interp" in only:
             phase_interp(dev, hybrid)
         del hybrid
+    if "multichannel" in only:
+        phase_multichannel(dev, report)
+    if "flatgrid" in only:
+        phase_flatgrid(dev)
+    if "sequence" in only:
+        phase_sequence(dev, have["h5py"])
 
-    if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk", "hybrid"} <= only:
+    if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk", "hybrid", "multichannel"} <= only:
         from octane_tpu_torch import ops
 
         # launches: each solver path's from the 5424^2 pair, the bilateral
         # kernel's from the SRSAL product path
         launches = dict(report["_launches"], srsal=report["_launches_srsal"])
         hybrid_launches = report["_launches_hybrid"]
+        c3_launches = report["_launches_c3"]
         times, bounds, library = report["_times"], report["_bounds"], report["_library"]
         entries = []
         for name, wrapper, src, replaces, tkey in KERNELS:
             path = next(p for p in ("pcg", "sor", "srsal") if wrapper in ops.PATHS[p])
             # on the hybrid pair of its relaxer; a kernel of neither relaxer
             # (the bilateral) sums both pairs' counts, held to 0 above
-            hybrid = sum(c[wrapper][0] for s, c in hybrid_launches.items()
-                         if s == path or path not in hybrid_launches)
-            entries.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces, "launches": launches[path][wrapper][0],
-                            "hybrid_launches": hybrid,
-                            "max_abs_err": report[name]["max_abs_err"],
-                            "ms": times[tkey][0], "plain_ms": times[tkey][1],
-                            "bound_ms": bounds[tkey][0], "bound_by": bounds[tkey][1],
-                            "library_ms": library.get(tkey)})
+            hybrid, c3 = (sum(c[wrapper][0] for s, c in counts.items()
+                              if s == path or path not in counts)
+                          for counts in (hybrid_launches, c3_launches))
+            entry = {"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[path][wrapper][0],
+                     "hybrid_launches": hybrid, "c3_launches": c3,
+                     "max_abs_err": report[name]["max_abs_err"],
+                     "ms": times[tkey][0], "plain_ms": times[tkey][1],
+                     "bound_ms": bounds[tkey][0], "bound_by": bounds[tkey][1],
+                     "library_ms": library.get(tkey)}
+            if name in report["_c3"]:
+                # the warp and the assembly at C = 3 on the three-channel pair
+                (ms, plain_ms), (b_ms, b_by), lib = report["_c3"][name]
+                entry.update(c3_ms=ms, c3_plain_ms=plain_ms, c3_bound_ms=b_ms,
+                             c3_bound_by=b_by, c3_library_ms=lib)
+            entries.append(entry)
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

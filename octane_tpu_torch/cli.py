@@ -4,10 +4,12 @@ plus ``--device`` (default ``cuda``).
 Usage example:
     python -m octane_tpu_torch.cli -i1 img1.nc -i2 img2.nc -o ./out/
 
-Every flag of the single-device pipeline is honoured, -sosm, -hybrid and
--interp with -interploc included.  Flags of paths that are not ported yet
-(polar and mercator grids, channels 2 and 3, -mesh, -nprocs) are accepted
-and raise NotImplementedError when they are set.
+Every flag of the single-device pipeline is honoured: -Polar and -Merc,
+channels 2 and 3 (-ic21/-ic22, -ic31/-ic32), -sosm, -hybrid and -interp
+with -interploc included.  The multi-device flags (-mesh, -nprocs) are
+accepted and raise NotImplementedError when they are set.  The CLI has no
+sequence mode, as octane_tpu's has none: ``sequence.run_sequence`` is the
+API.
 """
 
 from __future__ import annotations

@@ -3,10 +3,12 @@ oct_optical_flow.cc:21-111): first guess, the variational, patch-match or
 hybrid engine, the CTP product, pixel -> wind navigation and SRSAL
 smoothing.
 
-Ported: the single-device branches, with the first-guess winds
-(``nav.winds.uv2pix``) or a given first guess, the CTP product and the SRSAL
-bilateral smoothing (``post.srsal``).  "hybrid" is patch-match
-initialization (``flow.patch_match``) refined by ``variational_flow``.  The
+Ported: the single-device branches on every grid, with the first-guess
+winds (``nav.winds.uv2pix``) or a given first guess (a sequence's warm
+start), the CTP product, the float64 m/s winds of polar and mercator
+products and the SRSAL bilateral smoothing (``post.srsal``).  "hybrid" is
+patch-match initialization (``flow.patch_match``) refined by
+``variational_flow``.  The
 device-mesh branches have no counterpart (the CLI refuses ``-mesh``), nor
 has the JAX package's post-hoc warp-reach audit: the CUDA warp has no
 window, so its reach is unbounded.
@@ -20,7 +22,8 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow.patch_match import patch_match_flow
 from octane_tpu_torch.flow.variational import variational_flow
 from octane_tpu_torch.io.datamodel import Scene
-from octane_tpu_torch.nav.winds import pix2uv, uv2pix
+from octane_tpu_torch.nav.goes import F64
+from octane_tpu_torch.nav.winds import pix2uv, pix2uv_ms, uv2pix
 from octane_tpu_torch.post.srsal import srsal_smooth
 
 
@@ -76,6 +79,11 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
     uw, vw, ur, vr = pix2uv(u, v, nav, dt, grid=cfg.grid, pixuv=cfg.pixuv)
     scene1.u_wind, scene1.v_wind = uw, vw
     scene1.u_raw, scene1.v_raw = ur, vr
+    if cfg.grid != "goes" and not cfg.pixuv:
+        # flat-grid products keep full-precision winds (oct_polarwrite
+        # writes U/V as doubles, oct_filewrite.cc:401-402)
+        ums, vms = pix2uv_ms(u, v, nav, dt, grid=cfg.grid)
+        scene1.u_ms, scene1.v_ms = ums.to(F64), vms.to(F64)
     scene1.dt = float(dt)
 
     # --- bilateral smoothing of the pixel flow (ref :100-105) ---------------

@@ -81,7 +81,7 @@ class Scene:
     band: tuple = (0, 0, 0)
     x: Tensor = None                   # (W,) int16 scan-coordinate counts
     y: Tensor = None                   # (H,) int16
-    raw_counts: Tensor = None          # (C, H, W) int16
+    raw_counts: Tensor = None          # (C, H, W) int16 (float32 on flat grids)
     lat: Tensor = None                 # (H, W) float64 degrees
     lon: Tensor = None
     cth: Tensor = None                 # (H, W) cloud-top height (m)

@@ -1,12 +1,13 @@
-"""GOES fixed-grid navigation, radiance calibration and pixel->wind conversion in
-float64 (counterpart of octane_tpu.nav; polar and mercator are not ported
-yet)."""
+"""GOES fixed-grid, polar and mercator navigation, radiance calibration and
+pixel<->wind conversion in float64 (counterpart of octane_tpu.nav)."""
 
 from octane_tpu_torch.nav.goes import (goes_latlon, goes_xy_from_latlon,
                                        limb_ramp, navcal_goes)
-from octane_tpu_torch.nav.winds import haversine_m, pix2uv, pix2uv_ms
+from octane_tpu_torch.nav.mercator import mercator_latlon
+from octane_tpu_torch.nav.polar import polar_latlon
+from octane_tpu_torch.nav.winds import haversine_m, pix2uv, pix2uv_ms, uv2pix
 
 __all__ = [
     "goes_latlon", "goes_xy_from_latlon", "limb_ramp", "navcal_goes",
-    "pix2uv", "pix2uv_ms", "haversine_m",
+    "polar_latlon", "mercator_latlon", "pix2uv", "pix2uv_ms", "uv2pix", "haversine_m",
 ]

@@ -1,15 +1,16 @@
-"""Pixel displacement <-> wind (m/s), GOES fixed grid, in float64
-(counterpart of octane_tpu.nav.winds; oct_pix2uv_cuda.cu).
+"""Pixel displacement <-> wind (m/s) in float64 (counterpart of
+octane_tpu.nav.winds; oct_pix2uv_cuda.cu).
 
 Forward (``pix2uv``): each pixel and its displaced end point are navigated
-to lat/lon; the zonal and meridional haversine distances over the frame
-interval give the wind (:27-172).  Inverse (``uv2pix``, the first guess):
-each pixel's lat/lon is advected along a great circle by wind * dt and
-navigated back to fixed-grid pixel offsets (octuv2xy, :222-263; oct_uv2pix,
-:372-476).  Guards: a moved mesoscale sector zeroes all motions (:295,
-358-369); off-earth or limb pixels (subpoint distance > 0.021 rad^2) get
-zero winds (:144-147), and first-guess points off the visible disk zero
-displacement; shorts are trunc(100 * value).
+to lat/lon (GOES fixed grid, polar or mercator); the zonal and meridional
+haversine distances over the frame interval give the wind (:27-172).
+Inverse (``uv2pix``, the first guess): each pixel's lat/lon is advected
+along a great circle by wind * dt and navigated back to fixed-grid pixel
+offsets (octuv2xy, :222-263; oct_uv2pix, :372-476).  Guards: a moved
+mesoscale sector zeroes all motions (:295, 358-369); on the GOES grid
+off-earth or limb pixels (subpoint distance > 0.021 rad^2) get zero winds
+(:144-147), and first-guess points off the visible disk zero displacement;
+shorts are trunc(100 * value).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Tuple
 import torch
 
 from octane_tpu_torch.nav.goes import F64, goes_latlon, goes_xy_from_latlon
+from octane_tpu_torch.nav.mercator import mercator_latlon
+from octane_tpu_torch.nav.polar import polar_latlon
 
 DTOR = math.pi / 180.0
 EARTH_RADIUS = 6371000.0
@@ -61,18 +64,25 @@ def _pixel_scan_positions(nav, u_pix, v_pix):
 
 def pix2uv_ms(u_pix, v_pix, nav, dt: float,
               grid: str = "goes") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pixel displacements -> float64 winds in m/s (zeros where invalid)."""
-    if grid != "goes":
-        raise NotImplementedError(f"{grid!r} navigation is not ported yet")
+    """Pixel displacements -> float64 winds in m/s (zeros where invalid;
+    flat grids have no invalid pixel)."""
     x0, y0, x1, y1 = _pixel_scan_positions(nav, u_pix, v_pix)
-    lat0, lon0 = goes_latlon(x0, y0, nav, guard=True)
-    lat1, lon1 = goes_latlon(x1, y1, nav, guard=True)
-    limb = (x0 * x0 + y0 * y0) > 0.021      # sds[0] threshold (:144)
-    invalid = (lat0 < -998.0) | (lat1 < -998.0) | limb
+    if grid in ("polar", "mercator"):
+        latlon = polar_latlon if grid == "polar" else mercator_latlon
+        lat0, lon0 = latlon(x0, y0, nav)
+        lat1, lon1 = latlon(x1, y1, nav)
+        invalid = None
+    else:
+        lat0, lon0 = goes_latlon(x0, y0, nav, guard=True)
+        lat1, lon1 = goes_latlon(x1, y1, nav, guard=True)
+        limb = (x0 * x0 + y0 * y0) > 0.021      # sds[0] threshold (:144)
+        invalid = (lat0 < -998.0) | (lat1 < -998.0) | limb
     du = haversine_m(lat0, lon0, lat0, lon1)
     dv = haversine_m(lat0, lon0, lat1, lon0)
     uw = torch.where(lon1 >= lon0, du, -du) / dt
     vw = torch.where(lat1 >= lat0, dv, -dv) / dt
+    if invalid is None:
+        return uw, vw
     return torch.where(invalid, 0.0, uw), torch.where(invalid, 0.0, vw)
 
 
@@ -98,9 +108,8 @@ def uv2pix(u_wind, v_wind, lat, lon, x_counts, y_counts, nav, dt: float,
     ``lat``/``lon`` are the (H, W) navigation of the image (degrees, NaN
     off the earth), ``x_counts``/``y_counts`` its (W,)/(H,) scan-coordinate
     counts.  Points that leave the visible disk and moved sectors get zero
-    displacement."""
-    if grid != "goes":
-        raise NotImplementedError(f"{grid!r} navigation is not ported yet")
+    displacement.  ``grid`` is ignored: every grid is navigated back
+    through the GOES fixed grid, as octane_tpu.nav.winds.uv2pix does."""
     if _sector_moved(nav):
         z = torch.zeros(u_wind.shape, dtype=torch.float32, device=u_wind.device)
         return z, z

@@ -2,8 +2,9 @@
 
 Marked ``cuda``: they skip where no CUDA device is present.  Run them on
 the GPU with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-Budgets: the warp is bit-exact (samples, flags and tile statistics); so
-are the PCG passes, the fused assembly and the SOR pass kernel, block
+Budgets: the warp is bit-exact (samples, flags and tile statistics), at
+K = 6, 12 and 18 planes (C = 1, 2, 3 channels); so are the PCG passes, the
+fused assembly (C = 1, 2, 3) and the SOR pass kernel, block
 partials included (the plain versions sum in the kernels' order), and the
 PCG and SOR solves; a 30-iteration PCG solve agrees to rel 5e-4 with the
 reference loop flow.cg.pcg_solve, a 30-sweep SOR solve to rel 2e-5 with
@@ -67,6 +68,22 @@ def test_warp_kernel_bit_exact(dev, hw, spread):
     assert torch.equal(stats, warp.warp_block_stats(u, v))
 
 
+@pytest.mark.parametrize("c", [2, 3])
+@pytest.mark.parametrize("hw", [(256, 384), (250, 131), (40, 70)])
+def test_warp_kernel_bit_exact_multichannel(dev, hw, c):
+    """The 6C-plane sample stack of C = 2 and 3 channels, +-40 px flow."""
+    h, w = hw
+    rng = np.random.default_rng(10 + c)
+    fields = torch.from_numpy(rng.normal(0, 1, (6 * c, h, w)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(-40, 40, (h, w)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.uniform(-40, 40, (h, w)).astype(np.float32)).to(dev)
+    s, bx, by, stats = warp.warp(fields, u, v, with_stats=True)
+    ps, pbx, pby = warp.warp_bilinear_dense(fields, u, v)
+    assert s.shape == (6 * c, h, w)
+    assert torch.equal(s, ps) and torch.equal(bx, pbx) and torch.equal(by, pby)
+    assert torch.equal(stats, warp.warp_block_stats(u, v))
+
+
 @pytest.mark.parametrize("quad", [True, False])
 @pytest.mark.parametrize("hw", [(256, 384), (97, 131)])
 def test_pcg_kernels_match_plain(dev, hw, quad):
@@ -105,13 +122,26 @@ SHAPES = [(256, 384), (133, 257), (40, 70), (2, 7), (5, 2)]
 @pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
 @pytest.mark.parametrize("hw", SHAPES)
 def test_assemble_kernel_bit_exact(dev, hw, al1):
+    _check_assembly(dev, hw, al1, 1)
+
+
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("c", [2, 3])
+@pytest.mark.parametrize("hw", [(256, 384), (133, 257), (5, 2)])
+def test_assemble_kernel_bit_exact_multichannel(dev, hw, c, al1):
+    """C = 2 and 3: 9C + 4 input planes, the channels summed in ascending
+    order as the plain version sums them."""
+    _check_assembly(dev, hw, al1, c)
+
+
+def _check_assembly(dev, hw, al1, c):
     h, w = hw
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(2 + 10 * (c - 1))
 
     def arr(*shape, lo=-3.0, hi=3.0):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
 
-    g1, g2 = arr(1, h, w, lo=0, hi=255), arr(1, h, w, lo=0, hi=255)
+    g1, g2 = arr(c, h, w, lo=0, hi=255), arr(c, h, w, lo=0, hi=255)
     gx1, gy1 = gradient_4th(g1)
     gx2, gy2 = gradient_4th(g2)
     gxx, _ = gradient_4th(gx2)

@@ -38,7 +38,9 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'octane_tpu_torch.post.srsal', 'octane_tpu_torch.ops.bilateral',\n"
-        "        'octane_tpu_torch.flow.patch_match', 'octane_tpu_torch.post.temporal'} <= set(names)\n"
+        "        'octane_tpu_torch.flow.patch_match', 'octane_tpu_torch.post.temporal',\n"
+        "        'octane_tpu_torch.nav.polar', 'octane_tpu_torch.nav.mercator',\n"
+        "        'octane_tpu_torch.sequence'} <= set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'octane_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

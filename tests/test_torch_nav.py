@@ -120,6 +120,15 @@ def test_sector_move_and_unported_grids():
     z = torch.ones((4, 5))
     out = winds.pix2uv(z, z, nav, 60.0)
     assert all(int(t.abs().max()) == 0 for t in out)
-    nav2 = dataclasses.replace(nav, g2x_offset=nav.x_offset, g2y_offset=nav.y_offset)
-    with pytest.raises(NotImplementedError):
-        winds.pix2uv(z, z, nav2, 60.0, grid="polar")
+    # the flat grids are ported (tests/test_torch_flatgrid.py): a polar
+    # grid's shorts equal octane_tpu's
+    flat = dict(grid="polar", x_scale=2000.0, x_offset=-4000.0, y_scale=2000.0,
+                y_offset=-3000.0, lat1=60.0, lon0_deg=-30.0, g2x_offset=-4000.0,
+                g2y_offset=-3000.0)
+    nav2 = dataclasses.replace(nav, **flat)
+    got = winds.pix2uv(3.0 * z, -2.0 * z, nav2, 60.0, grid="polar")
+    want = jwinds.pix2uv(3.0 * np.ones((4, 5), np.float32), -2.0 * np.ones((4, 5), np.float32),
+                         JaxNav(**dataclasses.asdict(nav2)), 60.0, grid="polar")
+    for g, w in zip(got, want):
+        assert int((g.to(torch.int32) - torch.from_numpy(np.asarray(w, np.int32))).abs().max()) <= 1
+    assert int(got[0].abs().max()) > 0

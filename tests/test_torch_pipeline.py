@@ -119,7 +119,10 @@ def test_entry_points_default_to_the_card():
     interpolated frames go where octane_tpu puts them."""
     from octane_tpu_torch.flow.patch_match import patch_match_flow
 
+    from octane_tpu_torch.sequence import run_sequence
+
     assert inspect.signature(read_scene).parameters["device"].default == "cuda"
+    assert inspect.signature(run_sequence).parameters["device"].default == "cuda"
     assert inspect.signature(run_pipeline).parameters["device"].default == "cuda"
     assert inspect.signature(patch_match_flow).parameters["device"].default == "cuda"
     assert cli.build_parser().get_default("device") == "cuda"
@@ -235,15 +238,14 @@ def test_writer_matches_jax(jax_pair128, tmp_path, pixuv):
 
 
 def test_unported_options_raise(pair512, tmp_path):
+    """The multi-device flags are the only ones not ported."""
     f1, f2 = pair512
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
-                  "-ic21", f1, "-ic22", f2])
     with pytest.raises(NotImplementedError):
         cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
                   "-mesh", "2x2"])
     with pytest.raises(NotImplementedError):
-        read_scene(f1, OFConfig(grid="polar"))
+        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
+                  "-nprocs", "2", "-procid", "0"])
 
 
 @pytest.fixture(scope="module")
