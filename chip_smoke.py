@@ -105,11 +105,30 @@ Phases, one line each (any failure exits non-zero):
      each pair torch.equal to the plain route's chain, ms per pair; where
      h5py is installed, also run_sequence with a checkpoint, stopped after
      2 pairs and resumed, its products equal to an uninterrupted run's.
+ 16. mesh: (a) the band forms of the mesh path (warp_band, sor_pass_band at
+     8 and 6 sweeps quad and robust, pcg_pass_a_band quad and robust,
+     bilateral_band) at 5424^2 on 4 bands of 1356 rows and on an uneven
+     split (MESH_SPLIT), each against its plain version (bit-exact; the
+     bilateral within rel 1e-5) and against the whole-image kernel's rows
+     (bit-exact), timed on the 4 bands beside the bound of every band's
+     slab, ghost rows included; (b) the full-disk pair per relaxer through
+     sharded_variational_flow on a (1, 4) mesh of cuda:0 and
+     sharded_pix2uv, kernels only, in turns with the single-device pair
+     (single, banded, banded, single): ms and peak memory, each band form
+     of the relaxer launched and no plain version called, host reads (the
+     solver's and the warp's reach guard: at most 144 / 1080 + 36), the
+     flow within 1e-3 px of the single-device flow, the interior median
+     within 0.1 px of (2.4, 0), sharded_pix2uv equal to pix2uv; (c)
+     sharded_srsal of the banded SOR flow with the 5424^2 CTH within rel
+     1e-5 of srsal_smooth; (d) where the machine has several cards, the
+     pair with one band per card (else it says it did not run).
 The line before the last is the kernels' JSON record (launches on the
 5424^2 pairs and the SRSAL product path, launches on the 5424^2 hybrid
 pair and on the three-channel 5424^2 pair, max |d|, ms, plain ms, bound ms
-and what bounds it, library ms; the warp and the assembly also at C = 3);
-the last line is {"ok": true, "device": {...}}.  ``--only`` runs a subset,
+and what bounds it, library ms; the warp and the assembly also at C = 3;
+the band forms with their launches on the banded pairs and banded SRSAL,
+the assembly and pass B also ``mesh_launches``); the last line is
+{"ok": true, "device": {...}}.  ``--only`` runs a subset,
 e.g. ``--only build,warp,pcg,assemble,sor`` or ``--only
 env,build,multichannel,flatgrid,sequence``.
 """
@@ -131,7 +150,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
 PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
-          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence")
+          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
 MESO = 2000             # a mesoscale-sector shape for the first-guess gather path
 FLAT = 2048             # the flat-grid phase's correctness shape
@@ -148,6 +167,19 @@ KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
      "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_pass_robust"),
     ("bilateral", "bilateral", "octane_tpu_torch/csrc/bilateral.cu",
      "octane_tpu/ops/pallas/bilateral.py:45 _kernel", "bilateral"),
+)
+MESH_KERNELS = (   # the band forms: (JSON name = wrapper, source, TPU kernel, path of
+    # its launches: the banded pair of that relaxer, or banded SRSAL)
+    ("warp_band", "octane_tpu_torch/csrc/warp.cu",
+     "octane_tpu/parallel/sharded.py:68 make_sharded_warp (ops/pallas/warp.py:80 _kernel)", "sor"),
+    ("pcg_pass_a_band", "octane_tpu_torch/csrc/pcg.cu",
+     "octane_tpu/parallel/cg.py:59 make_sharded_fused_cg (ops/pallas/cg.py:94 _pass_a)", "pcg"),
+    ("sor_pass_band", "octane_tpu_torch/csrc/sor.cu",
+     "octane_tpu/parallel/sor.py:44 make_sharded_fused_sor (ops/pallas/sor.py:257 _kernel)",
+     "sor"),
+    ("bilateral_band", "octane_tpu_torch/csrc/bilateral.cu",
+     "octane_tpu/parallel/post.py:104 sharded_srsal (ops/pallas/bilateral.py:45 _kernel)",
+     "srsal"),
 )
 SIGPIX2 = -1.0 / (2.0 * 20.0 * 20.0)     # SRSAL's range weight, sigma 20
 BILATERAL_REL = 1e-5     # the bilateral kernel vs its plain version (docs/PARITY.md:91)
@@ -666,10 +698,12 @@ def time_pair(run):
     """One warm-up, then one pair timed with CUDA events after the counters
     are reset: (u, v, ms, peak GiB)."""
     from octane_tpu_torch import ops
+    from octane_tpu_torch.parallel import sharded
 
     run()
     torch.cuda.synchronize()
     ops.reset_counters()
+    sharded.guard_reads.reads = 0
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1514,6 +1548,267 @@ def phase_sequence(dev, have_h5py):
     say("sequence", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+MESH_BANDS = 4                      # the mesh phase's bands, all on cuda:0
+MESH_SPLIT = (0, 1000, 2500, 4700, FULLDISK)   # its uneven split of 5424 rows
+MESH_HALO = 16                      # rows beside a band in the band-form checks (halo_warp)
+
+
+def band_ranges(split):
+    return list(zip(split[:-1], split[1:]))
+
+
+def phase_mesh(dev, report):
+    """The band forms of the warp, SOR pass, PCG pass A and bilateral kernels
+    at 5424^2 (4 even bands and one uneven split), then the banded 5424^2
+    pair per relaxer on a (1, 4) mesh of cuda:0, then banded SRSAL."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
+    from octane_tpu_torch.flow.variational import variational_flow
+    from octane_tpu_torch.nav.winds import pix2uv
+    from octane_tpu_torch.ops.assemble import assemble_cf
+    from octane_tpu_torch.ops.bilateral import (band_slab, bilateral, bilateral_band,
+                                                bilateral_band_plain)
+    from octane_tpu_torch.ops.pcg import pcg_pass_a, pcg_pass_a_band, pcg_pass_a_band_plain
+    from octane_tpu_torch.ops.sor import sor_pass, sor_pass_band, sor_pass_band_plain
+    from octane_tpu_torch.ops.warp import warp, warp_band, warp_band_plain
+    from octane_tpu_torch.parallel import (make_mesh, sharded_pix2uv, sharded_srsal,
+                                           sharded_variational_flow)
+    from octane_tpu_torch.parallel import sharded
+    from octane_tpu_torch.post.srsal import srsal_smooth
+
+    fx = load_tests_module("torch_fixtures")
+    t_phase = time.perf_counter()
+    h = w = FULLDISK
+    plane = h * w * 4
+    even = band_ranges([min(i * -(-h // MESH_BANDS), h) for i in range(MESH_BANDS + 1)])
+    splits = {"4 bands": even, "uneven": band_ranges(MESH_SPLIT)}
+    errs = {k: 0.0 for k in ("warp_band", "sor_pass_band", "pcg_pass_a_band", "bilateral_band")}
+    times, bounds = {}, {}
+
+    def slab(r0, r1, g):
+        return max(0, r0 - g), min(h, r1 + g)
+
+    # (a) each band form against its plain version and the whole-image
+    # kernel's rows; timed on the 4 even bands beside its bound (the bytes
+    # of every band's slab, ghost rows included)
+    g1, g2 = bench_images(h, w, dev)
+    u, v = noisy_flow(h, w, dev, 61)
+    stack = sample_stack(g2)
+    whole = warp(stack, u, v)
+    for name, bands in splits.items():
+        ok = True
+        for r0, r1 in bands:
+            s0, s1 = slab(r0, r1, MESH_HALO)
+            args = (stack[:, s0:s1].contiguous(), u[r0:r1], v[r0:r1], s0, r0, h)
+            kw, pw = warp_band(*args), warp_band_plain(*args)
+            ok = ok and all(torch.equal(a, b) and torch.equal(a, c[..., r0:r1, :])
+                            for a, b, c in zip(kw, pw, whole))
+            errs["warp_band"] = max(errs["warp_band"], float((kw[0] - pw[0]).abs().max()))
+        say("mesh", f"warp_band {name}: bit-exact vs plain and vs the whole-image warp's rows {ok}")
+        if not ok:
+            raise AssertionError(f"mesh: warp_band ({name}) differs")
+    wargs = []
+    for r0, r1 in even:
+        s0, s1 = slab(r0, r1, MESH_HALO)
+        wargs.append((stack[:, s0:s1].contiguous(), u[r0:r1], v[r0:r1], s0, r0, h))
+    times["warp_band"] = (cuda_ms(lambda: [warp_band(*a) for a in wargs]),
+                          cuda_ms(lambda: [warp_band_plain(*a) for a in wargs], n=3))
+    rows_in = sum(a[0].shape[1] for a in wargs)
+    # u, v and 6 planes of each slab in, 6 samples and 2 flag bytes out
+    bounds["warp_band"] = bound((2 * h * w + 6 * rows_in * w) * 4 + 6 * plane + 2 * h * w,
+                                52 * h * w)
+    del whole, wargs
+
+    inputs = assembly_inputs(g1, stack, u, v)
+    for al1 in (1.0, 0.5):
+        mode = "quad" if al1 == 1.0 else "robust"
+        cf, _ = assemble_cf(*inputs, al1, *ASM_SCALARS, True)
+        x = 0.1 * torch.stack([u, v])
+        for sweeps in (8, 6):
+            ref, _ = sor_pass(x, cf, sweeps)
+            for name, bands in splits.items():
+                ok = True
+                for r0, r1 in bands:
+                    t0, t1 = slab(r0, r1, 2 * sweeps)
+                    args = (x[:, t0:t1].contiguous(), cf[:, t0:t1].contiguous(), sweeps, 1.9,
+                            t0, h, r0 - t0, r1 - t0)
+                    (kx, kp), (px, pp) = sor_pass_band(*args), sor_pass_band_plain(*args)
+                    ok = ok and torch.equal(kx, px) and torch.equal(kp, pp) and torch.equal(
+                        kx, ref[:, r0:r1])
+                    errs["sor_pass_band"] = max(errs["sor_pass_band"],
+                                                float((kx - px).abs().max()))
+                say("mesh", f"sor_pass_band {mode} {sweeps} sweeps {name}: bit-exact vs plain "
+                            f"(iterate and partials) and vs the whole-image pass's rows {ok}")
+                if not ok:
+                    raise AssertionError(f"mesh: sor_pass_band ({mode}, {sweeps}, {name}) differs")
+        if al1 == 0.5:
+            sargs = []
+            for r0, r1 in even:
+                t0, t1 = slab(r0, r1, 16)
+                sargs.append((x[:, t0:t1].contiguous(), cf[:, t0:t1].contiguous(), 8, 1.9, t0,
+                               h, r0 - t0, r1 - t0))
+            times["sor_pass_band"] = (
+                cuda_ms(lambda: [sor_pass_band(*a) for a in sargs]),
+                cuda_ms(lambda: [sor_pass_band_plain(*a) for a in sargs], n=1))
+            rows_in = sum(a[0].shape[1] for a in sargs)
+            # x and the 10 planes of each slab in, the band's x out; per sweep
+            # and pixel 36 flops
+            bounds["sor_pass_band"] = bound(12 * rows_in * w * 4 + 2 * plane, 8 * 36 * h * w)
+            del sargs
+        del cf, x, ref
+    del inputs
+
+    rng = np.random.default_rng(62)
+    for quad in (True, False):
+        mode = "quad" if quad else "robust"
+        cf = coef_stack(pcg_system(h, w, quad, dev), quad)
+        xs, rs, ps, _ = state_planes(rng, h, w, dev)
+        ab = torch.tensor([0.37, 0.81], dtype=torch.float32, device=dev)
+        ref = pcg_pass_a(xs, rs, ps, cf, ab)
+
+        def pargs(r0, r1):
+            def ghost(t):
+                return torch.stack([t[:, max(r0 - 1, 0)], t[:, min(r1, h - 1)]], dim=1).contiguous()
+            return (xs[:, r0:r1].contiguous(), rs[:, r0:r1].contiguous(),
+                    ps[:, r0:r1].contiguous(), cf[:, r0:r1].contiguous(), ab, ghost(rs),
+                    ghost(ps), ghost(cf[0:2]), r0, h)
+
+        for name, bands in splits.items():
+            ok = True
+            for r0, r1 in bands:
+                args = pargs(r0, r1)
+                kb, pb = pcg_pass_a_band(*args), pcg_pass_a_band_plain(*args)
+                ok = ok and all(torch.equal(a, b) for a, b in zip(kb, pb)) and all(
+                    torch.equal(a, c[:, r0:r1]) for a, c in zip(kb[:3], ref[:3]))
+                errs["pcg_pass_a_band"] = max(errs["pcg_pass_a_band"],
+                                              max(float((a - b).abs().max()) for a, b in zip(kb, pb)))
+            say("mesh", f"pcg_pass_a_band {mode} {name}: bit-exact vs plain (partials included) "
+                        f"and vs the whole-image pass A's rows {ok}")
+            if not ok:
+                raise AssertionError(f"mesh: pcg_pass_a_band ({mode}, {name}) differs")
+        if not quad:
+            pa = [pargs(r0, r1) for r0, r1 in even]
+            times["pcg_pass_a_band"] = (cuda_ms(lambda: [pcg_pass_a_band(*a) for a in pa]),
+                                        cuda_ms(lambda: [pcg_pass_a_band_plain(*a) for a in pa],
+                                                n=3))
+            # x, r, p and 7 coefficient planes in, x, p', ap out, and each
+            # band's (2, 2, W) ghost rows of r, p and the diagonals
+            bounds["pcg_pass_a_band"] = bound((12 + 7) * plane + len(pa) * 3 * 4 * w * 4,
+                                              30 * h * w)
+            del pa
+        del cf, xs, rs, ps, ref
+
+    cth = torch.from_numpy(fx.cth_steps(h, w)).to(dev)
+    gk = gaussian_kernel_1d(9.0, 18)
+    ref = bilateral(u, v, cth, gk, SIGPIX2)
+    for name, bands in splits.items():
+        ok, worst = True, 0.0
+        for r0, r1 in bands:
+            s0, s1 = band_slab(r0, r1, h, 18)
+            args = (u[s0:s1], v[s0:s1], cth[s0:s1], gk, SIGPIX2, s0, r0, r1 - r0, h)
+            kb, pb = bilateral_band(*args), bilateral_band_plain(*args)
+            worst = max(worst, max(rel(kb[i], pb[i]) for i in (0, 1)))
+            ok = ok and torch.equal(kb, ref[:, r0:r1])
+            errs["bilateral_band"] = max(errs["bilateral_band"], float((kb - pb).abs().max()))
+        say("mesh", f"bilateral_band {name}: rel vs plain {worst:.3e} (budget "
+                    f"{BILATERAL_REL:.0e}), bit-exact vs the whole-image kernel's rows {ok}")
+        if not (ok and worst <= BILATERAL_REL):
+            raise AssertionError(f"mesh: bilateral_band ({name}) differs")
+    bargs = []
+    for r0, r1 in even:
+        s0, s1 = band_slab(r0, r1, h, 18)
+        bargs.append((u[s0:s1], v[s0:s1], cth[s0:s1], gk, SIGPIX2, s0, r0, r1 - r0, h))
+    times["bilateral_band"] = (cuda_ms(lambda: [bilateral_band(*a) for a in bargs], n=3),
+                               cuda_ms(lambda: [bilateral_band_plain(*a) for a in bargs], n=1))
+    rows_in = sum(a[0].shape[0] for a in bargs)
+    bounds["bilateral_band"] = bound(3 * rows_in * w * 4 + 2 * plane, 10 * h * w * 37 * 37)
+    del bargs, ref
+    for k, (ms, plain_ms) in times.items():
+        say("mesh", f"{k} x{MESH_BANDS} bands at {h}x{w}: {ms:.3f} ms (bound "
+                    f"{bounds[k][0]:.3f} ms by {bounds[k][1]}, {100 * bounds[k][0] / ms:.1f} %), "
+                    f"plain {plain_ms:.3f} ms")
+    torch.cuda.empty_cache()
+
+    # (b) the GOES full-disk pair on a (1, 4) mesh of cuda:0 per relaxer,
+    # kernels only, in turns with the single-device pair
+    mesh = make_mesh((1, MESH_BANDS), [dev] * MESH_BANDS)
+    z = torch.zeros((h, w), device=dev)
+    _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
+    nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
+    m = min(512, h // 4)
+    launches, flows = {}, {}
+    for solver in ("sor", "pcg"):
+        cfg = OFConfig(kiters=4, solver=solver)
+        runs = {"single": lambda: variational_flow(g1, g2, z, z, cfg),
+                "banded": lambda: sharded_variational_flow(g1, g2, z, z, cfg, mesh)}
+        res, ms = {}, {k: [] for k in runs}
+        for label in ("single", "banded", "banded", "single"):
+            uu, vv, t, peak = time_pair(runs[label])
+            ms[label].append((t, peak))
+            res[label] = (uu, vv)
+            if label == "banded":
+                c = _check_counters("mesh", f"mesh_{solver}")
+                guard = sharded.guard_reads.reads
+                reads = c[f"{solver}_host_syncs"] + guard
+                launches[solver] = c
+        stray = {n: c[n][0] for n in ops.WRAPPERS if n not in ops.PATHS[f"mesh_{solver}"]
+                 and c[n][0]}
+        (bu, bv), (su, sv) = res["banded"], res["single"]
+        same = torch.equal(bu, su) and torch.equal(bv, sv)
+        diff = max(float((bu - su).abs().max()), float((bv - sv).abs().max()))
+        med = (float(bu[m:-m, m:-m].median()), float(bv[m:-m, m:-m].median()))
+        uw, vw, ur, vr = sharded_pix2uv(bu, bv, nav, 60.0, mesh)
+        nav_equal = all(torch.equal(a, b) for a, b in zip((uw, vw, ur, vr),
+                                                          pix2uv(bu, bv, nav, 60.0)))
+        limit = 144 if solver == "sor" else 1080
+        say("mesh", f"{solver} {h}x{w} on {MESH_BANDS} bands of cuda:0: "
+                    + ", ".join(f"{t:.1f}" for t, _ in ms["banded"]) + " ms per pair (single "
+                    + ", ".join(f"{t:.1f}" for t, _ in ms["single"]) + " ms, in turns); peak "
+                    f"{ms['banded'][-1][1]:.2f} GiB (single {ms['single'][-1][1]:.2f}); host "
+                    f"reads {reads} ({c[f'{solver}_host_syncs']} solver + "
+                    f"{guard} reach guard; at most {limit} + 36); vs the "
+                    f"single-device flow bit-identical {same}, max |d| {diff:.3e} px; median "
+                    f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0); sharded_pix2uv equal to "
+                    f"pix2uv {nav_equal}")
+        if stray or reads > limit + 36 or diff > 1e-3 or not nav_equal or not (
+                abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1 and torch.isfinite(bu).all()):
+            raise AssertionError(f"mesh: the banded {solver} pair is off (stray launches {stray})")
+        report.setdefault("_mesh_pairs", {})[solver] = (ms["banded"], ms["single"], reads, diff)
+        flows[solver] = (bu, bv)
+        del res
+
+    # (c) banded SRSAL of the SOR flow
+    bu, bv = flows["sor"]
+    ops.reset_counters()
+    ku, kv = sharded_srsal(bu, bv, cth, mesh)
+    c = _check_counters("mesh", "mesh_srsal")
+    launches["srsal"] = c
+    su, sv = srsal_smooth(bu, bv, cth)
+    r = max(rel(ku, su), rel(kv, sv))
+    say("mesh", f"sharded_srsal {h}x{w}: rel vs srsal_smooth {r:.3e}, equal "
+                f"{torch.equal(ku, su) and torch.equal(kv, sv)}")
+    if not r <= BILATERAL_REL:
+        raise AssertionError("mesh: sharded_srsal differs from srsal_smooth")
+
+    # (d) one band per card, where the machine has several
+    n = torch.cuda.device_count()
+    if n > 1:
+        cards = make_mesh((1, n), [torch.device("cuda", i) for i in range(n)])
+        for solver in ("sor", "pcg"):
+            cfg = OFConfig(kiters=4, solver=solver)
+            uu, vv, t, peak = time_pair(lambda: sharded_variational_flow(g1, g2, z, z, cfg,
+                                                                         cards))
+            su, sv = flows[solver]
+            d = max(float((uu - su).abs().max()), float((vv - sv).abs().max()))
+            say("mesh", f"{solver} on {n} cards, one band each: {t:.1f} ms per pair, max |d| "
+                        f"vs the banded flow on one card {d:.3e} px")
+    else:
+        say("mesh", "one card: the pair with one band per card is not run")
+    report["_mesh"] = {"launches": launches, "times": times, "bounds": bounds, "errs": errs}
+    say("mesh", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -1553,6 +1848,8 @@ def main(argv=None):
         phase_flatgrid(dev)
     if "sequence" in only:
         phase_sequence(dev, have["h5py"])
+    if "mesh" in only:
+        phase_mesh(dev, report)
 
     if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk", "hybrid", "multichannel"} <= only:
         from octane_tpu_torch import ops
@@ -1583,7 +1880,22 @@ def main(argv=None):
                 (ms, plain_ms), (b_ms, b_by), lib = report["_c3"][name]
                 entry.update(c3_ms=ms, c3_plain_ms=plain_ms, c3_bound_ms=b_ms,
                              c3_bound_by=b_by, c3_library_ms=lib)
+            if "_mesh" in report and wrapper in ("assemble_cf", "pcg_pass_b"):
+                # unchanged kernels that the banded pair launches on each band
+                solver = "sor" if wrapper == "assemble_cf" else "pcg"
+                entry["mesh_launches"] = report["_mesh"]["launches"][solver][wrapper][0]
             entries.append(entry)
+        if "_mesh" in report:
+            mesh = report["_mesh"]
+            for name, src, replaces, path in MESH_KERNELS:
+                ms, plain_ms = mesh["times"][name]
+                b_ms, b_by = mesh["bounds"][name]
+                entries.append({"name": name, "route": "cuda", "source": src,
+                                "replaces": replaces,
+                                "launches": mesh["launches"][path][name][0],
+                                "max_abs_err": mesh["errs"][name], "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                "library_ms": None})
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,12 @@ Usage example:
 
 Every flag of the single-device pipeline is honoured: -Polar and -Merc,
 channels 2 and 3 (-ic21/-ic22, -ic31/-ic32), -sosm, -hybrid and -interp
-with -interploc included.  The multi-device flags (-mesh, -nprocs) are
-accepted and raise NotImplementedError when they are set.  The CLI has no
+with -interploc included.  ``-mesh RxC`` runs the flow, pix2uv and SRSAL
+on R*C row bands (octane_tpu_torch.parallel), band i on cuda:i, or all on
+the CPU with ``--device cpu``; with fewer cards than bands it warns and
+runs on one device, as octane_tpu does.  The multi-process flags
+(-nprocs, -procid, -coordinator) are accepted and -nprocs raises
+NotImplementedError.  The CLI has no
 sequence mode, as octane_tpu's has none: ``sequence.run_sequence`` is the
 API.
 """
@@ -78,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-normmax3", type=float, default=None)
     p.add_argument("-normmin3", type=float, default=None)
     p.add_argument("-mesh", default=None,
-                   help="spatial device mesh ROWSxCOLS (not ported yet)")
+                   help="device mesh ROWSxCOLS: ROWS*COLS row bands, e.g. 2x4")
     p.add_argument("-coordinator", default=None,
                    help="multi-host coordinator address host:port (not ported yet)")
     p.add_argument("-nprocs", type=int, default=None,
@@ -92,8 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def args_to_config(a: argparse.Namespace) -> OFConfig:
     grid = "polar" if a.Polar else ("mercator" if a.Merc else "goes")
-    if a.mesh and a.mesh.lower() != "1x1":
-        raise NotImplementedError("device meshes (-mesh) are not ported yet")
+    mesh_shape = (1, 1)
+    if a.mesh:
+        ry, rx = a.mesh.lower().split("x")
+        mesh_shape = (int(ry), int(rx))
     return OFConfig(
         algorithm=("hybrid" if a.hybrid
                    else "patch_match" if a.sosm else "variational"),
@@ -113,7 +119,7 @@ def args_to_config(a: argparse.Namespace) -> OFConfig:
         norm_min3=a.normmin3, norm_max3=a.normmax3,
         out_nav=not a.no_outnav, out_raw=not a.no_outraw,
         out_rad=not a.no_outrad, out_ctp=not a.no_outctp,
-        solver=a.solver, sor_omega=a.omega,
+        solver=a.solver, sor_omega=a.omega, mesh_shape=mesh_shape,
     )
 
 

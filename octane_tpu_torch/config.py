@@ -3,15 +3,17 @@
 The same options, names and defaults as octane_tpu's ``OFConfig``
 (include/offlags.h:4-72, src/main.cc:53-108), so a configuration means the
 same thing in both packages and the product file echoes the same settings.
-The JAX package's TPU execution options (device mesh, sharded warp halo,
-the Pallas switch) have no counterpart: the port runs on one device, and
-its kernels run wherever the tensors are on a CUDA device.
+``mesh_shape`` and ``halo_warp`` are the JAX package's: a (rows, cols)
+mesh of more than one device runs the row-banded mesh path
+(octane_tpu_torch.parallel; rows x cols bands), and ``halo_warp`` is the
+rows of a band's warp slab beyond its own.  The Pallas switch has no
+counterpart: the kernels run wherever the tensors are on a CUDA device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -68,6 +70,9 @@ class OFConfig:
     # --- solver --------------------------------------------------------------
     solver: str = "pcg"                 # "pcg" (reference-exact) | "sor"
     sor_omega: float = 1.9              # SOR over-relaxation factor
+    # --- device mesh (parallel/) ---------------------------------------------
+    mesh_shape: Tuple[int, int] = (1, 1)  # (rows, cols); ry * rx > 1 runs the mesh path
+    halo_warp: int = 16                 # warp slab rows beyond a band (reach halo_warp - 2)
 
     def __post_init__(self):
         if self.algorithm not in ("variational", "patch_match", "hybrid"):
@@ -84,6 +89,10 @@ class OFConfig:
                      "nchannels"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
+        if len(self.mesh_shape) != 2 or min(self.mesh_shape) < 1:
+            raise ValueError(f"mesh_shape must be two counts >= 1, got {self.mesh_shape}")
+        if self.halo_warp < 4:
+            raise ValueError("halo_warp must be >= 4")
         if self.nchannels > 3:
             raise ValueError("at most 3 channels are supported (doc2/doc3)")
 

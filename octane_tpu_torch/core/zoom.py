@@ -9,6 +9,10 @@
   built on the device from their taps and weights and applied with
   ``torch.matmul`` (keep TF32 off on the card:
   ``torch.backends.cuda.matmul.allow_tf32`` is False by default).
+* ``pyramid_rows`` / ``pyramid_downsample_rows`` and ``flow_rows`` /
+  ``zoom_in_flow_rows``: the same two solver resamplings for output rows
+  [a, b) only, from the input rows they read (the row-banded mesh path);
+  the pyramid's rows equal the whole call's bit for bit.
 * ``zoom_in_image`` / ``zoom_out_image``: the ingest regrids (CTH onto
   the image grid): bicubic (or nearest) at half-pixel-offset positions,
   and blur + bicubic at ii/factor (oct_zoom.cc:51-88, 180-222).  Positions
@@ -136,6 +140,58 @@ def pyramid_downsample(img: torch.Tensor, factor: float) -> torch.Tensor:
         return torch.trunc(pos / float(np.float32(factor))).long().clamp_(0, n_in - 1)
 
     return blurred.index_select(-2, idx(nyy, h)).index_select(-1, idx(nxx, w))
+
+
+def _pyramid_index(a: int, b: int, n_in: int, factor: float, device="cpu") -> torch.Tensor:
+    """Source rows of output rows [a, b): float32 division + trunc, like the
+    CUDA integer cast."""
+    pos = torch.arange(a, b, dtype=torch.float32, device=device)
+    return torch.trunc(pos / float(np.float32(factor))).long().clamp_(0, n_in - 1)
+
+
+def pyramid_rows(h: int, factor: float, rows):
+    """[s0, s1): the full-resolution rows that level rows [a, b) of
+    ``pyramid_downsample`` read (their blur taps [-filtsize, filtsize))."""
+    fs = solver_filtsize(factor)
+    idx = _pyramid_index(*rows, h, factor)
+    return max(0, int(idx[0]) - fs), min(h, int(idx[-1]) + fs)
+
+
+def pyramid_downsample_rows(img: torch.Tensor, s0: int, h: int, factor: float,
+                            rows) -> torch.Tensor:
+    """Level rows [a, b) of ``pyramid_downsample`` of an h-row image, from
+    ``img``, its rows [s0, s0 + n) (at least ``pyramid_rows``'): equal to the
+    whole call's rows bit for bit (the blur clamps only where the slab's
+    edge is the image's)."""
+    w = img.shape[-1]
+    nxx = zoom_size(w, factor)
+    fs = solver_filtsize(factor)
+    blurred = blur_separable(img, gaussian_kernel_1d(_weights_sigma(factor), fs), fs)
+    ridx = _pyramid_index(*rows, h, factor, img.device) - s0
+    return blurred.index_select(-2, ridx).index_select(
+        -1, _pyramid_index(0, nxx, w, factor, img.device))
+
+
+def flow_rows(h_in: int, n_out: int, rows):
+    """[c0, c1): the coarse rows that rows [a, b) of ``zoom_in_flow`` to
+    n_out rows read (their four Catmull-Rom taps)."""
+    taps, _ = _catmull_taps(h_in, _half_pixel_positions(n_out, h_in)[rows[0]:rows[1]])
+    return int(taps.min()), int(taps.max()) + 1
+
+
+def zoom_in_flow_rows(flow: torch.Tensor, c0: int, h_in: int, new_hw, rows,
+                      scale_factor: float) -> torch.Tensor:
+    """Rows [a, b) of ``zoom_in_flow`` of an h_in-row field to ``new_hw``,
+    from ``flow``, its rows [c0, c0 + n) (at least ``flow_rows``'); the
+    products sum the same taps, in another order than the whole matrix
+    product may (float round-off)."""
+    nyy, nxx = new_hw
+    w = flow.shape[-1]
+    j2 = _half_pixel_positions(nyy, h_in)[rows[0]:rows[1]]
+    ry = _catmull_matrix_1d(h_in, j2, flow.device)[:, c0:c0 + flow.shape[-2]]
+    rx = _catmull_matrix_1d(w, _half_pixel_positions(nxx, w), flow.device)
+    out = torch.matmul(torch.matmul(ry, flow), rx.T)
+    return out / float(np.float32(scale_factor))
 
 
 def zoom_in_flow(flow: torch.Tensor, new_hw, scale_factor: float) -> torch.Tensor:

@@ -46,6 +46,14 @@
 // h, w >= p + 1, where one reflection is enough.  Rows and columns past the
 // grid's edge load a clamped window and write nothing.
 //
+// Band form (octane_tpu/parallel/post.py sharded_srsal :104 ran the XLA tap
+// loop per block on a reflect-fixed halo): the output is rows [r0, r0 + h)
+// of a th-row image, and the inputs are a slab of global rows [s0, s0 + hs)
+// that holds every row the band's windows reach through the boundary map,
+// taken in global coordinates (reflect(r0 + row, th) - s0).  The whole
+// image is the slab and the band at once, so a band's rows equal the
+// whole-image kernel's bit for bit.
+//
 // Left behind from the TPU kernel: the (BH, 128) lane tiles, the 8-row DMA
 // chunks visited centre-chunk-first, the 384-wide roll chain, the host-side
 // reflect pad and 128-column pad.
@@ -125,8 +133,8 @@ __host__ __device__ constexpr int min_blocks(int p, int rows, int by) {
 template <int P, int R, int BY>
 __global__ void __launch_bounds__(kBX * BY, min_blocks(P > 0 ? P : kMaxP, R, BY))
 bilateral_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                 const float* __restrict__ cth, float* __restrict__ out, int h, int w,
-                 int p_rt, float k, LogTaps taps) {
+                 const float* __restrict__ cth, float* __restrict__ out, int h, int w, int hs,
+                 int s0, int r0, int th, int p_rt, float k, LogTaps taps) {
   extern __shared__ __align__(16) float smem[];
   const int p = P > 0 ? P : p_rt;
   const int n = 2 * p + 1;
@@ -137,12 +145,13 @@ bilateral_kernel(const float* __restrict__ u, const float* __restrict__ v,
   float* sc = sl + n * nl;
   float2* suv = reinterpret_cast<float2*>(sc + win);  // (u, v); win is even
   const int tid = threadIdx.y * kBX + threadIdx.x;
-  const int row0 = blockIdx.y * (BY * R) - p;
+  const int row0 = r0 + blockIdx.y * (BY * R) - p;   // global row of window row 0
   const int col0 = blockIdx.x * kBX - p;
   for (int e = tid; e < win; e += kBX * BY) {
     const int r = e / ww;
     const int c = e - r * ww;
-    const size_t g = (size_t)reflect(row0 + r, h) * w + reflect(col0 + c, w);
+    const int sr = min(max(reflect(row0 + r, th) - s0, 0), hs - 1);
+    const size_t g = (size_t)sr * w + reflect(col0 + c, w);
     sc[e] = cth[g];
     suv[e] = make_float2(u[g], v[g]);
   }
@@ -154,9 +163,9 @@ bilateral_kernel(const float* __restrict__ u, const float* __restrict__ v,
   __syncthreads();
 
   const int col = blockIdx.x * kBX + threadIdx.x;
-  const int r0 = blockIdx.y * (BY * R) + threadIdx.y * R;
-  if (col >= w || r0 >= h) return;
-  const int base = threadIdx.y * R * ww + threadIdx.x;  // tap (0, 0) of row r0
+  const int rb = blockIdx.y * (BY * R) + threadIdx.y * R;   // the thread's first band row
+  if (col >= w || rb >= h) return;
+  const int base = threadIdx.y * R * ww + threadIdx.x;  // tap (0, 0) of row rb
   float c0[R], au[R], av[R], a2[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -205,8 +214,8 @@ bilateral_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    if (r0 + i < h) {
-      const size_t o = (size_t)(r0 + i) * w + col;
+    if (rb + i < h) {
+      const size_t o = (size_t)(rb + i) * w + col;
       out[o] = __fdiv_rn(au[i], a2[i]);
       out[(size_t)h * w + o] = __fdiv_rn(av[i], a2[i]);
     }
@@ -214,8 +223,8 @@ bilateral_kernel(const float* __restrict__ u, const float* __restrict__ v,
 }
 
 template <int P, int R, int BY>
-int launch(const float* u, const float* v, const float* cth, float* out, int h, int w, int p,
-           float k, const LogTaps& taps, cudaStream_t stream) {
+int launch(const float* u, const float* v, const float* cth, float* out, int h, int w, int hs,
+           int s0, int r0, int th, int p, float k, const LogTaps& taps, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (size_t)smem_floats(p, R, BY);
   auto kernel = bilateral_kernel<P, R, BY>;
   if (bytes > 48 * 1024) {
@@ -225,27 +234,38 @@ int launch(const float* u, const float* v, const float* cth, float* out, int h, 
   }
   const dim3 block(kBX, BY);
   const dim3 grid((w + kBX - 1) / kBX, (h + BY * R - 1) / (BY * R));
-  kernel<<<grid, block, bytes, stream>>>(u, v, cth, out, h, w, p, k, taps);
+  kernel<<<grid, block, bytes, stream>>>(u, v, cth, out, h, w, hs, s0, r0, th, p, k, taps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out (2, h, w) = the smoothed (u, v); gk_host is the host array of the 2p+1
-// spatial taps.  p = 18 runs its own instantiation; every other p the
-// run-time-p one, 4 rows per thread and 32 x 4 threads, whose window fits the
-// card's shared memory up to p = 48 (~210 KB).  Requires p + 1 <= h, w and
-// p <= kMaxP (the wrapper checks both).
-extern "C" int octane_bilateral(const float* u, const float* v, const float* cth, float* out,
-                                const float* gk_host, int h, int w, int p, float sigpix2,
-                                void* stream) {
-  if (p < 0 || p > kMaxP) return (int)cudaErrorInvalidValue;
+// out (2, h, w) = the smoothed (u, v) of the band's h rows from global row
+// r0 of a th-row image, from a slab of rows [s0, s0 + hs) (see the band form
+// above); gk_host is the host array of the 2p+1 spatial taps.  p = 18 runs
+// its own instantiation; every other p the run-time-p one, 4 rows per thread
+// and 32 x 4 threads, whose window fits the card's shared memory up to p =
+// 48 (~210 KB).  Requires p + 1 <= th, w, p <= kMaxP and a slab that holds
+// the band's window rows (the wrappers check all three).
+extern "C" int octane_bilateral_band(const float* u, const float* v, const float* cth,
+                                     float* out, const float* gk_host, int h, int w, int hs,
+                                     int s0, int r0, int th, int p, float sigpix2,
+                                     void* stream) {
+  if (p < 0 || p > kMaxP || h < 1 || s0 < 0 || s0 + hs > th || r0 < s0 || r0 + h > s0 + hs)
+    return (int)cudaErrorInvalidValue;
   LogTaps taps;
   for (int j = 0; j < 2 * p + 1; ++j) taps.lg[j] = log2((double)gk_host[j]);
   const float k = (float)(-(double)sigpix2 * kLog2E);
   const cudaStream_t s = (cudaStream_t)stream;
   if (p == 18)
-    return launch<18, OCTANE_BILATERAL_R, OCTANE_BILATERAL_BY>(u, v, cth, out, h, w, p, k, taps,
-                                                               s);
-  return launch<0, 4, 4>(u, v, cth, out, h, w, p, k, taps, s);
+    return launch<18, OCTANE_BILATERAL_R, OCTANE_BILATERAL_BY>(u, v, cth, out, h, w, hs, s0, r0,
+                                                               th, p, k, taps, s);
+  return launch<0, 4, 4>(u, v, cth, out, h, w, hs, s0, r0, th, p, k, taps, s);
+}
+
+// The whole image: the slab and the band are its h rows.
+extern "C" int octane_bilateral(const float* u, const float* v, const float* cth, float* out,
+                                const float* gk_host, int h, int w, int p, float sigpix2,
+                                void* stream) {
+  return octane_bilateral_band(u, v, cth, out, gk_host, h, w, h, 0, 0, h, p, sigpix2, stream);
 }

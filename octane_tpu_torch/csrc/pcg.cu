@@ -34,22 +34,24 @@ constexpr int kBX = 32;
 constexpr int kBY = 8;
 constexpr int kWarps = kBX * kBY / 32;
 
-// p' = M^-1 r + beta p for plane offset q (the TPU's minv * r + beta * p)
-__device__ __forceinline__ float p_next(const float* __restrict__ r,
-                                        const float* __restrict__ p,
-                                        const float* __restrict__ diag,
-                                        float beta, size_t q) {
-  const float minv = __frcp_rn(diag[q]);
-  return __fadd_rn(__fmul_rn(minv, r[q]), __fmul_rn(beta, p[q]));
-}
-
-template <bool QUAD>
+// Pass A's kernel, whole image (BAND false) or band form (BAND true: the
+// counterpart of octane_tpu/parallel/cg.py make_sharded_fused_cg :59, which
+// ran _pass_a on a row band with 8 ghost rows and a row0).  In band form x,
+// r, p and cf are the band's rows [row0, row0 + h) of a true_h-row image,
+// and gr, gp, gd (2, 2, w) hold r, p and the diagonals [a1, a4] of global
+// rows row0 - 1 (index 0) and row0 + h (index 1), where those exist: p' is
+// recomputed at the neighbours from them, so a band's outputs equal the
+// whole-image pass's rows bit for bit (its partials cover the band's own
+// 32 x 8 blocks).  Only the image's edge rows take the mirror-at-1
+// neighbours.
+template <bool QUAD, bool BAND>
 __global__ void __launch_bounds__(kBX * kBY) pcg_pass_a(
     const float* __restrict__ x, const float* __restrict__ r,
     const float* __restrict__ p, const float* __restrict__ cf,
-    const float* __restrict__ ab, float* __restrict__ x_out,
-    float* __restrict__ p_out, float* __restrict__ ap_out,
-    float* __restrict__ partials, int h, int w) {
+    const float* __restrict__ ab, const float* __restrict__ gr,
+    const float* __restrict__ gp, const float* __restrict__ gd,
+    float* __restrict__ x_out, float* __restrict__ p_out, float* __restrict__ ap_out,
+    float* __restrict__ partials, int h, int w, int row0, int true_h) {
   __shared__ float scratch[kWarps];
   const int j = blockIdx.x * kBX + threadIdx.x;
   const int i = blockIdx.y * kBY + threadIdx.y;
@@ -58,29 +60,38 @@ __global__ void __launch_bounds__(kBX * kBY) pcg_pass_a(
   float part = 0.f;
   if (i < h && j < w) {
     const float alpha = ab[0], beta = ab[1];
+    // p' = M^-1 r + beta p of component c at band row ii (-1 and h: the
+    // ghost rows), column jj (the TPU's minv * r + beta * p)
+    auto p_next = [&](int c, int ii, int jj) {
+      float rv, pv, dv;
+      if (BAND && (ii < 0 || ii >= h)) {
+        const size_t g = ((size_t)c * 2 + (ii < 0 ? 0 : 1)) * w + jj;
+        rv = gr[g];
+        pv = gp[g];
+        dv = gd[g];
+      } else {
+        const size_t q = c * plane + (size_t)ii * w + jj;   // cf planes 0, 1: a1, a4
+        rv = r[q];
+        pv = p[q];
+        dv = cf[q];
+      }
+      const float minv = __frcp_rn(dv);
+      return __fadd_rn(__fmul_rn(minv, rv), __fmul_rn(beta, pv));
+    };
     // mirror-at-1 neighbours: row 0's north is row 1, column w-1's east is
     // column w-2 (core/bc.py mirror_shift)
+    const int g = row0 + i;
     const int jw = j == 0 ? 1 : j - 1;
     const int je = j == w - 1 ? w - 2 : j + 1;
-    const int in = i == 0 ? 1 : i - 1;
-    const int is = i == h - 1 ? h - 2 : i + 1;
+    const int in = (g == 0 ? 1 : g - 1) - row0;
+    const int is = (g == true_h - 1 ? true_h - 2 : g + 1) - row0;
     const size_t o = (size_t)i * w + j;
-    const size_t ow = (size_t)i * w + jw, oe = (size_t)i * w + je;
-    const size_t on = (size_t)in * w + j, os = (size_t)is * w + j;
-    const float* ru = r;
-    const float* rv = r + plane;
-    const float* pu = p;
-    const float* pv = p + plane;
-    const float* a1 = cf;
-    const float* a4 = cf + plane;
-    const float* a2 = cf + 2 * plane;
 
-    const float cu = p_next(ru, pu, a1, beta, o);
-    const float cv = p_next(rv, pv, a4, beta, o);
-    const float wu = p_next(ru, pu, a1, beta, ow), wv = p_next(rv, pv, a4, beta, ow);
-    const float eu = p_next(ru, pu, a1, beta, oe), ev = p_next(rv, pv, a4, beta, oe);
-    const float nu = p_next(ru, pu, a1, beta, on), nv = p_next(rv, pv, a4, beta, on);
-    const float su = p_next(ru, pu, a1, beta, os), sv = p_next(rv, pv, a4, beta, os);
+    const float cu = p_next(0, i, j), cv = p_next(1, i, j);
+    const float wu = p_next(0, i, jw), wv = p_next(1, i, jw);
+    const float eu = p_next(0, i, je), ev = p_next(1, i, je);
+    const float nu = p_next(0, in, j), nv = p_next(1, in, j);
+    const float su = p_next(0, is, j), sv = p_next(1, is, j);
     float off_u, off_v;
     if (QUAD) {
       off_u = -__fadd_rn(__fadd_rn(__fadd_rn(wu, eu), nu), su);
@@ -93,11 +104,11 @@ __global__ void __launch_bounds__(kBX * kBY) pcg_pass_a(
       off_v = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a5, wv), __fmul_rn(a7, ev)),
                                   __fmul_rn(a6, nv)), __fmul_rn(a8, sv));
     }
-    const float c1 = a1[o], c4 = a4[o], c2 = a2[o];
+    const float c1 = cf[o], c4 = cf[plane + o], c2 = cf[2 * plane + o];
     const float au = __fadd_rn(__fadd_rn(__fmul_rn(c1, cu), __fmul_rn(c2, cv)), off_u);
     const float av = __fadd_rn(__fadd_rn(__fmul_rn(c2, cu), __fmul_rn(c4, cv)), off_v);
-    x_out[o] = __fadd_rn(x[o], __fmul_rn(alpha, pu[o]));
-    x_out[plane + o] = __fadd_rn(x[plane + o], __fmul_rn(alpha, pv[o]));
+    x_out[o] = __fadd_rn(x[o], __fmul_rn(alpha, p[o]));
+    x_out[plane + o] = __fadd_rn(x[plane + o], __fmul_rn(alpha, p[plane + o]));
     p_out[o] = cu;
     p_out[plane + o] = cv;
     ap_out[o] = au;
@@ -142,22 +153,43 @@ __global__ void __launch_bounds__(kBX * kBY) pcg_pass_b(
 
 dim3 pcg_grid(int h, int w) { return dim3((w + kBX - 1) / kBX, (h + kBY - 1) / kBY); }
 
+template <bool BAND>
+int launch_a(const float* x, const float* r, const float* p, const float* cf, const float* ab,
+             const float* gr, const float* gp, const float* gd, float* x_out, float* p_out,
+             float* ap_out, float* partials, int h, int w, int row0, int true_h, int quad,
+             cudaStream_t s) {
+  const dim3 block(kBX, kBY);
+  if (quad) {
+    pcg_pass_a<true, BAND><<<pcg_grid(h, w), block, 0, s>>>(
+        x, r, p, cf, ab, gr, gp, gd, x_out, p_out, ap_out, partials, h, w, row0, true_h);
+  } else {
+    pcg_pass_a<false, BAND><<<pcg_grid(h, w), block, 0, s>>>(
+        x, r, p, cf, ab, gr, gp, gd, x_out, p_out, ap_out, partials, h, w, row0, true_h);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int octane_pcg_pass_a(const float* x, const float* r, const float* p,
                                  const float* cf, const float* ab, float* x_out,
                                  float* p_out, float* ap_out, float* partials,
                                  int h, int w, int quad, void* stream) {
-  const dim3 block(kBX, kBY);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (quad) {
-    pcg_pass_a<true><<<pcg_grid(h, w), block, 0, s>>>(
-        x, r, p, cf, ab, x_out, p_out, ap_out, partials, h, w);
-  } else {
-    pcg_pass_a<false><<<pcg_grid(h, w), block, 0, s>>>(
-        x, r, p, cf, ab, x_out, p_out, ap_out, partials, h, w);
-  }
-  return (int)cudaGetLastError();
+  return launch_a<false>(x, r, p, cf, ab, nullptr, nullptr, nullptr, x_out, p_out, ap_out,
+                         partials, h, w, 0, h, quad, (cudaStream_t)stream);
+}
+
+// Pass A on the band [row0, row0 + h) of a true_h-row image with the ghost
+// rows gr, gp, gd (see the kernel); a band of one row needs h >= 1 and an
+// image of at least 2 rows.
+extern "C" int octane_pcg_pass_a_band(const float* x, const float* r, const float* p,
+                                      const float* cf, const float* ab, const float* gr,
+                                      const float* gp, const float* gd, float* x_out,
+                                      float* p_out, float* ap_out, float* partials, int h,
+                                      int w, int row0, int true_h, int quad, void* stream) {
+  if (h < 1 || true_h < 2 || row0 < 0 || row0 + h > true_h) return (int)cudaErrorInvalidValue;
+  return launch_a<true>(x, r, p, cf, ab, gr, gp, gd, x_out, p_out, ap_out, partials, h, w,
+                        row0, true_h, quad, (cudaStream_t)stream);
 }
 
 extern "C" int octane_pcg_pass_b(const float* r, const float* ap, const float* cf,

@@ -143,21 +143,27 @@ template <bool QUAD, int WS>
 __global__ void __launch_bounds__(kThreads, 1) sor_pass(
     const float* __restrict__ x, float* __restrict__ x_out,
     const float* __restrict__ cf, float* __restrict__ partials,
-    int h, int w, int k, int strip, int seg, float omega) {
+    int h, int w, int row0, int true_h, int r_begin, int r_end, size_t out_plane,
+    int k, int strip, int seg, float omega) {
   extern __shared__ float smem[];
   constexpr int kNc = QUAD ? 6 : 10;
   constexpr int kNp = 2 + kNc;
   const int tid = threadIdx.x;
   const size_t plane = (size_t)h * w;
 
-  // interior [c0, c1) x [r0, r1), loaded [lc, rc) x [lr, rr)
+  // interior [c0, c1) x [r0, r1) of the rows [r_begin, r_end) to write,
+  // loaded [lc, rc) x [lr, rr); the slab's first and last rows are cuts
+  // unless they are the image's (global rows 0 and true_h - 1), and only
+  // the image's edge rows take the mirror-at-1 neighbours (top, bot)
   const int c0 = blockIdx.x * strip, c1 = min(c0 + strip, w);
-  const int r0 = blockIdx.y * seg, r1 = min(r0 + seg, h);
+  const int r0 = r_begin + blockIdx.y * seg, r1 = min(r0 + seg, r_end);
   const int halo = 2 * k;
   const int lc = max(0, c0 - halo), rc = min(w, c1 + halo);
   const int lr = max(0, r0 - halo), rr = min(h, r1 + halo);
   const int wl = rc - lc, nl = rr - lr;
-  const bool cut_w = lc > 0, cut_e = rc < w, cut_n = lr > 0, cut_s = rr < h;
+  const int top = row0 == 0 ? 0 : -1, bot = row0 + h == true_h ? h - 1 : -1;
+  const bool cut_w = lc > 0, cut_e = rc < w;
+  const bool cut_n = lr > 0 || top < 0, cut_s = rr < h || bot < 0;
   constexpr int ws = WS;                    // floats per plane of a ring row, >= wl
   const int nring = 2 * halo + 4;           // ring rows: local row l in slot l % nring
   auto ring_row = [&](int slot) { return smem + slot * (kNp * ws); };
@@ -259,10 +265,10 @@ __global__ void __launch_bounds__(kThreads, 1) sor_pass(
     // shuffle chain overlaps the next row's terms)
     if (resid_warp && pend_i >= 0) {
       const float rsum = octane::warp_sum(pend);
-      const int i = pend_i;
+      const int i = pend_i - r_begin;       // the row blocks start at r_begin
       if (lane == 0) {
         racc = (i & 7) == 0 ? rsum : add(racc, rsum);
-        if (((i & 7) == 7 || i == h - 1) && c0 + 32 * warp < w) {
+        if (((i & 7) == 7 || pend_i == r_end - 1) && c0 + 32 * warp < w) {
           partials[(size_t)(i >> 3) * gw + (c0 >> 5) + warp] = racc;
         }
       }
@@ -278,8 +284,8 @@ __global__ void __launch_bounds__(kThreads, 1) sor_pass(
       if (col < w) {
         const int sp = sub_slot(s_slot, 2, nring);
         const float* row = ring_row(sub_slot(s_slot, 1, nring));
-        const float* rn = ring_row(i == 0 ? s_slot : sp);
-        const float* rs = ring_row(i == h - 1 ? sp : s_slot);
+        const float* rn = ring_row(i == top ? s_slot : sp);
+        const float* rs = ring_row(i == bot ? sp : s_slot);
         const int cw = col == 0 ? 1 : col - 1, ce = col == w - 1 ? w - 2 : col + 1;
         const Cell c = residual<QUAD>(gather<QUAD, WS>(row, rn, rs, col - lc, cw - lc, ce - lc));
         part = add(mul(c.ru, c.ru), mul(c.rv, c.rv));
@@ -295,15 +301,15 @@ __global__ void __launch_bounds__(kThreads, 1) sor_pass(
       it_slot[m] = add_slot(sl1, 1, nring);
       const int q = it_q[m];
       const int l1 = it_l1[m] + s;
-      const bool red = ((lr + l1 + lc + q) & 1) == 0;
+      const bool red = ((row0 + lr + l1 + lc + q) & 1) == 0;
       const int l = red ? l1 : l1 - 2;
       if (q < 0 || l < 0 || l >= nl || (cut_n && l == 0) || (cut_s && l == nl - 1)) continue;
       const int i = lr + l;
       const int sl = red ? sl1 : sub_slot(sl1, 2, nring);
       const int sn = sub_slot(sl, 1, nring), ss = add_slot(sl, 1, nring);
       float* row = ring_row(sl);
-      const Taps<QUAD> t = gather<QUAD, WS>(row, ring_row(i == 0 ? ss : sn),
-                                            ring_row(i == h - 1 ? sn : ss), q, it_qw[m],
+      const Taps<QUAD> t = gather<QUAD, WS>(row, ring_row(i == top ? ss : sn),
+                                            ring_row(i == bot ? sn : ss), q, it_qw[m],
                                             it_qe[m]);
       const Cell c = residual<QUAD>(t);
       const float a1 = t.c[0], a4 = t.c[1], a2 = t.c[2], rdet = t.c[kNc - 1];
@@ -317,12 +323,12 @@ __global__ void __launch_bounds__(kThreads, 1) sor_pass(
     // interior columns
     const int lw = s - 2 * halo - 2;
     if (lw >= 0 && lw < nl && lr + lw >= r0 && lr + lw < r1) {
-      const size_t orow = (size_t)(lr + lw) * w;
+      const size_t orow = (size_t)(lr + lw - r_begin) * w;
       const float* src = ring_row(add_slot(s_slot, 2, nring)) - lc;
       // by the last warps: the first ones take the residual
       for (int j = c0 + kThreads - 1 - tid; j < c1; j += kThreads) {
         x_out[orow + j] = src[j];
-        x_out[plane + orow + j] = src[ws + j];
+        x_out[out_plane + orow + j] = src[ws + j];
       }
     }
     s_slot = add_slot(s_slot, 1, nring);
@@ -379,16 +385,67 @@ void default_geometry(int h, int w, int quad, int sweeps, int optin, int sms, in
   }
 }
 
+struct Band {
+  int row0, true_h, r_begin, r_end;
+  size_t out_plane;
+};
+
 template <bool QUAD, int WS>
 void launch(dim3 grid, size_t bytes, cudaStream_t s, int optin, const float* x, float* x_out,
-            const float* cf, float* partials, int h, int w, int sweeps, int strip, int seg,
-            float omega) {
+            const float* cf, float* partials, int h, int w, Band b, int sweeps, int strip,
+            int seg, float omega) {
   cudaFuncSetAttribute(sor_pass<QUAD, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  sor_pass<QUAD, WS><<<grid, kThreads, bytes, s>>>(x, x_out, cf, partials, h, w, sweeps, strip,
-                                                   seg, omega);
+  sor_pass<QUAD, WS><<<grid, kThreads, bytes, s>>>(x, x_out, cf, partials, h, w, b.row0,
+                                                   b.true_h, b.r_begin, b.r_end, b.out_plane,
+                                                   sweeps, strip, seg, omega);
 }
 
 }  // namespace
+
+// Band form (the counterpart of octane_tpu/parallel/sor.py
+// make_sharded_fused_sor :44, which ran _kernel on a row band with 2S ghost
+// rows and sc = [row0, col0, ns]): x (2, h, w) and cf (nc, h, w) are a slab
+// of global rows [row0, row0 + h) of a true_h-row image, holding the band's
+// rows [r_begin, r_end) and its ghost rows; x_out receives the band's rows
+// only (row r_begin first, out_plane floats from u to v), and the partials
+// cover the band's rows in 32 x 8 blocks from row r_begin.  The colour
+// parity is global (row0 + row + column), a slab edge that is not the
+// image's is a cut, and the overlap argument needs 2 sweeps ghost rows on
+// each cut side: the band's rows then equal the whole-image pass's bit for
+// bit.
+extern "C" int octane_sor_pass_band(const float* x, float* x_out, const float* cf,
+                                    float* partials, int h, int w, int row0, int true_h,
+                                    int r_begin, int r_end, long long out_plane, int quad,
+                                    int sweeps, int strip, int seg, float omega, void* stream) {
+  int dev = 0, optin = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sweeps < 1 || sweeps > 8 || h < 2 || w < 2 || r_begin < 0 || r_end > h ||
+      r_begin >= r_end || row0 < 0 || row0 + h > true_h) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int hb = r_end - r_begin;
+  if (strip == 0 && seg == 0) default_geometry(hb, w, quad, sweeps, optin, sms, &strip, &seg);
+  if (!strip_fits(quad, sweeps, strip, optin) || seg < 8 || seg % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = ring_bytes(quad, sweeps, strip);
+  const dim3 grid((w + strip - 1) / strip, (hb + seg - 1) / seg);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool narrow = ring_ws(sweeps, strip) == 128;
+  const Band b{row0, true_h, r_begin, r_end, (size_t)out_plane};
+  if (quad) {
+    (narrow ? launch<true, 128> : launch<true, 160>)(grid, bytes, s, optin, x, x_out, cf,
+                                                     partials, h, w, b, sweeps, strip, seg,
+                                                     omega);
+  } else {
+    (narrow ? launch<false, 128> : launch<false, 160>)(grid, bytes, s, optin, x, x_out, cf,
+                                                       partials, h, w, b, sweeps, strip, seg,
+                                                       omega);
+  }
+  return (int)cudaGetLastError();
+}
 
 // One pass of `sweeps` red+black sweeps (1 .. 8) of x into x_out (another
 // buffer), and one ||r||^2 partial of the incoming x per 32 x 8 block of
@@ -396,29 +453,10 @@ void launch(dim3 grid, size_t bytes, cudaStream_t s, int optin, const float* x, 
 // `strip` columns (a multiple of 32, strip + 4 sweeps <= 160, its ring
 // within the card's shared memory) by `seg` rows (a multiple of 8); 0 for
 // both takes default_geometry's, which the solver uses (other values serve
-// tuning and tests).
+// tuning and tests).  The whole image is the band form's slab and band.
 extern "C" int octane_sor_pass(const float* x, float* x_out, const float* cf,
                                float* partials, int h, int w, int quad, int sweeps,
                                int strip, int seg, float omega, void* stream) {
-  int dev = 0, optin = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (sweeps < 1 || sweeps > 8 || h < 2 || w < 2) return (int)cudaErrorInvalidValue;
-  if (strip == 0 && seg == 0) default_geometry(h, w, quad, sweeps, optin, sms, &strip, &seg);
-  if (!strip_fits(quad, sweeps, strip, optin) || seg < 8 || seg % 8 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t bytes = ring_bytes(quad, sweeps, strip);
-  const dim3 grid((w + strip - 1) / strip, (h + seg - 1) / seg);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bool narrow = ring_ws(sweeps, strip) == 128;
-  if (quad) {
-    (narrow ? launch<true, 128> : launch<true, 160>)(grid, bytes, s, optin, x, x_out, cf,
-                                                     partials, h, w, sweeps, strip, seg, omega);
-  } else {
-    (narrow ? launch<false, 128> : launch<false, 160>)(grid, bytes, s, optin, x, x_out, cf,
-                                                       partials, h, w, sweeps, strip, seg, omega);
-  }
-  return (int)cudaGetLastError();
+  return octane_sor_pass_band(x, x_out, cf, partials, h, w, 0, h, 0, h, (long long)h * w, quad,
+                              sweeps, strip, seg, omega, stream);
 }

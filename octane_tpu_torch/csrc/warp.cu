@@ -133,7 +133,54 @@ __global__ void __launch_bounds__(kThreads) warp_bilinear(
   }
 }
 
+// Band form (the counterpart of octane_tpu/parallel/sharded.py
+// make_sharded_warp :68, which ran _kernel over a halo-padded shard block):
+// output rows [r0, r0 + hb) of the true (th, w) image, sampled from a slab
+// that holds global rows [s0, s0 + hs) of the stack.  Positions, clamps and
+// flags are those of the whole-image kernel in global coordinates
+// (sample_coefs at row r0 + lrow against th), and the taps are read at slab
+// row jv1 - s0, so the samples and flags equal the whole-image kernel's rows
+// bit for bit.  The caller's reach guard (parallel/sharded.py) sizes the
+// slab to hold every sample row; the clamp only keeps a read inside the
+// slab if it did not.  No tile statistics: the slab replaces the window.
+// Bound: memory, as the whole-image kernel, on the band's pixels.
+__global__ void __launch_bounds__(kThreads) warp_band(
+    const float* __restrict__ slab, const float* __restrict__ u,
+    const float* __restrict__ v, float* __restrict__ out,
+    uint8_t* __restrict__ bcx, uint8_t* __restrict__ bcy, int k, int hb, int w, int hs,
+    int s0, int r0, int th, int bh) {
+  const int tid = threadIdx.x;
+  const int col = blockIdx.x * kTileW + (tid % kTileW);
+  if (col >= w) return;
+  const size_t splane = (size_t)hs * w, oplane = (size_t)hb * w;
+  for (int lj = tid / kTileW; lj < bh; lj += kRowStep) {
+    const int row = blockIdx.y * bh + lj;
+    if (row >= hb) break;
+    const size_t o = (size_t)row * w + col;
+    const Coefs c = sample_coefs(r0 + row, col, __ldg(u + o), __ldg(v + o), th, w);
+    bcx[o] = c.bx;
+    bcy[o] = c.by;
+    const int sr = min(max(c.jv1 - s0, 0), hs - 2);
+    const float* f = slab + (size_t)sr * w + c.iv1;
+    float* dst = out + o;
+#pragma unroll 6
+    for (int ch = 0; ch < k; ++ch, f += splane, dst += oplane) {
+      *dst = bilerp(c, __ldg(f), __ldg(f + 1), __ldg(f + w), __ldg(f + w + 1));
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int octane_warp_band(const float* slab, const float* u, const float* v, float* out,
+                                uint8_t* bcx, uint8_t* bcy, int k, int hb, int w, int hs,
+                                int s0, int r0, int th, int bh, void* stream) {
+  if (hs < 2 || hb < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kTileW - 1) / kTileW, (hb + bh - 1) / bh);
+  warp_band<<<grid, kThreads, 0, (cudaStream_t)stream>>>(slab, u, v, out, bcx, bcy, k, hb, w,
+                                                         hs, s0, r0, th, bh);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int octane_warp(const float* fields, const float* u, const float* v,
                            float* out, uint8_t* bcx, uint8_t* bcy,

@@ -8,13 +8,24 @@ winds (``nav.winds.uv2pix``) or a given first guess (a sequence's warm
 start), the CTP product, the float64 m/s winds of polar and mercator
 products and the SRSAL bilateral smoothing (``post.srsal``).  "hybrid" is
 patch-match initialization (``flow.patch_match``) refined by
-``variational_flow``.  The
-device-mesh branches have no counterpart (the CLI refuses ``-mesh``), nor
-has the JAX package's post-hoc warp-reach audit: the CUDA warp has no
-window, so its reach is unbounded.
+``variational_flow``.  The JAX package's post-hoc warp-reach audit has no
+counterpart: the CUDA warp has no window, so its reach is unbounded.
+
+Under a device mesh (``active_mesh``: cfg.mesh_shape of more than one
+band) the variational solve and the hybrid refinement run on the mesh's
+row bands (``parallel.sharded_variational_flow``), and so do pix2uv,
+pix2uv_ms and SRSAL (``parallel.post``).  Patch-match runs its
+single-device function on the whole field: octane_tpu's
+``patch_match_flow_sharded`` equals its single-device fast path bit for
+bit (patch_match.py:293-300), so the numbers are the same.  Temporal interpolation
+(``pipeline.interpolate_sequence``) likewise runs ``post.temporal`` on the
+whole field: octane_tpu's ``sharded_interpolate_frame`` equals the
+single-device fixed point (parallel/post.py:13-18).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -25,6 +36,36 @@ from octane_tpu_torch.io.datamodel import Scene
 from octane_tpu_torch.nav.goes import F64
 from octane_tpu_torch.nav.winds import pix2uv, pix2uv_ms, uv2pix
 from octane_tpu_torch.post.srsal import srsal_smooth
+
+
+def active_mesh(cfg: OFConfig, device="cuda"):
+    """The mesh of ``cfg.mesh_shape`` when it asks for more than one band
+    and enough devices exist, else None (octane_tpu's rule,
+    dispatcher.py:23-31).  On the CPU every band lives on the CPU; on the
+    card band i takes cuda:i, so a mesh of more bands than visible cards is
+    None, with a warning, and the single-device path runs."""
+    from octane_tpu_torch.parallel.mesh import make_mesh
+
+    ry, rx = cfg.mesh_shape
+    n = ry * rx
+    if n <= 1:
+        return None
+    device = torch.device(device)
+    if device.type == "cpu":
+        return make_mesh((ry, rx), [device] * n)
+    if torch.cuda.device_count() < n:
+        warnings.warn(f"mesh {ry}x{rx} needs {n} CUDA devices, {torch.cuda.device_count()} "
+                      "are visible: running on one device", RuntimeWarning)
+        return None
+    return make_mesh((ry, rx), [torch.device("cuda", i) for i in range(n)])
+
+
+def _variational(data1, data2, u0, v0, cfg: OFConfig, mesh=None):
+    """The dense solve, on the mesh's bands when one is active."""
+    if mesh is not None:
+        from octane_tpu_torch.parallel.sharded import sharded_variational_flow
+        return sharded_variational_flow(data1, data2, u0, v0, cfg, mesh)
+    return variational_flow(data1, data2, u0, v0, cfg)
 
 
 def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
@@ -51,6 +92,7 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
 
     # --- flow engine (ref :54-68; "hybrid": patch-match initialization +
     # variational refinement) ------------------------------------------------
+    mesh = active_mesh(cfg, dev)
     if cfg.algorithm in ("patch_match", "hybrid"):
         if scene1.nchannels > 1 and cfg.algorithm == "patch_match":
             raise ValueError("patch match supports single-channel input only")
@@ -62,9 +104,9 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
             u, v = patch_match_flow(scene1.data[0], scene2.data[0], None, None,
                                     cfg.rad, cfg.srad)
         if cfg.algorithm == "hybrid":
-            u, v = variational_flow(scene1.data, scene2.data, u, v, cfg)
+            u, v = _variational(scene1.data, scene2.data, u, v, cfg, mesh)
     else:
-        u, v = variational_flow(scene1.data, scene2.data, u0, v0, cfg)
+        u, v = _variational(scene1.data, scene2.data, u0, v0, cfg, mesh)
     scene1.u_pix = u
     scene1.v_pix = v
 
@@ -76,17 +118,28 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
     # --- navigate to winds (ref :91) ----------------------------------------
     nav.g2x_offset = scene2.nav.x_offset if cfg.grid == "goes" else nav.x_offset
     nav.g2y_offset = scene2.nav.y_offset if cfg.grid == "goes" else nav.y_offset
-    uw, vw, ur, vr = pix2uv(u, v, nav, dt, grid=cfg.grid, pixuv=cfg.pixuv)
+    if mesh is not None:
+        from octane_tpu_torch.parallel.post import sharded_pix2uv, sharded_pix2uv_ms
+        uw, vw, ur, vr = sharded_pix2uv(u, v, nav, dt, mesh, grid=cfg.grid, pixuv=cfg.pixuv)
+    else:
+        uw, vw, ur, vr = pix2uv(u, v, nav, dt, grid=cfg.grid, pixuv=cfg.pixuv)
     scene1.u_wind, scene1.v_wind = uw, vw
     scene1.u_raw, scene1.v_raw = ur, vr
     if cfg.grid != "goes" and not cfg.pixuv:
         # flat-grid products keep full-precision winds (oct_polarwrite
         # writes U/V as doubles, oct_filewrite.cc:401-402)
-        ums, vms = pix2uv_ms(u, v, nav, dt, grid=cfg.grid)
+        if mesh is not None:
+            ums, vms = sharded_pix2uv_ms(u, v, nav, dt, mesh, grid=cfg.grid)
+        else:
+            ums, vms = pix2uv_ms(u, v, nav, dt, grid=cfg.grid)
         scene1.u_ms, scene1.v_ms = ums.to(F64), vms.to(F64)
     scene1.dt = float(dt)
 
     # --- bilateral smoothing of the pixel flow (ref :100-105) ---------------
     if cfg.do_srsal and scene1.cth is not None:
-        scene1.u_pix, scene1.v_pix = srsal_smooth(u, v, scene1.cth)
+        if mesh is not None:
+            from octane_tpu_torch.parallel.post import sharded_srsal
+            scene1.u_pix, scene1.v_pix = sharded_srsal(u, v, scene1.cth, mesh)
+        else:
+            scene1.u_pix, scene1.v_pix = srsal_smooth(u, v, scene1.cth)
     return scene1

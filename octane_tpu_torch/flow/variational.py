@@ -14,6 +14,9 @@ instead (each call counted as a plain call), so the kernels can be timed
 and checked against them on the card; no option of ``OFConfig`` or the CLI
 reaches it.
 
+The mesh path (octane_tpu_torch.parallel.sharded) runs the same schedule
+(``level_schedule``, ``gnc_rounds``) on row bands.
+
 Numerics follow the reference (SURVEY.md section 8): per-level images are
 blurred and floor-subsampled from full resolution, first-guess fields are
 downsampled the same way and scaled by the level factor, flow upsampling is
@@ -59,6 +62,23 @@ _PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
 _PLAIN_PASS = _counted_plain(sor_pass, sor_pass_plain)
 
 
+def level_schedule(cfg: OFConfig, h: int, w: int):
+    """(k, factor, (nyy, nxx), lambdac_k) of each pyramid level, coarsest
+    first (oct_variational_optical_flow.cu:487-575)."""
+    for k in range(cfg.kiters):
+        factor = float(np.float32(cfg.scale_factor) ** (cfg.kiters - k - 1))
+        yield k, factor, (zoom_size(h, factor), zoom_size(w, factor)), \
+            (cfg.lambdac / cfg.alpha) * (0.5 ** k)
+
+
+def gnc_rounds(gnc_steps: int, liters: int):
+    """The GNC blend al1 of each round: 1, 0.5, 0 (quadratic first), each
+    ``liters`` times."""
+    for step in range(gnc_steps):
+        for _ in range(liters):
+            yield 1.0 - 0.5 * step
+
+
 def solve_level(
     g1, g2, u, v, uhat, vhat,
     alpha: float, lam_over_alpha: float, lambdac: float, tol: float,
@@ -102,11 +122,9 @@ def solve_level(
                             lambdac, dozim, warp_fn=warp_fn, stack=stack)
             return pcg_solve_fused(sysm, tol, cgiters, *passes)
 
-    for step in range(gnc_steps):
-        al1 = 1.0 - 0.5 * step          # 1, 0.5, 0: quadratic first
-        for _ in range(liters):
-            du, dv = round_(u, v, al1)
-            u, v = u + du, v + dv
+    for al1 in gnc_rounds(gnc_steps, liters):
+        du, dv = round_(u, v, al1)
+        u, v = u + du, v + dv
     return u, v
 
 
@@ -118,10 +136,7 @@ def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
     # independently, so the values are those of separate calls)
     full = torch.cat([geo1, geo2, u0[None], v0[None]])
     u = v = None
-    for k in range(kiters):
-        factor = float(np.float32(cfg.scale_factor) ** (kiters - k - 1))
-        nxx, nyy = zoom_size(w, factor), zoom_size(h, factor)
-        lambdac_k = (cfg.lambdac / cfg.alpha) * (0.5 ** k)
+    for k, factor, (nyy, nxx), lambdac_k in level_schedule(cfg, h, w):
         if k == kiters - 1:
             g1, g2 = geo1, geo2
             uhat, vhat = u0, v0

@@ -5,9 +5,12 @@ pass (``ops.sor``) and the SRSAL bilateral smoother
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors, and counts both.  The solver's internal
-plain route (flow.variational) adds its direct calls of the plain versions
-to the same ``plain_calls`` counters.  ``PATHS`` names the wrappers each
-relaxer's solve goes through, and the one SRSAL smoothing goes through.
+plain route (flow.variational, parallel.sharded) adds its direct calls of
+the plain versions to the same ``plain_calls`` counters.  ``PATHS`` names
+the wrappers each relaxer's solve goes through, and the one SRSAL
+smoothing goes through, on one device and (``mesh_*``) on the row bands of
+the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
+``pcg_pass_a_band`` and ``bilateral_band``.
 """
 
 from octane_tpu_torch.ops import assemble as _assemble
@@ -18,10 +21,15 @@ from octane_tpu_torch.ops import warp as _warp
 
 WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "pcg_pass_b": _pcg.pcg_pass_b, "assemble_cf": _assemble.assemble_cf,
-            "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral}
+            "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral,
+            "warp_band": _warp.warp_band, "pcg_pass_a_band": _pcg.pcg_pass_a_band,
+            "sor_pass_band": _sor.sor_pass_band, "bilateral_band": _bilateral.bilateral_band}
 PATHS = {"pcg": ("warp", "pcg_pass_a", "pcg_pass_b"),
          "sor": ("warp", "assemble_cf", "sor_pass"),
-         "srsal": ("bilateral",)}
+         "srsal": ("bilateral",),
+         "mesh_pcg": ("warp_band", "pcg_pass_a_band", "pcg_pass_b"),
+         "mesh_sor": ("warp_band", "assemble_cf", "sor_pass_band"),
+         "mesh_srsal": ("bilateral_band",)}
 
 
 def reset_counters() -> None:

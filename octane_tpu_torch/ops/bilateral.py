@@ -17,6 +17,16 @@ approximate ex2, so it agrees with the plain version within the budget of
 docs/PARITY.md:91, rel <= 1e-5 (max |d| / max |plain|, each of u and v;
 <= 9.7e-7 measured on an H100 at 64x80 to 5424^2), not bit for bit.
 ``bilateral.launches`` / ``.plain_calls`` count them.
+
+``bilateral_band(u, v, cth, gk, sigpix2, s0, r0, hb, true_h)`` is the band
+form for the mesh path (parallel.post.sharded_srsal): u, v, cth are a slab
+of global rows [s0, s0 + hs) of a true_h-row image, and it returns the
+smoothed (2, hb, W) rows [r0, r0 + hb), the boundary map taken in global
+coordinates; the slab must hold every row the band's windows reach
+(``band_slab``: the band and p rows beside it).  Its rows equal the
+whole-image call's bit for bit, kernel against kernel and plain against
+plain.  On a CUDA tensor it launches ``octane_bilateral_band`` of
+``csrc/bilateral.cu``, on a CPU tensor ``bilateral_band_plain``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from octane_tpu_torch.core.bc import reflect_index
 from octane_tpu_torch.ops.build import check_status, load_kernels
 
 MAX_P = 48      # kMaxP of csrc/bilateral.cu
@@ -39,14 +50,39 @@ def reflect_pad(a: torch.Tensor, p: int) -> torch.Tensor:
 def bilateral_plain(u: torch.Tensor, v: torch.Tensor, cth: torch.Tensor,
                     gk, sigpix2: float) -> torch.Tensor:
     """Plain version: the (2, H, W) smoothed flow, tap by tap."""
+    p = (len(gk) - 1) // 2
+    return _tap_loop(*(reflect_pad(t, p) for t in (u, v, cth)), cth, gk, sigpix2)
+
+
+def band_slab(r0: int, r1: int, true_h: int, p: int):
+    """[s0, s1): the rows the windows of band rows [r0, r1) read, through
+    the boundary map, of a true_h-row image."""
+    return max(0, r0 - p), min(true_h, r1 + p)
+
+
+def bilateral_band_plain(u, v, cth, gk, sigpix2: float, s0: int, r0: int, hb: int,
+                         true_h: int) -> torch.Tensor:
+    """Plain band form: the slab padded through the global boundary map
+    (rows) and reflect_pad's (columns), then the tap loop."""
+    p = (len(gk) - 1) // 2
+    rows = reflect_index(torch.arange(r0 - p, r0 + hb + p, device=u.device), true_h) - s0
+
+    def pad(t):
+        a = t.index_select(0, rows)
+        return torch.cat([a[:, 1:p + 1].flip(1), a, a[:, -p:].flip(1)], dim=1)
+
+    return _tap_loop(pad(u), pad(v), pad(cth), cth[r0 - s0:r0 - s0 + hb], gk, sigpix2)
+
+
+def _tap_loop(up, vp, cp, cth, gk, sigpix2: float) -> torch.Tensor:
+    """The (2, h, w) smoothed flow from the padded planes, tap by tap, column
+    offset outer (post/srsal.py _tap_loop of octane_tpu)."""
     gk = np.asarray(gk, np.float32)
     n = len(gk)
-    p = (n - 1) // 2
-    h, w = u.shape
-    up, vp, cp = (reflect_pad(t, p) for t in (u, v, cth))
-    au = torch.zeros_like(u)
-    av = torch.zeros_like(u)
-    a2 = torch.zeros_like(u)
+    h, w = cth.shape
+    au = torch.zeros_like(cth)
+    av = torch.zeros_like(cth)
+    a2 = torch.zeros_like(cth)
     for kc in range(n):
         for lc in range(n):
             wt = float(gk[kc] * gk[lc])         # the float32 product
@@ -102,3 +138,40 @@ def bilateral(u: torch.Tensor, v: torch.Tensor, cth: torch.Tensor,
 
 bilateral.launches = 0
 bilateral.plain_calls = 0
+
+
+def bilateral_band(u: torch.Tensor, v: torch.Tensor, cth: torch.Tensor, gk, sigpix2: float,
+                   s0: int, r0: int, hb: int, true_h: int) -> torch.Tensor:
+    """(2, hb, W) smoothed rows [r0, r0 + hb) from the slab of rows [s0, s0 +
+    hs); see the module docstring."""
+    gk = np.ascontiguousarray(gk, np.float32)
+    p = (len(gk) - 1) // 2
+    if len(gk) != 2 * p + 1 or p > MAX_P:
+        raise ValueError(f"bilateral_band: gk must hold an odd number of taps, at most "
+                         f"{2 * MAX_P + 1}, got {len(gk)}")
+    _check(u, v, cth, 0)
+    hs, w = u.shape
+    if min(true_h, w) < p + 1:
+        raise ValueError(f"bilateral_band: the reflect boundary needs H, W >= {p + 1}, got "
+                         f"{(true_h, w)}")
+    lo, hi = band_slab(r0, r0 + hb, true_h, p)
+    if not (hb >= 1 and s0 <= lo and hi <= s0 + hs <= true_h):
+        raise ValueError(f"bilateral_band: a slab of rows [{s0}, {s0 + hs}) does not hold the "
+                         f"rows [{lo}, {hi}) that band rows [{r0}, {r0 + hb}) read")
+    if u.device.type == "cpu":
+        bilateral_band.plain_calls += 1
+        return bilateral_band_plain(u, v, cth, gk, sigpix2, s0, r0, hb, true_h)
+    lib = load_kernels()
+    out = torch.empty((2, hb, w), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        status = lib.octane_bilateral_band(
+            u.data_ptr(), v.data_ptr(), cth.data_ptr(), out.data_ptr(), gk.ctypes.data,
+            hb, w, hs, s0, r0, true_h, p, sigpix2,
+            torch.cuda.current_stream(u.device).cuda_stream)
+    check_status(status, "octane_bilateral_band")
+    bilateral_band.launches += 1
+    return out
+
+
+bilateral_band.launches = 0
+bilateral_band.plain_calls = 0

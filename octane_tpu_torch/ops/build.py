@@ -34,13 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 _SIGNATURES = {
     "octane_warp": (I, [P] * 7 + [I] * 4 + [P]),
+    "octane_warp_band": (I, [P] * 6 + [I] * 8 + [P]),
     "octane_pcg_pass_a": (I, [P] * 9 + [I] * 3 + [P]),
+    "octane_pcg_pass_a_band": (I, [P] * 12 + [I] * 5 + [P]),
     "octane_pcg_pass_b": (I, [P] * 6 + [I] * 2 + [P]),
     "octane_assemble_cf": (I, [P] * 10 + [I] * 5 + [F] * 5 + [P]),
     "octane_sor_pass": (I, [P] * 4 + [I] * 6 + [F, P]),
+    "octane_sor_pass_band": (I, [P] * 4 + [I] * 6 + [L] + [I] * 4 + [F, P]),
     "octane_bilateral": (I, [P] * 5 + [I] * 3 + [F, P]),
+    "octane_bilateral_band": (I, [P] * 5 + [I] * 7 + [F, P]),
     "octane_error_string": (ctypes.c_char_p, [I]),
 }
 

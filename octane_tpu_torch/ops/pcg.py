@@ -20,6 +20,17 @@ On a CUDA tensor a pass launches ``csrc/pcg.cu``; on a CPU tensor it runs
 the plain version in this module.  ``pcg_pass_a.launches`` /
 ``.plain_calls`` (and the same on ``pcg_pass_b``) count them.
 
+``pcg_pass_a_band(x, r, p, cf, ab, gr, gp, gd, row0, true_h)`` is pass A's
+band form for the mesh path (parallel.cg): x, r, p, cf are the band's rows
+[row0, row0 + hb) of a true_h-row image, and gr, gp, gd (2, 2, w) hold r,
+p and the diagonals [a1, a4] of the global rows row0 - 1 and row0 + hb
+(where the band touches the image's edge, finite values that are not
+read).  Its outputs equal the
+whole-image pass's rows bit for bit; its partials are the band's blocks.
+On a CUDA tensor it launches ``octane_pcg_pass_a_band`` of ``csrc/pcg.cu``,
+on a CPU tensor ``pcg_pass_a_band_plain``.  Pass B needs no ghost rows and
+runs unchanged on each band.
+
 ``pcg_solve_fused`` is the driver (cg.py:271): stop when ||r||^2 <= tol or
 after ``iters`` iterations, then the deferred x += alpha p.  The stopping
 test is read on the host once per iteration; ``pcg_solve_fused.host_syncs``
@@ -65,10 +76,11 @@ def block_partials(part: torch.Tensor) -> torch.Tensor:
     return s.reshape(-1)
 
 
-def _offdiag(f, cf):
-    """Off-diagonal part of A f for one (h, w) component."""
-    wv, ev = mirror_shift(f, -1, -1), mirror_shift(f, 1, -1)
-    nv, sv = mirror_shift(f, -1, -2), mirror_shift(f, 1, -2)
+def _offdiag(f, cf, rows=slice(None)):
+    """Off-diagonal part of A f for one (h, w) component, at ``rows`` of f
+    (the rows of cf)."""
+    wv, ev = mirror_shift(f, -1, -1)[rows], mirror_shift(f, 1, -1)[rows]
+    nv, sv = mirror_shift(f, -1, -2)[rows], mirror_shift(f, 1, -2)[rows]
     if cf.shape[0] == 3:
         return -(wv + ev + nv + sv)
     return cf[3] * wv + cf[5] * ev + cf[4] * nv + cf[6] * sv
@@ -84,6 +96,26 @@ def pcg_pass_a_plain(x, r, p, cf, ab):
     return x + alpha * p, pn, torch.stack([au, av]), partials
 
 
+def pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
+    """Plain band form: pass A's arithmetic on the band with its ghost rows,
+    p' recomputed at the ghost rows, the outputs cropped to the band."""
+    hb = x.shape[1]
+    lo, hi = row0 > 0, row0 + hb < true_h
+
+    def slab(band, ghost):
+        return torch.cat(([ghost[:, :1]] if lo else []) + [band]
+                         + ([ghost[:, 1:]] if hi else []), dim=1)
+
+    alpha, beta = ab[0], ab[1]
+    pn = (1.0 / slab(cf[0:2], gd)) * slab(r, gr) + beta * slab(p, gp)
+    rows = slice(int(lo), int(lo) + hb)
+    pb = pn[:, rows]
+    au = cf[0] * pb[0] + cf[2] * pb[1] + _offdiag(pn[0], cf, rows)
+    av = cf[2] * pb[0] + cf[1] * pb[1] + _offdiag(pn[1], cf, rows)
+    partials = block_partials(pb[0] * au + pb[1] * av)
+    return x + alpha * p, pb.contiguous(), torch.stack([au, av]), partials
+
+
 def pcg_pass_b_plain(r, ap, cf, alpha):
     """Plain pass B: (r - alpha ap, (n, 2) block partials of
     [<r, M^-1 r>, <r, r>])."""
@@ -94,14 +126,14 @@ def pcg_pass_b_plain(r, ap, cf, alpha):
     return rn, torch.stack([block_partials(rz), block_partials(rr)], dim=1)
 
 
-def _check(name, planes, cf, scalars):
+def _check(name, planes, cf, scalars, min_rows=2):
     ref = planes[0]
     if ref.dim() != 3 or ref.shape[0] != 2:
         raise ValueError(f"{name}: state planes must be (2, h, w), got {tuple(ref.shape)}")
     if cf.dim() != 3 or cf.shape[0] not in (3, 7) or cf.shape[1:] != ref.shape[1:]:
         raise ValueError(f"{name}: coefficients must be (3|7, h, w), got {tuple(cf.shape)}")
-    if min(ref.shape[1:]) < 2:
-        raise ValueError(f"{name}: the grid needs at least 2 rows and 2 columns")
+    if ref.shape[1] < min_rows or ref.shape[2] < 2:
+        raise ValueError(f"{name}: the grid needs at least {min_rows} rows and 2 columns")
     for t in (*planes, cf, *scalars):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
@@ -141,7 +173,7 @@ def pcg_pass_a(x, r, p, cf, ab):
 
 def pcg_pass_b(r, ap, cf, alpha):
     """Pass B; returns (r_new, (n, 2) block partials of [<r, M^-1 r>, <r, r>])."""
-    _check("pcg_pass_b", (r, ap), cf, (alpha,))
+    _check("pcg_pass_b", (r, ap), cf, (alpha,), min_rows=1)   # no neighbours: any band
     if alpha.numel() != 1:
         raise ValueError("pcg_pass_b: alpha must be a one-element tensor")
     if r.device.type == "cpu":
@@ -161,7 +193,37 @@ def pcg_pass_b(r, ap, cf, alpha):
     return r_new, partials
 
 
-for _fn in (pcg_pass_a, pcg_pass_b):
+def pcg_pass_a_band(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
+    """Pass A on a band; returns (x_new, p_new, ap, block partials of
+    <p_new, ap> over the band).  See the module docstring."""
+    _check("pcg_pass_a_band", (x, r, p), cf, (ab, gr, gp, gd), min_rows=1)
+    _, hb, w = x.shape
+    if ab.numel() != 2:
+        raise ValueError("pcg_pass_a_band: ab must hold [alpha_prev, beta]")
+    for name, g in (("gr", gr), ("gp", gp), ("gd", gd)):
+        if g.shape != (2, 2, w):
+            raise ValueError(f"pcg_pass_a_band: {name} must be (2, 2, {w}), got {tuple(g.shape)}")
+    if not (row0 >= 0 and row0 + hb <= true_h and true_h >= 2):
+        raise ValueError(f"pcg_pass_a_band: rows [{row0}, {row0 + hb}) do not fit an image "
+                         f"of {true_h} rows")
+    if x.device.type == "cpu":
+        pcg_pass_a_band.plain_calls += 1
+        return pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0, true_h)
+    lib = load_kernels()
+    x_new, p_new, ap = (torch.empty_like(x) for _ in range(3))
+    partials = torch.empty(num_partials(hb, w), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.octane_pcg_pass_a_band(
+            x.data_ptr(), r.data_ptr(), p.data_ptr(), cf.data_ptr(), ab.data_ptr(),
+            gr.data_ptr(), gp.data_ptr(), gd.data_ptr(), x_new.data_ptr(), p_new.data_ptr(),
+            ap.data_ptr(), partials.data_ptr(), hb, w, row0, true_h, int(cf.shape[0] == 3),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    check_status(status, "octane_pcg_pass_a_band")
+    pcg_pass_a_band.launches += 1
+    return x_new, p_new, ap, partials
+
+
+for _fn in (pcg_pass_a, pcg_pass_a_band, pcg_pass_b):
     _fn.launches = 0
     _fn.plain_calls = 0
 

@@ -24,6 +24,17 @@ coefficients read about once); on a CPU tensor it runs ``sor_pass_plain``,
 2 * sweeps plain half-sweeps, which the kernel equals bit for bit.
 ``sor_pass.launches`` / ``.plain_calls`` count them.
 
+``sor_pass_band(x, cf, sweeps, omega, row0, true_h, r_begin, r_end, out)``
+is the band form for the mesh path (parallel.sor): x and cf are a slab of
+global rows [row0, row0 + hs) of a true_h-row image, the band is its rows
+[r_begin, r_end), and every slab edge that is not the image's carries at
+least 2 * sweeps ghost rows.  It returns the band's new rows (in ``out``,
+which may be a view with another plane stride) and the partials of the
+band's rows; the colour parity is global, so the band equals the
+whole-image pass's rows bit for bit.  On a CUDA tensor it launches
+``octane_sor_pass_band`` of ``csrc/sor.cu``, on a CPU tensor
+``sor_pass_band_plain``.
+
 ``sor_solve_cf`` is the driver (sor.py:482): passes of S = min(8, iters)
 red+black sweeps, the stopping test ||r||^2 <= tol read on the host once
 per pass (``sor_solve_cf.host_syncs`` counts the reads) and a remainder
@@ -70,9 +81,12 @@ def _system(cf):
     return StencilSystem(cf[0], cf[2], cf[1], *off, cf[3], cf[4])
 
 
-def sor_sweep_plain(x, cf, colour: int, omega: float = OMEGA, resid: bool = False):
+def sor_sweep_plain(x, cf, colour: int, omega: float = OMEGA, resid: bool = False,
+                    row0: int = 0, rows=None):
     """Plain half-sweep: the residual over the whole grid, the update masked
-    to the colour (flow.cg.sor_solve's colour sweep)."""
+    to the colour (flow.cg.sor_solve's colour sweep).  ``row0`` is the
+    global row of x's first row (the colour parity); ``rows`` = (a, b)
+    limits the residual partials to rows [a, b)."""
     from octane_tpu_torch.flow.cg import checkerboard
     from octane_tpu_torch.flow.stencil import apply_stencil
 
@@ -84,24 +98,41 @@ def sor_sweep_plain(x, cf, colour: int, omega: float = OMEGA, resid: bool = Fals
     ndu = (sysm.a4 * ru - sysm.a2 * rv) * rdet
     ndv = (sysm.a1 * rv - sysm.a2 * ru) * rdet
     mask = checkerboard(*x.shape[1:], x.device)
-    if colour:
+    if (colour + row0) % 2:
         mask = ~mask
     new = torch.stack([torch.where(mask, x[0] + omega * ndu, x[0]),
                        torch.where(mask, x[1] + omega * ndv, x[1])])
     if resid:
-        return new, block_partials(ru * ru + rv * rv)
+        a, b = (0, x.shape[1]) if rows is None else rows
+        return new, block_partials((ru * ru + rv * rv)[a:b])
     x.copy_(new)
     return x, None
 
 
-def sor_pass_plain(x, cf, sweeps: int, omega: float = OMEGA, out=None):
+def sor_pass_plain(x, cf, sweeps: int, omega: float = OMEGA, out=None, row0: int = 0,
+                   rows=None):
     """Plain pass: 2 * sweeps half-sweeps, red first, with the residual
-    partials of the incoming x from the first."""
-    new, part = sor_sweep_plain(x, cf, 0, omega, resid=True)
-    sor_sweep_plain(new, cf, 1, omega)
+    partials of the incoming x from the first (``row0``, ``rows``: see
+    sor_sweep_plain)."""
+    new, part = sor_sweep_plain(x, cf, 0, omega, resid=True, row0=row0, rows=rows)
+    sor_sweep_plain(new, cf, 1, omega, row0=row0)
     for _ in range(sweeps - 1):
-        sor_sweep_plain(new, cf, 0, omega)
-        sor_sweep_plain(new, cf, 1, omega)
+        sor_sweep_plain(new, cf, 0, omega, row0=row0)
+        sor_sweep_plain(new, cf, 1, omega, row0=row0)
+    if out is not None:
+        new = out.copy_(new)
+    return new, part
+
+
+def sor_pass_band_plain(x, cf, sweeps: int, omega: float, row0: int, true_h: int,
+                        r_begin: int, r_end: int, out=None):
+    """Plain band form: the plain pass on the whole slab, cropped to the
+    band (``sor_pass_band``'s arguments; true_h is not needed).  A slab
+    edge that is a cut takes the mirror-at-1 neighbours too, but its error
+    moves one row per half-sweep, so the 2 * sweeps ghost rows keep it out
+    of the band."""
+    new, part = sor_pass_plain(x, cf, sweeps, omega, row0=row0, rows=(r_begin, r_end))
+    new = new[:, r_begin:r_end]
     if out is not None:
         new = out.copy_(new)
     return new, part
@@ -179,6 +210,48 @@ def _launch_pass(x, cf, sweeps, omega, out=None, strip=0, seg=0):
             torch.cuda.current_stream(x.device).cuda_stream)
     check_status(status, "octane_sor_pass")
     return x_out, partials
+
+
+def sor_pass_band(x, cf, sweeps: int, omega: float, row0: int, true_h: int, r_begin: int,
+                  r_end: int, out=None):
+    """Band form of ``sor_pass``; returns (the band's new rows, the band's
+    residual partials).  See the module docstring."""
+    _check_cf("sor_pass_band", cf)
+    _check_iterate("sor_pass_band", x, cf)
+    if not 1 <= sweeps <= MAX_SWEEPS:
+        raise ValueError(f"sor_pass_band: sweeps must be in 1 .. {MAX_SWEEPS}, got {sweeps}")
+    _, hs, w = cf.shape
+    ghost = 2 * sweeps
+    if not (0 <= r_begin < r_end <= hs and row0 >= 0 and row0 + hs <= true_h
+            and (row0 == 0 or r_begin >= ghost)
+            and (row0 + hs == true_h or hs - r_end >= ghost)):
+        raise ValueError(f"sor_pass_band: band rows [{r_begin}, {r_end}) of a slab of {hs} "
+                         f"rows at global row {row0} of {true_h} need {ghost} ghost rows "
+                         "beside each cut")
+    hb = r_end - r_begin
+    if out is None:
+        out = torch.empty((2, hb, w), dtype=torch.float32, device=x.device)
+    elif (out.shape != (2, hb, w) or out.dtype != torch.float32 or out.device != x.device
+          or out.stride()[1:] != (w, 1)):
+        raise ValueError(f"sor_pass_band: out must be (2, {hb}, {w}) float32 rows of stride "
+                         f"{w} on the device of x")
+    if x.device.type == "cpu":
+        sor_pass_band.plain_calls += 1
+        return sor_pass_band_plain(x, cf, sweeps, omega, row0, true_h, r_begin, r_end, out)
+    lib = load_kernels()
+    partials = torch.empty(num_partials(hb, w), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.octane_sor_pass_band(
+            x.data_ptr(), out.data_ptr(), cf.data_ptr(), partials.data_ptr(), hs, w, row0,
+            true_h, r_begin, r_end, out.stride(0), int(cf.shape[0] == 6), sweeps, 0, 0, omega,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    check_status(status, "octane_sor_pass_band")
+    sor_pass_band.launches += 1
+    return out, partials
+
+
+sor_pass_band.launches = 0
+sor_pass_band.plain_calls = 0
 
 
 def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_pass):

@@ -11,6 +11,13 @@ each tile's window statistics (``warp_block_stats`` is their plain version).
 
 ``warp.launches`` counts kernel launches, ``warp.plain_calls`` the calls
 served by the plain version.
+
+``warp_band(slab, u, v, s0, r0, true_h)`` is the band form for the mesh
+path (parallel.sharded): output rows [r0, r0 + hb) of a true_h-row image,
+sampled from a slab that holds global rows [s0, s0 + hs) of the stack; its
+samples and flags equal the whole-image warp's rows bit for bit.  On a
+CUDA tensor it launches ``warp_band`` of ``csrc/warp.cu``, on a CPU tensor
+``warp_band_plain``; ``warp_band.launches`` / ``.plain_calls`` count them.
 """
 
 from __future__ import annotations
@@ -28,16 +35,19 @@ def pick_bh(h: int) -> int:
     return 64 if h >= 64 else 32
 
 
-def bilinear_coefs(u: torch.Tensor, v: torch.Tensor):
+def bilinear_coefs(u: torch.Tensor, v: torch.Tensor, row0: int = 0, true_h=None):
     """Cell origins, bilinear weights and clamp flags of the warp positions.
 
     Returns (iv1, jv1, p1, p2, p3, p4, bc_x, bc_y) with int64 cell origins
-    (octane_tpu.flow.stencil._bilinear_coefs).
+    (octane_tpu.flow.stencil._bilinear_coefs).  ``u``/``v`` are rows
+    [row0, row0 + hb) of an image of ``true_h`` rows (default: the whole
+    image); positions and clamps are global.
     """
-    h, w = u.shape
+    hb, w = u.shape
+    h = hb if true_h is None else true_h
     f32 = torch.float32
     ii = torch.arange(w, dtype=f32, device=u.device)[None, :]
-    jj = torch.arange(h, dtype=f32, device=u.device)[:, None]
+    jj = torch.arange(row0, row0 + hb, dtype=f32, device=u.device)[:, None]
     px = ii + u
     py = jj + v
     bc_x = (px < 0.0) | (px >= w)
@@ -64,6 +74,24 @@ def warp_bilinear_dense(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
     def take(off):
         return flat.index_select(1, idx + off).reshape(k, h, w)
+
+    f11, f21, f12, f22 = take(0), take(1), take(w), take(w + 1)
+    samples = p3 * (p1 * f11 + p2 * f21) + p4 * (p1 * f12 + p2 * f22)
+    return samples, bc_x, bc_y
+
+
+def warp_band_plain(slab: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    s0: int, r0: int, true_h: int):
+    """Plain band form: ``warp_bilinear_dense``'s gathers at global
+    positions, read from the slab of rows [s0, s0 + hs)."""
+    k, hs, w = slab.shape
+    hb = u.shape[0]
+    iv1, jv1, p1, p2, p3, p4, bc_x, bc_y = bilinear_coefs(u, v, r0, true_h)
+    flat = slab.reshape(k, -1)
+    idx = ((jv1 - s0).clamp_(0, hs - 2) * w + iv1).reshape(-1)
+
+    def take(off):
+        return flat.index_select(1, idx + off).reshape(k, hb, w)
 
     f11, f21, f12, f22 = take(0), take(1), take(w), take(w + 1)
     samples = p3 * (p1 * f11 + p2 * f21) + p4 * (p1 * f12 + p2 * f22)
@@ -158,3 +186,43 @@ def warp(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 warp.launches = 0
 warp.plain_calls = 0
+
+
+def warp_band(slab: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              s0: int, r0: int, true_h: int):
+    """(samples, bc_x, bc_y) of band rows [r0, r0 + hb) from the slab of
+    global rows [s0, s0 + hs); see the module docstring."""
+    if slab.dim() != 3 or u.dim() != 2 or u.shape != v.shape or u.shape[1] != slab.shape[2]:
+        raise ValueError(f"warp_band: shapes {tuple(slab.shape)}, {tuple(u.shape)}, "
+                         f"{tuple(v.shape)} are not (K, hs, W), (hb, W), (hb, W)")
+    k, hs, w = slab.shape
+    hb = u.shape[0]
+    for t in (slab, u, v):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != slab.device:
+            raise ValueError("warp_band: inputs must be contiguous float32 on one device")
+    if not (0 <= s0 and s0 + hs <= true_h and s0 <= r0 and r0 + hb <= true_h and hb >= 1
+            and hs >= 2 and w >= 2):
+        raise ValueError(f"warp_band: rows [{r0}, {r0 + hb}) and slab [{s0}, {s0 + hs}) "
+                         f"do not fit an image of {true_h} rows")
+    if slab.device.type == "cpu":
+        warp_band.plain_calls += 1
+        return warp_band_plain(slab, u, v, s0, r0, true_h)
+    if slab.device.type != "cuda":
+        raise ValueError(f"warp_band: unsupported device {slab.device}")
+    lib = load_kernels()
+    dev = slab.device
+    samples = torch.empty((k, hb, w), dtype=torch.float32, device=dev)
+    bc_x = torch.empty((hb, w), dtype=torch.bool, device=dev)
+    bc_y = torch.empty((hb, w), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.octane_warp_band(
+            slab.data_ptr(), u.data_ptr(), v.data_ptr(), samples.data_ptr(),
+            bc_x.data_ptr(), bc_y.data_ptr(), k, hb, w, hs, s0, r0, true_h, pick_bh(hb),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_status(status, "octane_warp_band")
+    warp_band.launches += 1
+    return samples, bc_x, bc_y
+
+
+warp_band.launches = 0
+warp_band.plain_calls = 0

@@ -12,7 +12,11 @@ flow.cg.sor_solve, and the SRSAL bilateral smoother, whose weights are one
 base-2 exponent on the card's approximate ex2, to rel 1e-5 with its plain
 version (docs/PARITY.md).  Patch-match and the interpolated frame, plain
 PyTorch without a kernel, equal the CPU's results on the card (the image
-within 1e-4).
+within 1e-4).  The band forms of the mesh path (warp, SOR pass, PCG pass A,
+bilateral) equal their plain versions and the whole-image kernels' rows bit
+for bit (the bilateral: rel 1e-5 to its plain version), and the banded
+pair on a mesh of cuda:0 bands agrees with the single-device pair within
+1e-3 px.
 """
 
 import numpy as np
@@ -278,3 +282,96 @@ def test_interpolate_frame_card_equals_cpu(dev):
         pimg, pocc = interpolate_frame(*cpu, frac)
         assert torch.equal(occ.cpu(), pocc)
         assert float((img.cpu() - pimg).abs().max()) <= 1e-4
+
+
+BAND_SPLITS = [(0, 40, 41, 97, 130), (0, 65, 130)]
+
+
+@pytest.mark.parametrize("splits", BAND_SPLITS)
+def test_warp_band_kernel_bit_exact(dev, splits):
+    h, w = 130, 200
+    rng = np.random.default_rng(31)
+    fields = torch.from_numpy(rng.normal(0, 1, (6, h, w)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(-6, 6, (h, w)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.uniform(-6, 6, (h, w)).astype(np.float32)).to(dev)
+    whole = warp.warp(fields, u, v)
+    for r0, r1 in zip(splits[:-1], splits[1:]):
+        s0, s1 = max(0, r0 - 8), min(h, r1 + 8)
+        args = (fields[:, s0:s1].contiguous(), u[r0:r1], v[r0:r1], s0, r0, h)
+        k, q = warp.warp_band(*args), warp.warp_band_plain(*args)
+        for a, b, c in zip(k, q, whole):
+            assert torch.equal(a, b) and torch.equal(a, c[..., r0:r1, :])
+
+
+@pytest.mark.parametrize("sweeps", [8, 3])
+@pytest.mark.parametrize("quad", [True, False])
+@pytest.mark.parametrize("splits", BAND_SPLITS)
+def test_sor_pass_band_kernel_bit_exact(dev, splits, quad, sweeps):
+    h, w = 130, 200
+    rng = np.random.default_rng(32)
+    cf = sor.build_cf(_sor_system(h, w, quad, dev))
+    x = torch.from_numpy(rng.normal(0, 3, (2, h, w)).astype(np.float32)).to(dev)
+    whole, _ = sor.sor_pass(x, cf, sweeps)
+    for r0, r1 in zip(splits[:-1], splits[1:]):
+        t0, t1 = max(0, r0 - 2 * sweeps), min(h, r1 + 2 * sweeps)
+        args = (x[:, t0:t1].contiguous(), cf[:, t0:t1].contiguous(), sweeps, 1.9, t0, h,
+                r0 - t0, r1 - t0)
+        (kx, kp), (px, pp) = sor.sor_pass_band(*args), sor.sor_pass_band_plain(*args)
+        assert torch.equal(kx, px) and torch.equal(kp, pp) and torch.equal(kx, whole[:, r0:r1])
+
+
+@pytest.mark.parametrize("quad", [True, False])
+@pytest.mark.parametrize("splits", BAND_SPLITS)
+def test_pcg_pass_a_band_kernel_bit_exact(dev, splits, quad):
+    h, w = 130, 200
+    rng = np.random.default_rng(33)
+    s = _sor_system(h, w, quad, dev)
+    cf = torch.stack([s.a1, s.a4, s.a2] + ([] if quad else [s.a5, s.a6, s.a7, s.a8]))
+    x, r, p = (torch.from_numpy(rng.normal(0, 10, (2, h, w)).astype(np.float32)).to(dev)
+               for _ in range(3))
+    ab = torch.tensor([0.37, 0.81], device=dev)
+    whole = pcg.pcg_pass_a(x, r, p, cf, ab)
+    for r0, r1 in zip(splits[:-1], splits[1:]):
+        def ghost(t):
+            return torch.stack([t[:, max(r0 - 1, 0)], t[:, min(r1, h - 1)]], dim=1).contiguous()
+        args = (*(t[:, r0:r1].contiguous() for t in (x, r, p, cf)), ab, ghost(r), ghost(p),
+                ghost(cf[0:2]), r0, h)
+        k, q = pcg.pcg_pass_a_band(*args), pcg.pcg_pass_a_band_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(k, q))
+        assert all(torch.equal(a, c[:, r0:r1]) for a, c in zip(k[:3], whole[:3]))
+
+
+@pytest.mark.parametrize("splits", BAND_SPLITS)
+def test_bilateral_band_kernel_within_budget(dev, splits):
+    h, w = 130, 90
+    rng = np.random.default_rng(34)
+    u, v = (torch.from_numpy(rng.normal(0, 3, (h, w)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    cth = torch.from_numpy(cth_steps(h, w)).to(dev)
+    gk = gaussian_kernel_1d(9.0, 18)
+    whole = bilateral.bilateral(u, v, cth, gk, -1.0 / 800.0)
+    for r0, r1 in zip(splits[:-1], splits[1:]):
+        s0, s1 = bilateral.band_slab(r0, r1, h, 18)
+        args = (u[s0:s1], v[s0:s1], cth[s0:s1], gk, -1.0 / 800.0, s0, r0, r1 - r0, h)
+        k, q = bilateral.bilateral_band(*args), bilateral.bilateral_band_plain(*args)
+        assert max(_rel(k[i], q[i]) for i in (0, 1)) <= 1e-5
+        assert torch.equal(k, whole[:, r0:r1])
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+def test_banded_flow_on_the_card(dev, solver):
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow.variational import variational_flow
+    from octane_tpu_torch.parallel import make_mesh, sharded_variational_flow
+    from torch_fixtures import bench_pair
+
+    im1, im2 = (torch.from_numpy(a).to(dev) for a in bench_pair(256, 256))
+    z = torch.zeros((256, 256), device=dev)
+    cfg = OFConfig(kiters=3, solver=solver)
+    u1, v1 = variational_flow(im1, im2, z, z, cfg)
+    ops.reset_counters()
+    u2, v2 = sharded_variational_flow(im1, im2, z, z, cfg, make_mesh((1, 4), [dev] * 4))
+    c = ops.counters()
+    assert all(c[k][0] > 0 and c[k][1] == 0 for k in ops.PATHS[f"mesh_{solver}"])
+    assert max(float((u1 - u2).abs().max()), float((v1 - v2).abs().max())) <= 1e-3

@@ -40,7 +40,9 @@ def test_port_imports_without_jax():
         "assert {'octane_tpu_torch.post.srsal', 'octane_tpu_torch.ops.bilateral',\n"
         "        'octane_tpu_torch.flow.patch_match', 'octane_tpu_torch.post.temporal',\n"
         "        'octane_tpu_torch.nav.polar', 'octane_tpu_torch.nav.mercator',\n"
-        "        'octane_tpu_torch.sequence'} <= set(names)\n"
+        "        'octane_tpu_torch.sequence', 'octane_tpu_torch.parallel',\n"
+        "        'octane_tpu_torch.parallel.sharded',\n"
+        "        'octane_tpu_torch.parallel.post'} <= set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'octane_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

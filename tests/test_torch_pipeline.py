@@ -238,11 +238,12 @@ def test_writer_matches_jax(jax_pair128, tmp_path, pixuv):
 
 
 def test_unported_options_raise(pair512, tmp_path):
-    """The multi-device flags are the only ones not ported."""
+    """The multi-process flag is the only one not ported: ``-mesh`` parses
+    into the mesh path's config (tests/test_torch_mesh_cli.py runs it)."""
     f1, f2 = pair512
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
-                  "-mesh", "2x2"])
+    cfg = cli.args_to_config(cli.build_parser().parse_args(
+        ["-i1", f1, "-i2", f2, "-o", str(tmp_path), "-mesh", "2x2"]))
+    assert cfg.mesh_shape == (2, 2)
     with pytest.raises(NotImplementedError):
         cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
                   "-nprocs", "2", "-procid", "0"])
