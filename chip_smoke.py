@@ -122,12 +122,33 @@ Phases, one line each (any failure exits non-zero):
      sharded_srsal of the banded SOR flow with the 5424^2 CTH within rel
      1e-5 of srsal_smooth; (d) where the machine has several cards, the
      pair with one band per card (else it says it did not run).
+ 17. dist: the multi-process path (parallel.distributed, -nprocs).  (a) 2
+     processes spawned on cuda:0 in a gloo group (their rows staged through
+     pinned host memory), and where the machine has several cards one
+     process per card over NCCL (else it says it did not run).  Each builds
+     its row block of the 5424^2 bench pair through
+     scene_from_goes_arrays(row_range=) (equal to the whole arrays' rows),
+     then per relaxer runs distributed_variational_flow, a warm-up and one
+     pair timed with CUDA events between barriers: its rows torch.equal to
+     the single-device flow and to the single-process banded flow on a
+     (1, 2) mesh, each band kernel of the relaxer launched and no plain
+     version called, ms, peak memory, host reads, the messages and bytes
+     it sent and its collectives and the bytes they gathered from it; pix2uv_bands equal to pix2uv's rows,
+     srsal_bands within rel 1e-5 of srsal_smooth's rows, and on the SOR
+     flow one interpolate_bands frame equal to interpolate_frame's rows.
+     A process that fails or hangs fails the phase.  (b) At 5424^2 on a
+     (1, 4) mesh of cuda:0, patch_match_flow_sharded equal to
+     patch_match_flow and sharded_interpolate_frame equal to
+     interpolate_frame.  (c) Where h5py is installed, -nprocs 2 through
+     the CLI on the 512^2 fixture equal to the single-process -mesh
+     product.
 The line before the last is the kernels' JSON record (launches on the
 5424^2 pairs and the SRSAL product path, launches on the 5424^2 hybrid
 pair and on the three-channel 5424^2 pair, max |d|, ms, plain ms, bound ms
 and what bounds it, library ms; the warp and the assembly also at C = 3;
 the band forms with their launches on the banded pairs and banded SRSAL,
-the assembly and pass B also ``mesh_launches``); the last line is
+the assembly and pass B also ``mesh_launches``, and with the dist phase
+``dist_launches``, per process); the last line is
 {"ok": true, "device": {...}}.  ``--only`` runs a subset,
 e.g. ``--only build,warp,pcg,assemble,sor`` or ``--only
 env,build,multichannel,flatgrid,sequence``.
@@ -150,7 +171,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
 PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
-          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh")
+          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh", "dist")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
 MESO = 2000             # a mesoscale-sector shape for the first-guess gather path
 FLAT = 2048             # the flat-grid phase's correctness shape
@@ -1809,6 +1830,294 @@ def phase_mesh(dev, report):
     say("mesh", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+DIST_PROCS = 2                      # the dist phase's processes on one card
+DIST_TIMEOUT = 480                  # seconds for one run of them, both relaxers
+
+
+def _dist_scenes(rows, dev, fx):
+    """bench.py config 3's 5424^2 pair as band-13 counts through
+    scene_from_goes_arrays (the whole arrays as the file holds them; only
+    ``rows`` read when given)."""
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.io.readers import scene_from_goes_arrays
+
+    h = w = FULLDISK
+    _, x, y, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
+    g = bench_images(h, w, dev)
+    scenes = []
+    for i in range(2):
+        counts = counts_for(g[i][0], 13, nav.rad_scale[0], nav.rad_offset[0])
+        scenes.append(scene_from_goes_arrays(counts, x, y, dataclasses.replace(nav), OFConfig(),
+                                             dev, donav=False, t=fx.FIXTURE_T0 + 60.0 * i,
+                                             row_range=rows))
+    return scenes
+
+
+def dist_worker(rank, nprocs, url, backend, out):
+    """Process ``rank`` of ``nprocs`` of the dist phase (spawned): its row block of the
+    full-disk pair, per relaxer the distributed pair (a warm-up, then one
+    timed between barriers) against the single-device and single-process
+    banded flows it computes itself, then pix2uv, SRSAL and one
+    interpolated frame on its band; its report goes to ``out``.rank.json."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow.variational import variational_flow
+    from octane_tpu_torch.nav.winds import pix2uv
+    from octane_tpu_torch.parallel import distributed as D
+    from octane_tpu_torch.parallel import make_mesh, sharded, sharded_variational_flow
+    from octane_tpu_torch.parallel.post import interpolate_bands, pix2uv_bands, srsal_bands
+    from octane_tpu_torch.post.srsal import srsal_smooth
+    from octane_tpu_torch.post.temporal import interpolate_frame
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fx = load_tests_module("torch_fixtures")
+    device = "cuda" if backend == "nccl" else "cuda:0"
+    D.initialize_multihost(url, nprocs, rank, backend, device)
+    rep = {"rank": rank}
+    try:
+        h = w = FULLDISK
+        mesh = D.distributed_mesh(OFConfig(), device)      # one band per process
+        dev = D.own_device(mesh)
+        ex = D.distributed_exchange(mesh)
+        r0, r1 = D.host_row_block(h, mesh)
+        rep.update(device=str(dev), rows=[r0, r1], staged=ex.staged)
+        t0 = time.perf_counter()
+        b1, b2 = _dist_scenes((r0, r1), dev, fx)
+        torch.cuda.synchronize()
+        rep["ingest_s"] = time.perf_counter() - t0
+        w1, w2 = _dist_scenes(None, dev, fx)
+        rep["ingest_equal"] = (torch.equal(b1.data, w1.data[:, r0:r1])
+                               and torch.equal(b2.data, w2.data[:, r0:r1]))
+        z = torch.zeros((h, w), device=dev)
+        cth = torch.from_numpy(fx.cth_steps(h, w)).to(dev)
+        banded_mesh = make_mesh((1, nprocs), [dev] * nprocs)
+        for solver in ("sor", "pcg"):
+            cfg = OFConfig(kiters=4, solver=solver)
+            su, sv = variational_flow(w1.data, w2.data, z, z, cfg)
+            bu, bv = sharded_variational_flow(w1.data, w2.data, z, z, cfg, banded_mesh)
+            equal = []
+            for timed in (False, True):
+                ex.barrier()
+                torch.cuda.synchronize()
+                ops.reset_counters()
+                sharded.guard_reads.reads = 0
+                ex.sent.update(dict.fromkeys(ex.sent, 0))
+                torch.cuda.reset_peak_memory_stats(dev)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                u, v = D.distributed_variational_flow(b1.data, b2.data, (h, w), cfg, mesh,
+                                                      exchange=ex)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ex.barrier()
+                equal.append([torch.equal(u, su[r0:r1]) and torch.equal(v, sv[r0:r1]),
+                              torch.equal(u, bu[r0:r1]) and torch.equal(v, bv[r0:r1])])
+            c = ops.counters()
+            rep[solver] = {
+                "ms": ev[0].elapsed_time(ev[1]),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                "equal_single": all(e[0] for e in equal),
+                "equal_banded": all(e[1] for e in equal),
+                "launches": {k: c[k][0] for k in ops.WRAPPERS},
+                "plain": sum(c[k][1] for k in ops.WRAPPERS),
+                "host_reads": c[f"{solver}_host_syncs"] + sharded.guard_reads.reads,
+                "sent": dict(ex.sent),
+                "median": [float(u.median()), float(v.median())]}
+            # navigation, SRSAL and one interpolated frame on the band
+            _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
+            nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
+            winds = pix2uv_bands([(r0, u, v)], nav, 60.0)[0][1]
+            rep[solver]["pix2uv_equal"] = all(
+                torch.equal(a, b[r0:r1]) for a, b in zip(winds, pix2uv(bu, bv, nav, 60.0)))
+            ops.reset_counters()
+            smooth = D.local_rows(srsal_bands(D.local_parts(torch.stack([u, v, cth[r0:r1]]), r0,
+                                                            mesh, h), mesh, exchange=ex))
+            c = ops.counters()
+            want = torch.stack(srsal_smooth(bu, bv, cth))[:, r0:r1]
+            rep[solver]["srsal_rel"] = rel(smooth, want)
+            rep[solver]["srsal_equal"] = torch.equal(smooth, want)
+            rep[solver]["srsal_launches"] = (c["bilateral_band"][0],
+                                             sum(c[k][1] for k in ops.WRAPPERS))
+            if solver == "sor":
+                peaks = [torch.maximum(u.abs().amax(), v.abs().amax()) if i == rank else None
+                         for i in range(mesh.n)]
+                max_disp = max(8, int(-(-max(ex.band_values(peaks)) // 8) * 8))
+                field = D.local_parts(torch.cat([u[None], v[None], b1.data, b2.data]), r0,
+                                      mesh, h)
+                ex.barrier()
+                t0 = time.perf_counter()
+                (_, (img, occ)), = interpolate_bands(field, mesh, 1.0 / 3.0, max_disp, ex)
+                torch.cuda.synchronize()
+                rep["interp_ms"] = (time.perf_counter() - t0) * 1e3
+                wi, wo = interpolate_frame(bu, bv, w1.data, w2.data, 1.0 / 3.0)
+                rep["interp_equal"] = (torch.equal(img, wi[:, r0:r1])
+                                       and torch.equal(occ, wo[r0:r1]))
+                rep["max_disp"] = max_disp
+            del su, sv, bu, bv
+            torch.cuda.empty_cache()
+    finally:
+        with open(f"{out}.{rank}.json", "w") as f:
+            json.dump(rep, f)
+        D.shutdown_multihost()
+
+
+def _spawn(target, argss, timeout):
+    """tests/torch_dist_worker.spawn: the processes joined within
+    ``timeout`` s; one that fails or hangs (killed) fails the phase."""
+    load_tests_module("torch_dist_worker").spawn(target, argss, timeout)
+
+
+def phase_dist(dev, report, have_h5py):
+    """The multi-process path at full disk: 2 processes on cuda:0 over gloo
+    (and one per card over NCCL where there are two), then the banded
+    patch-match and interpolation at 5424^2 against the whole field, then
+    the CLI's -nprocs 2 where h5py exists."""
+    import shutil
+    import tempfile
+
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.flow.patch_match import patch_match_flow, patch_match_flow_sharded
+    from octane_tpu_torch.parallel import make_mesh
+    from octane_tpu_torch.parallel.post import sharded_interpolate_frame
+    from octane_tpu_torch.post.temporal import interpolate_frame
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="octane_dist_")
+    try:
+        cards = torch.cuda.device_count()
+        runs = [("gloo", DIST_PROCS)]
+        if cards >= 2:
+            runs.append(("nccl", cards))
+        else:
+            say("dist", "one card: the run with one process per card over NCCL is not done")
+        torch.cuda.empty_cache()
+        for backend, nprocs in runs:
+            out = os.path.join(tmp, backend)
+            t0 = time.perf_counter()
+            _spawn(dist_worker, [(r, nprocs, f"file://{out}.store", backend, out)
+                                 for r in range(nprocs)], DIST_TIMEOUT)
+            reps = []
+            for r in range(nprocs):
+                with open(f"{out}.{r}.json") as f:
+                    reps.append(json.load(f))
+            say("dist", f"{backend}: {nprocs} processes ran in "
+                        f"{time.perf_counter() - t0:.1f} s")
+            for rep in reps:
+                where = (f"{backend} rank {rep['rank']} on {rep['device']} rows "
+                         f"{rep['rows'][0]}:{rep['rows'][1]}")
+                say("dist", f"{where}: row block through scene_from_goes_arrays(row_range=) in "
+                            f"{rep['ingest_s']:.2f} s, equal to the whole arrays' rows "
+                            f"{rep['ingest_equal']}; rows staged through host memory "
+                            f"{rep['staged']}")
+                ok = rep["ingest_equal"]
+                for solver in ("sor", "pcg"):
+                    s = rep[solver]
+                    path = ops.PATHS[f"mesh_{solver}"]
+                    launched = all(s["launches"][k] > 0 for k in path)
+                    say("dist", f"{where} {solver}: {s['ms']:.1f} ms per pair (CUDA events "
+                                f"between barriers, after a warm-up), peak {s['peak_gib']:.2f} "
+                                f"GiB; rows torch.equal to the single-device flow "
+                                f"{s['equal_single']} and to the single-process banded flow "
+                                f"{s['equal_banded']}; launches " + json.dumps(
+                                    {k: s["launches"][k] for k in path})
+                                + f", plain calls {s['plain']}; host reads {s['host_reads']}; "
+                                f"sent {s['sent']['messages']} messages of {s['sent']['bytes']} "
+                                f"bytes, {s['sent']['collectives']} collectives gathering "
+                                f"{s['sent']['gathered']} bytes; pix2uv equal "
+                                f"{s['pix2uv_equal']}; SRSAL rel {s['srsal_rel']:.2e} (equal "
+                                f"{s['srsal_equal']}, bilateral_band launches "
+                                f"{s['srsal_launches'][0]}, plain {s['srsal_launches'][1]}); "
+                                f"median ({s['median'][0]:.4f}, {s['median'][1]:.4f})")
+                    ok = ok and (s["equal_single"] and s["equal_banded"] and launched
+                                 and s["plain"] == 0 and s["pix2uv_equal"]
+                                 and s["srsal_rel"] <= BILATERAL_REL
+                                 and s["srsal_launches"][0] > 0 and s["srsal_launches"][1] == 0)
+                say("dist", f"{where}: one interpolated frame on the band (max_disp "
+                            f"{rep['max_disp']}) in {rep['interp_ms']:.1f} ms, equal to "
+                            f"interpolate_frame's rows {rep['interp_equal']}")
+                if not (ok and rep["interp_equal"]):
+                    raise AssertionError(f"dist: {where} is off")
+            report.setdefault("_dist", {})[backend] = reps
+
+        # the banded patch-match and interpolation at full disk on 4 bands
+        h = w = FULLDISK
+        mesh = make_mesh((1, 4), [dev] * 4)
+        g1, g2 = bench_images(h, w, dev)
+        t0 = time.perf_counter()
+        want = patch_match_flow(g1[0], g2[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = patch_match_flow_sharded(g1[0], g2[0], mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pm_equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        say("dist", f"patch_match_flow_sharded {h}x{w} on 4 bands of cuda:0 "
+                    f"({t2 - t1:.2f} s) equal to patch_match_flow ({t1 - t0:.2f} s) {pm_equal}")
+        del got, want
+        u, v = noisy_flow(h, w, dev, 71)
+        max_disp = max(8, int(-(-float(max(u.abs().max(), v.abs().max())) // 8) * 8))
+        want = interpolate_frame(u, v, g1, g2, 1.0 / 3.0)
+        got = sharded_interpolate_frame(u, v, g1, g2, 1.0 / 3.0, mesh, max_disp=max_disp)
+        interp_equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        say("dist", f"sharded_interpolate_frame {h}x{w} on 4 bands of cuda:0 (max_disp "
+                    f"{max_disp}) equal to interpolate_frame {interp_equal}")
+        if not (pm_equal and interp_equal):
+            raise AssertionError("dist: the banded patch-match or frame differs")
+        del got, want, u, v, g1, g2
+
+        if have_h5py:
+            dist_cli(tmp)
+        else:
+            say("dist", "h5py is not installed: the CLI's -nprocs 2 on the 512^2 fixture is "
+                        "not run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("dist", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def dist_launches(report, name, path):
+    """The launches of kernel ``name`` in each process of the gloo run of
+    the dist phase: on its distributed pair of relaxer ``path``, or, for
+    the bilateral, on its banded SRSAL of the SOR pair."""
+    reps = report["_dist"]["gloo"]
+    if path == "srsal":
+        return [rep["sor"]["srsal_launches"][0] for rep in reps]
+    return [rep[path]["launches"][name] for rep in reps]
+
+
+def dist_cli_worker(argv):
+    from octane_tpu_torch import cli
+
+    if cli.main(argv):
+        raise SystemExit(1)
+
+
+def dist_cli(tmp):
+    """-nprocs 2 through the CLI on the 512^2 product fixture files, equal to
+    the single-process -mesh 1x2 product."""
+    import h5py
+
+    synth = load_tests_module("synth")
+    fx = load_tests_module("torch_fixtures")
+    f1 = synth.make_goes_file(os.path.join(tmp, "g1.nc"), fx.fixture_counts(0, 0), band=13)
+    f2 = synth.make_goes_file(os.path.join(tmp, "g2.nc"), fx.fixture_counts(3.0, -1.5),
+                              band=13, t=fx.FIXTURE_T0 + 60.0)
+    argv = ["-i1", f1, "-i2", f2, "-mesh", "2x1", "-solver", "sor", "-pd", "--device", "cuda:0",
+            "--dist-backend", "gloo"]
+    multi, single = os.path.join(tmp, "multi"), os.path.join(tmp, "single")
+    _spawn(dist_cli_worker, [(argv + ["-o", multi, "-nprocs", "2", "-procid", str(r),
+                                      "-coordinator", f"file://{tmp}/cli.store"],)
+                             for r in range(2)], 300)
+    _spawn(dist_cli_worker, [(argv + ["-o", single],)], 300)
+    with h5py.File(os.path.join(multi, "outfile.nc")) as a, \
+            h5py.File(os.path.join(single, "outfile.nc")) as b:
+        same = sorted(a) == sorted(b) and all(np.array_equal(a[k][()], b[k][()]) for k in b)
+    say("dist", f"-nprocs 2 through the CLI on the 512^2 fixture: product equal to the "
+                f"single-process -mesh 2x1 product {same}")
+    if not same:
+        raise AssertionError("dist: the -nprocs product differs")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -1850,6 +2159,8 @@ def main(argv=None):
         phase_sequence(dev, have["h5py"])
     if "mesh" in only:
         phase_mesh(dev, report)
+    if "dist" in only:
+        phase_dist(dev, report, have["h5py"])
 
     if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk", "hybrid", "multichannel"} <= only:
         from octane_tpu_torch import ops
@@ -1884,18 +2195,21 @@ def main(argv=None):
                 # unchanged kernels that the banded pair launches on each band
                 solver = "sor" if wrapper == "assemble_cf" else "pcg"
                 entry["mesh_launches"] = report["_mesh"]["launches"][solver][wrapper][0]
+                if "_dist" in report:
+                    entry["dist_launches"] = dist_launches(report, wrapper, solver)
             entries.append(entry)
         if "_mesh" in report:
             mesh = report["_mesh"]
             for name, src, replaces, path in MESH_KERNELS:
                 ms, plain_ms = mesh["times"][name]
                 b_ms, b_by = mesh["bounds"][name]
-                entries.append({"name": name, "route": "cuda", "source": src,
-                                "replaces": replaces,
-                                "launches": mesh["launches"][path][name][0],
-                                "max_abs_err": mesh["errs"][name], "ms": ms,
-                                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                "library_ms": None})
+                entry = {"name": name, "route": "cuda", "source": src,
+                         "replaces": replaces, "launches": mesh["launches"][path][name][0],
+                         "max_abs_err": mesh["errs"][name], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                if "_dist" in report:
+                    entry["dist_launches"] = dist_launches(report, name, path)
+                entries.append(entry)
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

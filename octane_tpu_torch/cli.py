@@ -6,14 +6,19 @@ Usage example:
 
 Every flag of the single-device pipeline is honoured: -Polar and -Merc,
 channels 2 and 3 (-ic21/-ic22, -ic31/-ic32), -sosm, -hybrid and -interp
-with -interploc included.  ``-mesh RxC`` runs the flow, pix2uv and SRSAL
-on R*C row bands (octane_tpu_torch.parallel), band i on cuda:i, or all on
-the CPU with ``--device cpu``; with fewer cards than bands it warns and
-runs on one device, as octane_tpu does.  The multi-process flags
-(-nprocs, -procid, -coordinator) are accepted and -nprocs raises
-NotImplementedError.  The CLI has no
-sequence mode, as octane_tpu's has none: ``sequence.run_sequence`` is the
-API.
+with -interploc included.  ``-mesh RxC`` runs the flow, patch-match,
+pix2uv, SRSAL and the interpolated frames on R*C row bands
+(octane_tpu_torch.parallel), band i on cuda:i, or all on the CPU with
+``--device cpu``; with fewer cards than bands it warns and runs on one
+device, as octane_tpu does.  ``-nprocs N -procid I -coordinator
+host:port`` runs process I of N (``parallel.distributed``): start one per
+card (``--device cuda``: process I on cuda:I mod the visible cards) or per
+CPU worker (``--device cpu``), each with the same flags and a shared
+output directory; ``--dist-backend`` picks nccl or gloo (default: nccl on
+the card, gloo on the CPU).  ``-nprocs 1`` runs the same path in one
+process.  The CLI has no sequence mode, as octane_tpu's has none:
+``sequence.run_sequence`` and ``parallel.distributed.run_sequence_distributed``
+are the API.
 """
 
 from __future__ import annotations
@@ -84,13 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-mesh", default=None,
                    help="device mesh ROWSxCOLS: ROWS*COLS row bands, e.g. 2x4")
     p.add_argument("-coordinator", default=None,
-                   help="multi-host coordinator address host:port (not ported yet)")
-    p.add_argument("-nprocs", type=int, default=None,
-                   help="multi-host process count (not ported yet)")
+                   help="multi-process rendezvous host:port (or a tcp:// or file:// URL)")
+    p.add_argument("-nprocs", type=int, default=None, help="multi-process process count")
     p.add_argument("-procid", type=int, default=None,
-                   help="this process's id in [0, nprocs) (not ported yet)")
+                   help="this process's id in [0, nprocs)")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on (default: cuda)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="torch.distributed backend of -nprocs (default: nccl on the card, "
+                        "gloo on the CPU)")
     return p
 
 
@@ -126,10 +133,23 @@ def args_to_config(a: argparse.Namespace) -> OFConfig:
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
     cfg = args_to_config(a)
-    if a.nprocs:
-        raise NotImplementedError("multi-host runs (-nprocs) are not ported yet")
     ch2 = (a.ic21, a.ic22) if a.ic21 and a.ic22 else None
     ch3 = (a.ic31, a.ic32) if a.ic31 and a.ic32 else None
+    if a.nprocs:
+        from octane_tpu_torch.parallel.distributed import (
+            initialize_multihost, run_pipeline_distributed, shutdown_multihost)
+
+        initialize_multihost(a.coordinator, a.nprocs, a.procid, a.dist_backend, a.device)
+        try:
+            written = run_pipeline_distributed(
+                a.i1, a.i2, cfg, outdir=a.outdir, cth_file=a.i1cth,
+                firstguess_file=a.firstguess, channel2=ch2, channel3=ch3,
+                interp_dir=a.interploc, device=a.device)
+        finally:
+            shutdown_multihost()
+        for w in written:
+            print(f"{w} written")
+        return 0
     written = run_pipeline(
         a.i1, a.i2, cfg, outdir=a.outdir,
         cth_file=a.i1cth, firstguess_file=a.firstguess,

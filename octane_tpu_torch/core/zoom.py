@@ -127,6 +127,48 @@ def zoom_in_image(img: torch.Tensor, new_hw, bicubic: bool = True) -> torch.Tens
         -1, _upload(i3, img.device))
 
 
+def zoom_out_image_rows(read_rows, h_in: int, w_in: int, factor: float, rows,
+                       device="cpu") -> torch.Tensor:
+    """Output rows [r0, r1) of ``zoom_out_image`` of an (h_in, w_in) source
+    known through ``read_rows(s0, s1)``, its rows [s0, s1) as a tensor or
+    array (moved to ``device``).  Reads the rows the bicubic taps (+-2) and
+    the blur (+-filtsize) reach, so the blur's clamp acts only where the
+    block's edge is the source's; the positions are sliced from the whole
+    grid's, so the rows equal the whole call's bit for bit."""
+    r0, r1 = rows
+    if factor >= 0.999999:
+        return torch.as_tensor(read_rows(r0, r1), device=device)
+    nxx, nyy = zoom_size(w_in, factor), zoom_size(h_in, factor)
+    sigma = _weights_sigma(factor)
+    fs = ingest_filtsize(sigma)
+    j2 = (np.arange(nyy, dtype=np.float64) / factor).astype(np.float32)[r0:r1]
+    s0 = max(0, int(np.floor(float(j2.min()))) - 2 - fs)
+    s1 = min(h_in, int(np.ceil(float(j2.max()))) + 3 + fs)
+    blk = torch.as_tensor(read_rows(s0, s1), device=device)
+    blurred = blur_separable(blk, gaussian_kernel_1d(sigma, fs), fs)
+    i2 = (np.arange(nxx, dtype=np.float64) / factor).astype(np.float32)
+    return _bicubic_grid(blurred, i2, j2 - np.float32(s0))
+
+
+def zoom_in_image_rows(read_rows, h_in: int, w_in: int, new_hw, rows, bicubic: bool = True,
+                       device="cpu") -> torch.Tensor:
+    """Output rows [r0, r1) of ``zoom_in_image`` (see zoom_out_image_rows;
+    the rows read are those of the bicubic taps, -1 .. +2)."""
+    nyy, nxx = new_hw
+    r0, r1 = rows
+    i2 = _half_pixel_positions(nxx, w_in)
+    j2 = _half_pixel_positions(nyy, h_in)[r0:r1]
+    s0 = max(0, int(np.floor(float(j2.min()))) - 2)
+    s1 = min(h_in, int(np.floor(float(j2.max()))) + 4)
+    blk = torch.as_tensor(read_rows(s0, s1), device=device)
+    if bicubic:
+        return _bicubic_grid(blk, i2, j2 - np.float32(s0))
+    i3 = np.clip((i2 + 0.5).astype(np.int32), 0, w_in - 1).astype(np.int64)
+    j3 = np.clip((j2 + 0.5).astype(np.int32), 0, h_in - 1).astype(np.int64) - s0
+    return blk.index_select(-2, _upload(j3, blk.device)).index_select(
+        -1, _upload(i3, blk.device))
+
+
 def pyramid_downsample(img: torch.Tensor, factor: float) -> torch.Tensor:
     """Solver-path downsample of a full-resolution (..., H, W) image."""
     h, w = img.shape[-2], img.shape[-1]

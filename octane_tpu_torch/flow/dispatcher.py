@@ -14,13 +14,12 @@ counterpart: the CUDA warp has no window, so its reach is unbounded.
 Under a device mesh (``active_mesh``: cfg.mesh_shape of more than one
 band) the variational solve and the hybrid refinement run on the mesh's
 row bands (``parallel.sharded_variational_flow``), and so do pix2uv,
-pix2uv_ms and SRSAL (``parallel.post``).  Patch-match runs its
-single-device function on the whole field: octane_tpu's
-``patch_match_flow_sharded`` equals its single-device fast path bit for
-bit (patch_match.py:293-300), so the numbers are the same.  Temporal interpolation
-(``pipeline.interpolate_sequence``) likewise runs ``post.temporal`` on the
-whole field: octane_tpu's ``sharded_interpolate_frame`` equals the
-single-device fixed point (parallel/post.py:13-18).
+pix2uv_ms and SRSAL (``parallel.post``) and the zero-guess patch-match
+(``flow.patch_match.patch_match_flow_sharded``, equal to the
+single-device call, as octane_tpu's is, patch_match.py:293-300); the
+first-guess patch-match is sector-scale and runs whole.  Temporal
+interpolation (``pipeline.interpolate_sequence``) runs on the bands too
+(``parallel.post.sharded_interpolate_frame``).
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import warnings
 import torch
 
 from octane_tpu_torch.config import OFConfig
-from octane_tpu_torch.flow.patch_match import patch_match_flow
+from octane_tpu_torch.flow.patch_match import patch_match_flow, patch_match_flow_sharded
 from octane_tpu_torch.flow.variational import variational_flow
 from octane_tpu_torch.io.datamodel import Scene
 from octane_tpu_torch.nav.goes import F64
@@ -99,6 +98,9 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
         if have_guess:
             u, v = patch_match_flow(scene1.data[0], scene2.data[0], u0, v0,
                                     cfg.rad, cfg.srad)
+        elif mesh is not None:
+            u, v = patch_match_flow_sharded(scene1.data[0], scene2.data[0], mesh,
+                                            cfg.rad, cfg.srad)
         else:
             # slice-based fast path (no per-pixel gathers)
             u, v = patch_match_flow(scene1.data[0], scene2.data[0], None, None,

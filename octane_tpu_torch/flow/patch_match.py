@@ -75,17 +75,20 @@ def _sum_taps(taps):
     return acc
 
 
-def _clamped_flat(y, x, h, w):
-    """Flat indices of the positions (y, x) clamped into an (h, w) image."""
-    return y.clamp(0, h - 1) * w + x.clamp(0, w - 1)
+def _clamped_flat(h, w, row0: int = 0, pad: int = 0):
+    """The flat index of an image position (y, x) clamped into the (h, w)
+    image, in a block of its rows from ``row0 - pad`` padded by ``pad``
+    columns on each side (the whole image: row0 = pad = 0)."""
+    wp = w + 2 * pad
+    return lambda y, x: (y.clamp(0, h - 1) - row0 + pad) * wp + x.clamp(0, w - 1) + pad
 
 
-def _cost_gather(g1f, g2f, ibc, jbc, n, m, rad, h, w):
+def _cost_gather(g1f, g2f, ibc, jbc, n, m, rad, flat1, flat2):
     """SSD over the (2*rad+1)^2 patch with per-tap clamped indices
-    (jsose, ref :12-33); ``n``/``m`` are ints or (H, W) int tensors and
-    ``ibc``/``jbc`` int64 tensors."""
-    taps = ((g2f[_clamped_flat(jbc + (l + m), ibc + (k + n), h, w)],
-             g1f[_clamped_flat(jbc + l, ibc + k, h, w)])
+    (jsose, ref :12-33); ``n``/``m`` are ints or (H, W) int tensors,
+    ``ibc``/``jbc`` int64 tensors and ``flat1``/``flat2`` the
+    ``_clamped_flat`` of the flattened ``g1f``/``g2f``."""
+    taps = ((g2f[flat2(jbc + (l + m), ibc + (k + n))], g1f[flat1(jbc + l, ibc + k)])
             for k in range(-rad, rad + 1) for l in range(-rad, rad + 1))
     return _sum_taps(taps)
 
@@ -130,21 +133,26 @@ def _edge_pad(g, p):
     return F.pad(g[None, None], (p, p, p, p), mode="replicate")[0, 0]
 
 
-def _patch_match_local(g1, g2, rad, srad):
-    """Zero-guess patch match of one (H, W) pair (octane_tpu's
-    ``_patch_match_local`` on a single block)."""
-    h, w = g1.shape
+def _patch_match_local(g1p, g2p, rad, srad, h: int, w: int, row0: int = 0):
+    """Zero-guess patch match of one block (octane_tpu's ``_patch_match_local``).
+
+    ``g1p``/``g2p`` are the block's rows of the two images padded by ``rad``
+    and ``rad + srad + 1`` rows and columns with the image's edge values
+    beyond its edges (the reference's clamped reads); the block is rows
+    [row0, row0 + hl) of the (h, w) image, whole rows.  The branch at
+    ``FIRST_GUESS_MAX_PIXELS`` is taken on the block's size, as octane_tpu
+    takes it per shard.
+    """
     smax = rad + srad + 1
-    g1p = _edge_pad(g1, rad)
-    g2p = _edge_pad(g2, smax)
+    hl, wl = g1p.shape[0] - 2 * rad, g1p.shape[1] - 2 * rad
     taps = [(k, l) for k in range(-rad, rad + 1) for l in range(-rad, rad + 1)]
-    sector = h * w <= FIRST_GUESS_MAX_PIXELS
+    sector = hl * wl <= FIRST_GUESS_MAX_PIXELS
 
     if sector:
         def cost_slices(n, m):
             return _sum_taps(
-                (g2p[smax + l + m:smax + l + m + h, smax + k + n:smax + k + n + w],
-                 g1p[rad + l:rad + l + h, rad + k:rad + k + w]) for k, l in taps)
+                (g2p[smax + l + m:smax + l + m + hl, smax + k + n:smax + k + n + wl],
+                 g1p[rad + l:rad + l + hl, rad + k:rad + k + wl]) for k, l in taps)
     else:
         # every tap of the (n, m) cost plane is a shifted window of one
         # squared-difference plane e^2, e(y, x) = g2p[y + m + smax - rad,
@@ -155,9 +163,9 @@ def _patch_match_local(g1, g2, rad, srad):
         def cost_slices(n, m):
             nonlocal e
             y0, x0 = smax - rad + m, smax - rad + n
-            e = torch.sub(g2p[y0:y0 + h + 2 * rad, x0:x0 + w + 2 * rad], g1p, out=e)
+            e = torch.sub(g2p[y0:y0 + hl + 2 * rad, x0:x0 + wl + 2 * rad], g1p, out=e)
             e.mul_(e)
-            wins = [e[rad + l:rad + l + h, rad + k:rad + k + w] for k, l in taps]
+            wins = [e[rad + l:rad + l + hl, rad + k:rad + k + wl] for k, l in taps]
             acc = torch.add(wins[0], wins[1])
             for t in wins[2:]:
                 acc.add_(t)
@@ -168,12 +176,13 @@ def _patch_match_local(g1, g2, rad, srad):
     if sector:
         # per-pixel clamped gather probes, the same arithmetic as the
         # first-guess path's cost: the u0=None path equals the u0=zeros one
-        ii = torch.arange(w, device=g1.device)[None, :]
-        jj = torch.arange(h, device=g1.device)[:, None]
-        g1f, g2f = g1.reshape(-1), g2.reshape(-1)
+        ii = torch.arange(wl, device=g1p.device)[None, :]
+        jj = torch.arange(row0, row0 + hl, device=g1p.device)[:, None]
+        g1f, g2f = g1p.reshape(-1), g2p.reshape(-1)
+        flat1, flat2 = _clamped_flat(h, w, row0, rad), _clamped_flat(h, w, row0, smax)
 
         def probe_cost(n, m):
-            return _cost_gather(g1f, g2f, ii, jj, n, m, rad, h, w)
+            return _cost_gather(g1f, g2f, ii, jj, n, m, rad, flat1, flat2)
 
         return _finish(nmin, mmin, probe_cost)
 
@@ -183,7 +192,7 @@ def _patch_match_local(g1, g2, rad, srad):
     # are never a probe of the cross-shaped pattern.
     probes = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1))   # c0, su1, su2, sv1, sv2
     s1 = srad + 1
-    accs = [torch.zeros((h, w), dtype=torch.float32, device=g1.device) for _ in probes]
+    accs = [torch.zeros((hl, wl), dtype=torch.float32, device=g1p.device) for _ in probes]
     for n in range(-s1, s1 + 1):
         for m in range(-s1, s1 + 1):
             if abs(n) == s1 and abs(m) == s1:
@@ -226,7 +235,8 @@ def patch_match_flow(
     h, w = geo1.shape
 
     if u0 is None:
-        return _patch_match_local(geo1, geo2, rad, srad)
+        return _patch_match_local(_edge_pad(geo1, rad), _edge_pad(geo2, rad + srad + 1), rad,
+                                  srad, h, w)
 
     if h * w > FIRST_GUESS_MAX_PIXELS:
         raise ValueError(
@@ -247,8 +257,36 @@ def patch_match_flow(
     ibc, jbc = ibc.expand(h, w), jbc.expand(h, w)
     g1f, g2f = geo1.reshape(-1), geo2.reshape(-1)
 
+    flat = _clamped_flat(h, w)
+
     def cost(n, m):
-        return _cost_gather(g1f, g2f, ibc, jbc, n, m, rad, h, w)
+        return _cost_gather(g1f, g2f, ibc, jbc, n, m, rad, flat, flat)
 
     nmin, mmin = _spiral_argmin(cost, srad)
     return _finish(nmin, mmin, cost)
+
+
+def patch_match_flow_sharded(geo1, geo2, mesh, rad: int = 2, srad: int = 2):
+    """Zero-guess patch match on the row bands of ``mesh`` (octane_tpu's
+    ``patch_match_flow_sharded``): each band takes its rows with ``rad`` /
+    ``rad + srad + 1`` rows beside them (the image's edge rows beyond its
+    edges) and runs ``_patch_match_local`` with its global first row; the
+    result, on the mesh's first device, equals ``patch_match_flow``."""
+    from octane_tpu_torch.parallel.halo import LocalExchange
+    from octane_tpu_torch.parallel.mesh import mesh_bands
+
+    exchange = LocalExchange()
+    geo1 = _plane(geo1, mesh.devices[0])
+    geo2 = _plane(geo2, geo1.device)
+    h, w = geo1.shape
+    smax = rad + srad + 1
+    field = [(0, torch.stack([geo1, geo2]))]
+    outs = []
+    for dev, r0, r1 in mesh_bands(mesh, h):
+        g1 = exchange.rows(field, r0 - rad, r1 + rad, dev)[0]
+        g2 = exchange.rows(field, r0 - smax, r1 + smax, dev)[1]
+        g1p = F.pad(g1[None, None], (rad, rad, 0, 0), mode="replicate")[0, 0]
+        g2p = F.pad(g2[None, None], (smax, smax, 0, 0), mode="replicate")[0, 0]
+        outs.append((r0, torch.stack(_patch_match_local(g1p, g2p, rad, srad, h, w, r0))))
+    uv = exchange.rows(outs, 0, h, outs[0][1].device)
+    return uv[0], uv[1]

@@ -16,7 +16,14 @@ Each reader is split in two halves:
   navigation (``nav.polar``, ``nav.mercator``), so the product path also
   runs where h5py is missing.
 
-Not ported: ``row_range`` (row-block ingest of the multi-process path).
+``row_range`` (r0, r1) restricts ingest to a row block (the multi-process
+path, ``parallel.distributed``): the scene's arrays cover rows [r0, r1)
+while its NavConstants keep the whole grid's dims.  An array half takes its
+inputs as the file holds them (a numpy array or an h5py dataset) and reads
+only the rows it needs: the block for channel 1, the flat grids and the
+first guess, and for channels 2/3 and the CTH the source rows that the
+block's regrid reads (``core.zoom.zoom_*_image_rows``).  The rows equal
+those of the whole read bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.normalize import band_min_max
-from octane_tpu_torch.core.zoom import zoom_in_image, zoom_out_image
+from octane_tpu_torch.core.zoom import zoom_in_image_rows, zoom_out_image_rows
 from octane_tpu_torch.io.datamodel import NavConstants, Scene
 from octane_tpu_torch.io.native import requantize
 from octane_tpu_torch.nav.goes import F64, navcal_goes
@@ -73,7 +80,7 @@ def _h5py():
 
 
 def read_scene(path: str, cfg: OFConfig, donav: bool = True, channel: int = 1,
-               scene: Scene = None, device="cuda") -> Scene:
+               scene: Scene = None, device="cuda", row_range=None) -> Scene:
     """Read one GOES-R L1b file into a Scene on ``device`` (the card unless
     the caller names another device, as run_pipeline does).
 
@@ -82,15 +89,15 @@ def read_scene(path: str, cfg: OFConfig, donav: bool = True, channel: int = 1,
     roll does); channels 2/3 read an auxiliary band and regrid it onto
     ``scene``'s channel-1 grid (``channel_onto_scene``).  On polar and
     mercator grids (``cfg.grid``) the file is a flat grid and ``channel``
-    and ``scene`` are ignored, as in octane_tpu.
+    and ``scene`` are ignored, as in octane_tpu.  ``row_range``: see the
+    module docstring.
     """
     if cfg.grid != "goes":
-        return _read_flat_grid(path, cfg, donav, device)
+        return _read_flat_grid(path, cfg, donav, device, row_range)
     if channel != 1 and scene is None:
         raise ValueError("channel 1 must be read first")
     with _h5py().File(path, "r") as f:
         rad = f["Rad"]
-        counts = np.asarray(rad[()], np.int16)
         x = np.asarray(f["x"][()], np.int16)
         y = np.asarray(f["y"][()], np.int16)
         band = int(_scalar(f["band_id"]))
@@ -99,28 +106,28 @@ def read_scene(path: str, cfg: OFConfig, donav: bool = True, channel: int = 1,
                    fk1=_scalar(f["planck_fk1"]), fk2=_scalar(f["planck_fk2"]),
                    bc1=_scalar(f["planck_bc1"]), bc2=_scalar(f["planck_bc2"]),
                    kap1=_scalar(f["kappa0"]))
-        if channel == 1:
-            nav = scene.nav if scene is not None else NavConstants(grid="goes")
-            _set_cal(nav, 0, cal)
-            nav.x_scale = float(_attr(f["x"], "scale_factor"))
-            nav.x_offset = float(_attr(f["x"], "add_offset"))
-            nav.y_scale = float(_attr(f["y"], "scale_factor"))
-            nav.y_offset = float(_attr(f["y"], "add_offset"))
-            gip = f["goes_imager_projection"]
-            nav.gip_val = float(_scalar(gip))
-            nav.lpo = float(_attr(gip, "longitude_of_projection_origin"))
-            nav.req = float(_attr(gip, "semi_major_axis"))
-            nav.rpol = float(_attr(gip, "semi_minor_axis"))
-            nav.inverse_flattening = float(_attr(gip, "inverse_flattening"))
-            nav.lat0 = float(_attr(gip, "latitude_of_projection_origin"))
-            nav.pph = float(_attr(gip, "perspective_point_height"))
-            t = float(_scalar(f["t"]))
-            t_units = _attr(f["t"], "units")
-    if channel != 1:
-        return channel_onto_scene(counts, x, y, band, scene, cfg, channel, cal)
-    set_goes_grid(nav, h, w, band)
-    sc = scene_from_goes_arrays(counts, x, y, nav, cfg, device, donav=donav,
-                                t=t, t_units=t_units, band=band)
+        if channel != 1:
+            # the dataset itself: the regrid reads only the rows it needs
+            return channel_onto_scene(rad, x, y, band, scene, cfg, channel, cal, row_range)
+        nav = scene.nav if scene is not None else NavConstants(grid="goes")
+        _set_cal(nav, 0, cal)
+        nav.x_scale = float(_attr(f["x"], "scale_factor"))
+        nav.x_offset = float(_attr(f["x"], "add_offset"))
+        nav.y_scale = float(_attr(f["y"], "scale_factor"))
+        nav.y_offset = float(_attr(f["y"], "add_offset"))
+        gip = f["goes_imager_projection"]
+        nav.gip_val = float(_scalar(gip))
+        nav.lpo = float(_attr(gip, "longitude_of_projection_origin"))
+        nav.req = float(_attr(gip, "semi_major_axis"))
+        nav.rpol = float(_attr(gip, "semi_minor_axis"))
+        nav.inverse_flattening = float(_attr(gip, "inverse_flattening"))
+        nav.lat0 = float(_attr(gip, "latitude_of_projection_origin"))
+        nav.pph = float(_attr(gip, "perspective_point_height"))
+        t = float(_scalar(f["t"]))
+        t_units = _attr(f["t"], "units")
+        set_goes_grid(nav, h, w, band)
+        sc = scene_from_goes_arrays(rad, x, y, nav, cfg, device, donav=donav, t=t,
+                                    t_units=t_units, band=band, row_range=row_range)
     if scene is None:
         return sc
     # channel 1 into an existing Scene: its other channels' band and
@@ -153,14 +160,20 @@ def set_goes_grid(nav: NavConstants, h: int, w: int, band: int) -> NavConstants:
     return nav
 
 
+def _rows(row_range) -> slice:
+    return slice(None) if row_range is None else slice(*row_range)
+
+
 def scene_from_goes_arrays(counts, x, y, nav: NavConstants, cfg: OFConfig,
                            device, donav: bool = True, t: float = 0.0,
-                           t_units: str = "", band: int = 13) -> Scene:
+                           t_units: str = "", band: int = 13, row_range=None) -> Scene:
     """Channel-1 Scene from raw arrays: int16 counts (H, W), scan-coordinate
-    counts x (W,) and y (H,), and the file's NavConstants."""
-    counts = torch.as_tensor(np.asarray(counts, np.int16), device=device)
+    counts x (W,) and y (H,), and the file's NavConstants; with
+    ``row_range``, rows [r0, r1) of them."""
+    rows = _rows(row_range)
+    counts = torch.as_tensor(np.asarray(counts[rows], np.int16), device=device)
     x = torch.as_tensor(np.asarray(x, np.int16), device=device)
-    y = torch.as_tensor(np.asarray(y, np.int16), device=device)
+    y = torch.as_tensor(np.asarray(y[rows], np.int16), device=device)
     # normalisation range: band table unless overridden (oct_fileread.cc:341-359)
     vmin, vmax = band_min_max(band)
     vmin = cfg.norm_min if cfg.norm_min is not None else vmin
@@ -177,7 +190,7 @@ def scene_from_goes_arrays(counts, x, y, nav: NavConstants, cfg: OFConfig,
 
 
 def channel_onto_scene(counts, x, y, band: int, scene: Scene, cfg: OFConfig,
-                       channel: int, cal: dict) -> Scene:
+                       channel: int, cal: dict, row_range=None) -> Scene:
     """Add channel 2 or 3 to a channel-1 ``scene`` (oct_fileread.cc:361-380).
 
     ``counts`` (h, w) int16 and its scan-coordinate counts ``x`` (w,) and
@@ -190,6 +203,8 @@ def channel_onto_scene(counts, x, y, band: int, scene: Scene, cfg: OFConfig,
     agree, blur + bicubic zoom out when it is wider.  The regridded plane
     is appended to ``scene.data`` and its pseudo-counts (the normalisation
     inverted on the host, ``io.native.requantize``) to ``scene.raw_counts``.
+    With ``row_range`` the regridded plane is the channel-1 grid's rows
+    [r0, r1), from the rows of ``counts`` that they read.
     """
     ci = channel - 1
     nav = scene.nav
@@ -200,20 +215,25 @@ def channel_onto_scene(counts, x, y, band: int, scene: Scene, cfg: OFConfig,
     vmin = omin if omin is not None else vmin
     vmax = omax if omax is not None else vmax
     norm_used = (float(vmin), float(vmax))
-    counts = torch.as_tensor(np.asarray(counts, np.int16), device=dev)
     x = torch.as_tensor(np.asarray(x, np.int16), device=dev)
-    y = torch.as_tensor(np.asarray(y, np.int16), device=dev)
-    data, _, _ = navcal_goes(counts, x, y, nav, channel=ci, norm_min=vmin,
-                             norm_max=vmax, donav=False)
-    data = data.to(torch.float32)
-    w = counts.shape[1]
+
+    def read_rows(s0, s1):
+        """Calibrated, normalised rows [s0, s1) of the channel."""
+        data, _, _ = navcal_goes(
+            torch.as_tensor(np.asarray(counts[s0:s1], np.int16), device=dev), x,
+            torch.as_tensor(np.asarray(y[s0:s1], np.int16), device=dev), nav, channel=ci,
+            norm_min=vmin, norm_max=vmax, donav=False)
+        return data.to(torch.float32)
+
+    h, w = counts.shape
     h1, w1 = nav.ny, nav.nx
+    rows = (0, h1) if row_range is None else tuple(row_range)
     if w1 > w:
-        regridded = zoom_in_image(data, (h1, w1), True)
+        regridded = zoom_in_image_rows(read_rows, h, w, (h1, w1), rows, True, dev)
     elif w1 == w:
-        regridded = data
+        regridded = read_rows(*rows)
     else:
-        regridded = zoom_out_image(data, w1 / w)
+        regridded = zoom_out_image_rows(read_rows, h, w, w1 / w, rows, dev)
     scene.data = torch.cat([scene.data, regridded[None]], dim=0)
     scene.band = _tuple_set(scene.band, ci, band)
     nr = list(scene.norm_ranges)
@@ -230,7 +250,7 @@ def channel_onto_scene(counts, x, y, band: int, scene: Scene, cfg: OFConfig,
     return scene
 
 
-def _read_flat_grid(path: str, cfg: OFConfig, donav: bool, device) -> Scene:
+def _read_flat_grid(path: str, cfg: OFConfig, donav: bool, device, row_range=None) -> Scene:
     """Polar / mercator grid ingest (oct_polarread, oct_fileread.cc:421-610;
     oct_mercread, :611-754): float "Rad" data, int16 x/y with scale/offset
     attributes (projected metres), a "grid_mapping" variable with lat1,
@@ -239,7 +259,6 @@ def _read_flat_grid(path: str, cfg: OFConfig, donav: bool, device) -> Scene:
     with _h5py().File(path, "r") as f:
         ds = f["Rad"]
         h, w = ds.shape
-        data = np.asarray(ds[()], np.float32)
         x = np.asarray(f["x"][()], np.int16)
         y = np.asarray(f["y"][()], np.int16)
         nav = NavConstants(grid=cfg.grid)
@@ -256,9 +275,9 @@ def _read_flat_grid(path: str, cfg: OFConfig, donav: bool, device) -> Scene:
             nav.lon1 = float(_attr(gm, "lon1")) * DTOR
         t = float(_scalar(f["t"]))
         t_units = _attr(f["t"], "units") if "units" in f["t"].attrs else ""
-    set_flat_grid(nav, h, w)
-    return scene_from_flat_arrays(data, x, y, nav, cfg, device, donav=donav,
-                                  t=t, t_units=t_units)
+        set_flat_grid(nav, h, w)
+        return scene_from_flat_arrays(ds, x, y, nav, cfg, device, donav=donav,
+                                      t=t, t_units=t_units, row_range=row_range)
 
 
 def set_flat_grid(nav: NavConstants, h: int, w: int) -> NavConstants:
@@ -271,15 +290,17 @@ def set_flat_grid(nav: NavConstants, h: int, w: int) -> NavConstants:
 
 def scene_from_flat_arrays(data, x, y, nav: NavConstants, cfg: OFConfig, device,
                            donav: bool = True, t: float = 0.0,
-                           t_units: str = "") -> Scene:
+                           t_units: str = "", row_range=None) -> Scene:
     """Polar / mercator Scene from raw arrays: the (H, W) data, which pass
     through as float32 with no calibration and no 0-255 normalisation (ref
     polar :60), its int16 x (W,) and y (H,) counts, and the file's
-    NavConstants (grid ``cfg.grid``).  Lat/lon come from the float64
-    projected metres x * x_scale + x_offset, y * y_scale + y_offset."""
-    data = torch.as_tensor(np.asarray(data, np.float32), device=device)
+    NavConstants (grid ``cfg.grid``); with ``row_range``, rows [r0, r1) of
+    them.  Lat/lon come from the float64 projected metres x * x_scale +
+    x_offset, y * y_scale + y_offset."""
+    rows = _rows(row_range)
+    data = torch.as_tensor(np.asarray(data[rows], np.float32), device=device)
     x = torch.as_tensor(np.asarray(x, np.int16), device=device)
-    y = torch.as_tensor(np.asarray(y, np.int16), device=device)
+    y = torch.as_tensor(np.asarray(y[rows], np.int16), device=device)
     sc = Scene(nav=nav, data=data[None].contiguous(), t=t, t_units=t_units, x=x, y=y,
                raw_counts=data[None].clone())
     if donav:
@@ -291,47 +312,57 @@ def scene_from_flat_arrays(data, x, y, nav: NavConstants, cfg: OFConfig, device,
     return sc
 
 
-def read_cth(path: str, scene: Scene, cfg: OFConfig) -> Scene:
+def read_cth(path: str, scene: Scene, cfg: OFConfig, row_range=None) -> Scene:
     """CLAVR-x cloud-top height ingest (oct_clavrxread, oct_fileread.cc:
     756-816): reads Cloud_Top_Height_Effective as float32, as it is in the
-    file (fill values included), and regrids it onto ``scene``."""
+    file (fill values included), and regrids it onto ``scene`` (rows
+    [r0, r1) of its grid with ``row_range``)."""
     with _h5py().File(path, "r") as f:
-        cth = np.asarray(f["Cloud_Top_Height_Effective"][()], np.float32)
-    return cth_onto_scene(cth, scene, cfg, scene.data.device)
+        return cth_onto_scene(f["Cloud_Top_Height_Effective"], scene, cfg,
+                              scene.data.device, row_range)
 
 
-def cth_onto_scene(cth, scene: Scene, cfg: OFConfig, device) -> Scene:
+def cth_onto_scene(cth, scene: Scene, cfg: OFConfig, device, row_range=None) -> Scene:
     """Set ``scene.cth`` (H, W) float32 on ``device`` from the (hs, ws) CTH
     field: zoomed in when the image is wider than the CTH grid (bicubic, or
     nearest with -nncth), as it is when the widths agree, zoomed out when
     the image is narrower.  On GOES the CTH width is w // div with div 4
-    for band 2, 2 for bands 1 and 3, 1 otherwise (``set_goes_grid``)."""
+    for band 2, 2 for bands 1 and 3, 1 otherwise (``set_goes_grid``).  With
+    ``row_range`` only the image's rows [r0, r1), from the CTH rows they
+    read."""
     nav = scene.nav
     xs = nav.max_xc - nav.min_xc
     nav.cth_nx = xs
     nav.cth_ny = nav.max_yc - nav.min_yc
     h1, w1 = nav.ny, nav.nx
-    cth = torch.as_tensor(np.asarray(cth, np.float32), device=device)
+    hs, ws = cth.shape
+    rows = (0, h1) if row_range is None else tuple(row_range)
+
+    def read_rows(s0, s1):
+        return torch.as_tensor(np.asarray(cth[s0:s1], np.float32), device=device)
+
     if w1 > xs:
-        scene.cth = zoom_in_image(cth, (h1, w1), cfg.interp_cth_bicubic)
+        scene.cth = zoom_in_image_rows(read_rows, hs, ws, (h1, w1), rows,
+                                       cfg.interp_cth_bicubic, device)
     elif w1 == xs:
-        scene.cth = cth
+        scene.cth = read_rows(*rows)
     else:
-        scene.cth = zoom_out_image(cth, w1 / xs)
+        scene.cth = zoom_out_image_rows(read_rows, hs, ws, w1 / xs, rows, device)
     return scene
 
 
-def read_first_guess(path: str, scene: Scene) -> Scene:
+def read_first_guess(path: str, scene: Scene, row_range=None) -> Scene:
     """First-guess winds ingest (oct_fgread, oct_fileread.cc:817-868): UFG
-    and VFG, navigated winds in m/s on the image grid."""
+    and VFG, navigated winds in m/s on the image grid (rows [r0, r1) with
+    ``row_range``)."""
     with _h5py().File(path, "r") as f:
-        ufg = np.asarray(f["UFG"][()], np.float32)
-        vfg = np.asarray(f["VFG"][()], np.float32)
-    return first_guess_onto_scene(ufg, vfg, scene, scene.data.device)
+        return first_guess_onto_scene(f["UFG"], f["VFG"], scene, scene.data.device, row_range)
 
 
-def first_guess_onto_scene(ufg, vfg, scene: Scene, device) -> Scene:
-    """Set ``scene.ufg`` / ``scene.vfg`` (H, W) float32 on ``device``."""
-    scene.ufg = torch.as_tensor(np.asarray(ufg, np.float32), device=device)
-    scene.vfg = torch.as_tensor(np.asarray(vfg, np.float32), device=device)
+def first_guess_onto_scene(ufg, vfg, scene: Scene, device, row_range=None) -> Scene:
+    """Set ``scene.ufg`` / ``scene.vfg`` (H, W) float32 on ``device`` (their
+    rows [r0, r1) with ``row_range``)."""
+    rows = _rows(row_range)
+    scene.ufg = torch.as_tensor(np.asarray(ufg[rows], np.float32), device=device)
+    scene.vfg = torch.as_tensor(np.asarray(vfg[rows], np.float32), device=device)
     return scene

@@ -12,7 +12,10 @@ set or there are no m/s winds, Rad as float32, the grid's projection
 variable and the flat-grid settings.  An interpolated frame's product
 (``interp=True``) takes t from ``t_interp``, adds the ``frdt`` attribute
 to t and the Occlusion variable (int16).  Tensors are copied to host
-memory for writing.
+memory for writing.  A 2-D variable may also be a ``RowBlockSource``: the
+multi-process path's row blocks in part files, which the writer streams
+into the product one block at a time, so a merged product holds the
+values of a whole write.
 """
 
 from __future__ import annotations
@@ -24,7 +27,40 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.io.datamodel import Scene
 
 
+class RowBlockSource:
+    """A 2-D product variable held as row blocks in part files: ``parts`` is
+    [(path, row0, row1), ...] and each file holds the variable ``name`` for
+    its rows (parallel.distributed writes one part per process)."""
+
+    def __init__(self, parts, name: str, shape, dtype):
+        self.parts = list(parts)
+        self.name = name
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+
+    def blocks(self):
+        """(row slice, block) per part, in the parts' order."""
+        h5py = _h5py()
+        for path, r0, r1 in self.parts:
+            with h5py.File(path, "r") as f:
+                yield slice(r0, r1), np.asarray(f[self.name][()], self.dtype)
+
+
+class RowBlockStack:
+    """The channels of ``raw_counts`` as RowBlockSources."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+        self.shape = (len(self.sources),) + self.sources[0].shape
+
+    def __getitem__(self, c):
+        return self.sources[c]
+
+
 def _np(data, dtype):
+    if isinstance(data, RowBlockSource):
+        # its blocks cast as a whole variable is
+        return RowBlockSource(data.parts, data.name, data.shape, dtype)
     if torch.is_tensor(data):
         data = data.detach().cpu().numpy()
     return np.asarray(data, dtype)
@@ -47,7 +83,12 @@ def _dimvar(f, name, data, scale, offset):
 
 
 def _var2d(f, name, data, xdim, ydim, **attrs):
-    d = f.create_dataset(name, data=data)
+    if isinstance(data, RowBlockSource):
+        d = f.create_dataset(name, shape=data.shape, dtype=data.dtype)
+        for rows, block in data.blocks():
+            d[rows] = block
+    else:
+        d = f.create_dataset(name, data=data)
     d.dims[0].attach_scale(ydim)
     d.dims[1].attach_scale(xdim)
     for k, v in attrs.items():

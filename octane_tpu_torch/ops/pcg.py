@@ -76,6 +76,17 @@ def block_partials(part: torch.Tensor) -> torch.Tensor:
     return s.reshape(-1)
 
 
+def initial_partials(cf, b: torch.Tensor) -> torch.Tensor:
+    """(n, 3) block partials of the solve's first sums over a system's rows
+    (cf: a1, a4 first; b: (2, h, w)): b_u^2 / a1 and b_v^2 / a4, whose sums
+    add to <r, M^-1 r>, and ||b||^2.  A row band aligned to the blocks
+    gives its rows of the whole system's partials, so the sums of bands'
+    joined partials are one device's."""
+    bu, bv = b[0], b[1]
+    return torch.stack([block_partials(bu * (bu / cf[0])), block_partials(bv * (bv / cf[1])),
+                        block_partials(bu * bu + bv * bv)], dim=1)
+
+
 def _offdiag(f, cf, rows=slice(None)):
     """Off-diagonal part of A f for one (h, w) component, at ``rows`` of f
     (the rows of cf)."""
@@ -241,9 +252,9 @@ def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b)
         planes += [sysm.a5, sysm.a6, sysm.a7, sysm.a8]
     cf = torch.stack(planes)
     b = torch.stack([sysm.bu, sysm.bv])
-    gamma = (torch.sum(sysm.bu * (sysm.bu / sysm.a1))
-             + torch.sum(sysm.bv * (sysm.bv / sysm.a4)))
-    resid = torch.sum(b * b)
+    part = initial_partials(cf, b)
+    gamma = torch.sum(part[:, 0]) + torch.sum(part[:, 1])
+    resid = torch.sum(part[:, 2])
     x = torch.zeros_like(b)
     p = torch.zeros_like(b)
     r = b

@@ -8,12 +8,13 @@ pass; then every band runs the band form of the pass kernel
 (``ops.sor.sor_pass_band``), which writes the band's rows straight into
 the other slab of the ping-pong pair.  The band's rows equal the
 whole-image pass's bit for bit.  The residual partials of all bands are
-joined in band order and summed once on the first band's device: the
-stopping test is deterministic, one device's on bands aligned to the
-reduction blocks, and costs one host read per pass, as on one device
-(``ops.sor.sor_solve_cf.host_syncs`` counts them).  ||b||^2 is summed over
-the bands' coefficient planes, in another order than the single-device
-assembly's partials, which can move a stop only where tol binds.
+joined in band order and summed once (on the first band's device, or on
+every process under a ``halo.ProcessExchange``): the stopping test is
+deterministic, one device's on bands aligned to the reduction blocks, the
+same on every process, and costs one host read per pass, as on one device
+(``ops.sor.sor_solve_cf.host_syncs`` counts them).  ||b||^2 is summed the
+same way from the bands' block partials of the coefficient planes, so no
+process joins a whole plane.
 """
 
 from __future__ import annotations
@@ -23,27 +24,36 @@ import torch
 
 from octane_tpu_torch.ops.sor import (OMEGA, PASS_SWEEPS, build_cf, sor_pass_band,
                                       sor_solve_cf)
-from octane_tpu_torch.parallel.halo import LocalExchange
+from octane_tpu_torch.ops.pcg import block_partials
+from octane_tpu_torch.parallel.halo import LocalExchange, stub
 from octane_tpu_torch.parallel.mesh import mesh_bands
 
 
-def cat_sum(parts, device, dim: int = 0) -> torch.Tensor:
-    """``torch.sum`` of the bands' pieces joined along ``dim`` on ``device``,
-    in band order.  The pieces of bands aligned to the reduction blocks
-    (parallel.mesh.band_rows) join into the whole image's partials or
-    plane, so the sum is one device's, bit for bit."""
-    return torch.sum(torch.cat([p.to(device) for p in parts], dim=dim))
+def cat_sum(parts, device, exchange=None, key=None) -> torch.Tensor:
+    """``torch.sum`` of the bands' partial vectors joined on ``device``,
+    in band order (``exchange.join``: this process's pieces, every band's on
+    every process).  The pieces of bands aligned to the reduction blocks
+    (parallel.mesh.band_rows) join into the whole image's partials, so the
+    sum is one device's, bit for bit."""
+    return torch.sum((exchange or LocalExchange()).join(parts, device, 0, key))
+
+
+def home(bands, exchange) -> torch.device:
+    """The device of this process's sums: its first band's, else the
+    exchange's (a process whose bands are all empty at this level)."""
+    return next((t.device for _, t in bands if not t.is_meta), None) or exchange.device
 
 
 def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float = OMEGA,
                 exchange=None, pass_fn=sor_pass_band):
     """SOR from x = 0 on a banded coefficient stack; returns the bands'
-    (2, hb, W) (du, dv) rows.
+    (2, hb, W) (du, dv) rows, None for another process's band.
 
-    ``bands`` is [(r0, cf), ...] in row order, cf the band's (nc, hb, W)
-    rows on its device (a view is fine); ``resid0`` is ||b||^2 on the first
-    band's device.  The loop is ``ops.sor.sor_solve_cf``'s: passes of S =
-    min(8, iters) sweeps while ||r||^2 > tol, then a remainder pass.
+    ``bands`` is [(r0, cf), ...] over every band in row order, cf the band's
+    (nc, hb, W) rows on its device (a view is fine) or a ``halo.stub`` for
+    a band of another process; ``resid0`` is ||b||^2 on this process.  The
+    loop is ``ops.sor.sor_solve_cf``'s: passes of S = min(8, iters) sweeps
+    while ||r||^2 > tol, then a remainder pass.
     """
     exchange = exchange or LocalExchange()
     if iters < 1:
@@ -52,33 +62,42 @@ def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float
     n_main, s_rem = divmod(iters, s_main)
     ghost = 2 * s_main
     tol32 = float(np.float32(tol))
-    dev0 = bands[0][1].device
-    slabs = []                        # (r0, r1, t0, cf slab, [x slab, x slab])
-    for r0, cf in bands:
-        r1 = r0 + cf.shape[1]
+    dev0 = home(bands, exchange)
+    w = next((cf.shape[2] for _, cf in bands if not cf.is_meta), 0)
+    slabs, reqs = [], []             # (r0, r1, t0, cf slab, [x slab, x slab])
+    for i, (r0, cf) in enumerate(bands):
+        r1 = r0 + cf.shape[-2]
         t0, t1 = max(0, r0 - ghost), min(true_h, r1 + ghost)
-        cfs = exchange.rows(bands, t0, t1, cf.device)
-        shape = (2, t1 - t0, cf.shape[2])
-        xs = [torch.zeros(shape, dtype=torch.float32, device=cf.device),
-              torch.empty(shape, dtype=torch.float32, device=cf.device)]
-        slabs.append((r0, r1, t0, cfs, xs))
+        cfs = xs = None
+        if not cf.is_meta:
+            cfs = torch.empty((cf.shape[0], t1 - t0, w), dtype=cf.dtype, device=cf.device)
+            shape = (2, t1 - t0, w)
+            xs = [torch.zeros(shape, dtype=torch.float32, device=cf.device),
+                  torch.empty(shape, dtype=torch.float32, device=cf.device)]
+        slabs.append((r0, r1, t0, t1, cfs, xs))
+        reqs.append((i, t0, t1, cfs))
+    exchange.fetch_bands(bands, reqs)
 
     def interior(r0, r1, t0, x):
         return x[:, r0 - t0:r1 - t0]
 
     def run(ns):
-        cur = [(r0, interior(r0, r1, t0, xs[0])) for r0, r1, t0, _, xs in slabs]
+        cur, reqs = [], []
+        for i, (r0, r1, t0, t1, _, xs) in enumerate(slabs):
+            x = xs[0] if xs else None
+            cur.append((r0, stub(r1 - r0) if x is None else interior(r0, r1, t0, x)))
+            reqs += [(i, t0, r0, None if x is None else x[:, :r0 - t0]),
+                     (i, r1, t1, None if x is None else x[:, r1 - t0:])]
+        exchange.fetch_bands(cur, reqs)
         parts = []
-        for r0, r1, t0, cfs, xs in slabs:
-            x = xs[0]
-            exchange.fetch(cur, t0, r0, x[:, :r0 - t0])
-            exchange.fetch(cur, r1, t0 + x.shape[1], x[:, r1 - t0:])
-            _, part = pass_fn(x, cfs, ns, omega, t0, true_h, r0 - t0, r1 - t0,
+        for r0, r1, t0, _, cfs, xs in slabs:
+            if xs is None:
+                continue
+            _, part = pass_fn(xs[0], cfs, ns, omega, t0, true_h, r0 - t0, r1 - t0,
                               out=interior(r0, r1, t0, xs[1]))
             parts.append(part)
-        for *_, xs in slabs:
             xs.reverse()
-        return cat_sum(parts, dev0)
+        return cat_sum(parts, dev0, exchange, ("sor", true_h, w))
 
     resid = resid0
     for _ in range(n_main):
@@ -91,12 +110,19 @@ def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float
             sor_solve_cf.host_syncs += 1
             if float(resid) > tol32:
                 run(s_rem)
-    return [interior(r0, r1, t0, xs[0]) for r0, r1, t0, _, xs in slabs]
+    return [None if xs is None else interior(r0, r1, t0, xs[0])
+            for r0, r1, t0, _, _, xs in slabs]
 
 
-def resid0_of(bands, device) -> torch.Tensor:
-    """||b||^2 of banded coefficient stacks (planes 3, 4) on ``device``."""
-    return cat_sum([cf[3:5] * cf[3:5] for _, cf in bands], device, dim=1)
+def resid0_of(bands, device, exchange=None) -> torch.Tensor:
+    """||b||^2 of banded coefficient stacks (planes 3, 4) on ``device``: the
+    sum of the bands' joined block partials, the assembly kernel's
+    (``ops.pcg.block_partials``), so it is the single-device flow's."""
+    local = [cf for _, cf in bands if not cf.is_meta]
+    h = bands[-1][0] + bands[-1][1].shape[-2]
+    w = local[0].shape[2] if local else 0
+    return cat_sum([block_partials(cf[3] * cf[3] + cf[4] * cf[4]) for cf in local], device,
+                   exchange, ("resid0", h, w))
 
 
 def split_rows(t, mesh, dim: int = -2):
@@ -106,11 +132,11 @@ def split_rows(t, mesh, dim: int = -2):
             for dev, r0, r1 in mesh_bands(mesh, t.shape[dim])]
 
 
-def make_sharded_fused_sor(mesh, omega: float = OMEGA, exchange=None):
+def make_sharded_fused_sor(mesh, omega: float = OMEGA):
     """sor_fn(sysm, tol, iters) -> (du, dv): the banded SOR of a whole
     flow.stencil.StencilSystem over the mesh's bands (octane_tpu's
     make_sharded_fused_sor); the result is on the first band's device."""
-    exchange = exchange or LocalExchange()
+    exchange = LocalExchange()
 
     def sor_fn(sysm, tol, iters):
         cf = build_cf(sysm)

@@ -6,7 +6,8 @@ and 3 (``channel2``/``channel3``, regridded onto channel 1) or on a polar
 or mercator grid, with the cloud-top height (CTP product, SRSAL
 smoothing), the first-guess winds and the temporally interpolated frames
 (``-interp``).  Products are named with the grid's suffix, as octane_tpu
-names them (oct_filewrite.cc:707-715).
+names them (oct_filewrite.cc:707-715).  Under a device mesh (``-mesh``)
+the frames run on its row bands (``parallel.post.sharded_interpolate_frame``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from octane_tpu_torch.config import OFConfig
-from octane_tpu_torch.flow.dispatcher import compute_flow
+from octane_tpu_torch.flow.dispatcher import active_mesh, compute_flow
 from octane_tpu_torch.io.datamodel import Scene
 from octane_tpu_torch.io.native import requantize
 from octane_tpu_torch.io.readers import read_cth, read_first_guess, read_scene
@@ -83,9 +84,19 @@ def interpolate_sequence(scene1: Scene, scene2: Scene, cfg: OFConfig,
     frt = step
     idx = 1
     counts_dtype = torch.empty(0, dtype=scene1.raw_counts.dtype).numpy().dtype
+    mesh = active_mesh(cfg, scene1.data.device)
+    if mesh is not None:
+        from octane_tpu_torch.parallel.post import sharded_interpolate_frame
+        # the splat's halo from the flow, rounded up as octane_tpu rounds it
+        md = float(max(scene1.u_pix.abs().max(), scene1.v_pix.abs().max()))
+        max_disp = max(8, int(-(-md // 8) * 8))
     while frt < 1.0 and (1.0 - frt) >= step / 2.0:
-        img, occ = interpolate_frame(scene1.u_pix, scene1.v_pix, scene1.data,
-                                     scene2.data, frt)
+        if mesh is not None:
+            img, occ = sharded_interpolate_frame(scene1.u_pix, scene1.v_pix, scene1.data,
+                                                 scene2.data, frt, mesh, max_disp=max_disp)
+        else:
+            img, occ = interpolate_frame(scene1.u_pix, scene1.v_pix, scene1.data,
+                                         scene2.data, frt)
         img = img.cpu().numpy()
         # normalized 0-255 image back to radiance counts (oct_interp.cc:424-457)
         counts = np.empty(img.shape, counts_dtype)

@@ -16,7 +16,9 @@ within 1e-4).  The band forms of the mesh path (warp, SOR pass, PCG pass A,
 bilateral) equal their plain versions and the whole-image kernels' rows bit
 for bit (the bilateral: rel 1e-5 to its plain version), and the banded
 pair on a mesh of cuda:0 bands agrees with the single-device pair within
-1e-3 px.
+1e-3 px.  Two processes (``parallel.distributed``: gloo on cuda:0, or
+nccl one per card where there are two) solve the 512^2 fixture pair, each
+its row block, equal to the single-process banded flow's rows.
 """
 
 import numpy as np
@@ -375,3 +377,30 @@ def test_banded_flow_on_the_card(dev, solver):
     c = ops.counters()
     assert all(c[k][0] > 0 and c[k][1] == 0 for k in ops.PATHS[f"mesh_{solver}"])
     assert max(float((u1 - u2).abs().max()), float((v1 - v2).abs().max())) <= 1e-3
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+def test_two_processes_on_the_card(dev, tmp_path, solver):
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.io.readers import scene_from_goes_arrays
+    from octane_tpu_torch.parallel import make_mesh, sharded_variational_flow
+    from torch_dist_worker import card_flow, spawn
+    from torch_fixtures import FIXTURE_T0, fixture_counts, goes_arrays
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    out = str(tmp_path / "flow")
+    spawn(card_flow, [(r, f"file://{tmp_path / 'store'}", backend, out, solver)
+                      for r in range(2)], 300)
+    cfg = OFConfig(kiters=3, solver=solver)
+    s1, s2 = (scene_from_goes_arrays(*goes_arrays(fixture_counts(*shift), t)[:4], cfg, dev,
+                                     donav=False, t=t)
+              for shift, t in (((0, 0), FIXTURE_T0), ((3.0, -1.5), FIXTURE_T0 + 60.0)))
+    z = torch.zeros((512, 512), device=dev)
+    u, v = sharded_variational_flow(s1.data, s2.data, z, z, cfg, make_mesh((1, 2), [dev] * 2))
+    for r in range(2):
+        got = np.load(f"{out}.{r}.npz")
+        r0, r1 = got["rows"]
+        assert (r0, r1) == ((0, 256) if r == 0 else (256, 512))
+        np.testing.assert_array_equal(got["u"], u[r0:r1].cpu().numpy())
+        np.testing.assert_array_equal(got["v"], v[r0:r1].cpu().numpy())
+        assert (got["launches"] > 0).all() and not got["plain"].any()

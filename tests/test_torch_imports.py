@@ -1,8 +1,8 @@
 """Import hygiene and the no-fallback rule of octane_tpu_torch.
 
 * importing the port (every module, and the CLI) loads no jax and nothing
-  of octane_tpu; chip_smoke.py, the profile tool and the fixtures they share
-  name neither anywhere in their imports;
+  of octane_tpu; chip_smoke.py, the profile tool, the NCCL probe and the
+  test modules chip_smoke.py loads name neither anywhere in their imports;
 * ``ops.build.load_kernels`` raises where nvcc is missing instead of
   handing back the plain path;
 * chip_smoke.py exits non-zero and prints no result without a CUDA device.
@@ -42,7 +42,8 @@ def test_port_imports_without_jax():
         "        'octane_tpu_torch.nav.polar', 'octane_tpu_torch.nav.mercator',\n"
         "        'octane_tpu_torch.sequence', 'octane_tpu_torch.parallel',\n"
         "        'octane_tpu_torch.parallel.sharded',\n"
-        "        'octane_tpu_torch.parallel.post'} <= set(names)\n"
+        "        'octane_tpu_torch.parallel.post',\n"
+        "        'octane_tpu_torch.parallel.distributed'} <= set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'octane_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -51,7 +52,8 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tools/profile_torch_pair.py",
-                                  "tests/torch_fixtures.py"])
+                                  "tests/torch_fixtures.py", "tests/torch_dist_worker.py",
+                                  "tools/nccl_one_card.py"])
 def test_smoke_imports_neither_jax_nor_octane_tpu(path):
     with open(os.path.join(ROOT, path)) as f:
         tree = ast.parse(f.read())

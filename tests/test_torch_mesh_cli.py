@@ -6,7 +6,8 @@
 * ``-mesh 2x4 -srsal`` runs ``sharded_srsal`` and ``-mesh`` with
   ``-hybrid`` and ``-interp`` writes the single-device products (patch-match
   and interpolation run whole, the refinement on the bands);
-* ``-nprocs`` still raises NotImplementedError;
+* ``-nprocs 1`` runs the multi-process path in one process and writes the
+  ``-mesh`` product (tests/test_torch_distributed.py runs 2 processes);
 * ``active_mesh`` is None without a mesh, and where too few CUDA devices
   exist (with a warning), and all-CPU bands on ``device="cpu"``.
 """
@@ -110,10 +111,15 @@ def test_cli_mesh_hybrid_and_interp_match_single_device(pair128, tmp_path, flags
 
 
 def test_cli_nprocs_still_raises(pair128, tmp_path):
+    """-nprocs no longer raises: with one process it writes the -mesh product."""
     f1, f2, _ = pair128
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
-                  "-nprocs", "2", "-procid", "0"])
+    flags = ("-solver", "sor", "-mesh", "2x2", "-kiters", "2")
+    one = _run(f1, f2, tmp_path / "nprocs", *flags, "-nprocs", "1")
+    mesh = _run(f1, f2, tmp_path / "mesh", *flags)
+    with h5py.File(one) as a, h5py.File(mesh) as b:
+        assert sorted(a) == sorted(b)
+        for k in b:
+            np.testing.assert_array_equal(a[k][()], b[k][()], err_msg=k)
     assert cli.args_to_config(cli.build_parser().parse_args(
         ["-i1", f1, "-i2", f2, "-mesh", "2x4"])).mesh_shape == (2, 4)
 

@@ -237,16 +237,25 @@ def test_writer_matches_jax(jax_pair128, tmp_path, pixuv):
             assert np.asarray(aa[k]).dtype == np.asarray(ab[k]).dtype, f"{name}.{k}"
 
 
-def test_unported_options_raise(pair512, tmp_path):
-    """The multi-process flag is the only one not ported: ``-mesh`` parses
-    into the mesh path's config (tests/test_torch_mesh_cli.py runs it)."""
-    f1, f2 = pair512
+def test_unported_options_raise(extras128, tmp_path):
+    """Every option is ported: ``-mesh`` parses into the mesh path's config
+    (tests/test_torch_mesh_cli.py runs it) and ``-nprocs 1`` runs the
+    multi-process path in one process, writing the single-device product's
+    variables (tests/test_torch_distributed.py runs 2 processes)."""
+    f1, f2 = extras128[13][:2]
     cfg = cli.args_to_config(cli.build_parser().parse_args(
         ["-i1", f1, "-i2", f2, "-o", str(tmp_path), "-mesh", "2x2"]))
     assert cfg.mesh_shape == (2, 2)
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i1", f1, "-i2", f2, "-o", str(tmp_path), "--device", "cpu",
-                  "-nprocs", "2", "-procid", "0"])
+    flags = ["-i1", f1, "-i2", f2, "--device", "cpu", "-kiters", "2", "-cgiters", "8"]
+    assert cli.main(flags + ["-o", str(tmp_path / "one"), "-nprocs", "1"]) == 0
+    assert cli.main(flags + ["-o", str(tmp_path / "single")]) == 0
+    with h5py.File(tmp_path / "one" / "outfile.nc") as a, \
+            h5py.File(tmp_path / "single" / "outfile.nc") as b:
+        assert sorted(a) == sorted(b)
+        np.testing.assert_array_equal(a["Rad"][()], b["Rad"][()])
+        for k in ("U", "V", "U_raw", "V_raw"):
+            d = np.abs(a[k][()].astype(np.int64) - b[k][()].astype(np.int64))
+            assert d.max() <= 1 and (d == 0).mean() >= 0.99, k
 
 
 @pytest.fixture(scope="module")
