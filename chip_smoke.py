@@ -41,7 +41,8 @@ Phases, one line each (any failure exits non-zero):
      (kernel against kernel), CTP the regridded CTH as int16; the CTH
      regrid of a band-2-like 2000^2 scene from a 500^2 field, bicubic and
      nearest, against the same call on the CPU (rel <= 1e-5);
- 10. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow and
+ 10. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow (the
+     timed call a replay of its captured program) and
      pix2uv, per solver, timed with CUDA events with the kernels and with
      their plain versions (the solver's internal plain route); the two flows
      must be bit-identical and the median flow within 0.1 px of the truth.
@@ -57,8 +58,9 @@ Phases, one line each (any failure exits non-zero):
  11. hybrid (patch-match initialization + variational refinement): at
      1024^2 on the bench pair, patch_match_flow on the card equal to the
      same call on the CPU (whole-pixel offsets everywhere, u and v within
-     1e-5 px), and per solver the refinement of its flow with the kernels
-     torch.equal to the plain route; at 5424^2, kernels only, per solver, a
+     1e-5 px), and per solver the refinement of its flow, replayed
+     through its program, torch.equal to the first call and to the plain
+     route; at 5424^2, kernels only, per solver, a
      hybrid pair through compute_flow (algorithm="hybrid"; the warm-up),
      then the same two calls (patch_match_flow, variational_flow) timed
      apart with CUDA events and counted (each kernel of the solver
@@ -78,8 +80,9 @@ Phases, one line each (any failure exits non-zero):
  13. multichannel: (a) at C = 2 and 3 channels (the bench pair plus
      channels of other seeds) the warp (K = 6C planes) and the fused
      assembly bit-exact against their plain versions at every pyramid
-     level's shape, 5424^2 .. 678^2, and at 1024^2 variational_flow with
-     the kernels torch.equal to the plain route, per relaxer; (b) a
+     level's shape, 5424^2 .. 678^2, and at 1024^2 variational_flow's
+     replay torch.equal to its first call and to the plain route, per
+     relaxer; (b) a
      three-channel GOES full-disk pair through the array halves: channel 1
      the bench pair as band-13 counts at 5424^2 (scene_from_goes_arrays),
      channel 2 band-3-like 1-km counts at 10848^2 zoomed out onto it,
@@ -142,6 +145,27 @@ Phases, one line each (any failure exits non-zero):
      interpolate_frame.  (c) Where h5py is installed, -nprocs 2 through
      the CLI on the 512^2 fixture equal to the single-process -mesh
      product.
+ 18. program: the captured pair (flow.variational.flow_program; every
+     variational_flow call on the card above goes through it: a key's
+     first call runs the pair eagerly, its second captures the program,
+     and it and later calls replay it, so the gates of phases 8, 10, 11,
+     13 and 15 hold the replayed graph, and phase 7's single CLI pair the
+     eager first call).  (a) At
+     512^2 and 500x372 per relaxer, kiters 3, at the default tolerance and
+     at one that stops the relaxer early, and for a second input of the
+     same shape: the replay torch.equal to the eager kernel route
+     (_coarse_to_fine) and to the plain route, the same device count of
+     iterations (PCG) or passes (SOR), no host read (the drivers'
+     counters, and torch.cuda.set_sync_debug_mode("error") around the
+     replay).  (b) The 5424^2 pair per relaxer (kiters 4) in turns (eager,
+     graph, graph, eager; 3 pairs each): pair ms (CUDA events and host
+     wall, min and median), the first (eager) and second (capture +
+     replay) calls' and the capture + instantiation's seconds, host syncs per pair, each kernel's launches
+     (the graph's from its device count) equal to the eager route's, peaks
+     and the bytes the programs' pools reserve, the flows equal to each
+     other and to the plain route.  (c) Config 5's sequence per relaxer through the program
+     against the eager chain: every pair torch.equal, ms per pair.
+Every phase's programs are dropped after it (clear_program_cache).
 The line before the last is the kernels' JSON record (launches on the
 5424^2 pairs and the SRSAL product path, launches on the 5424^2 hybrid
 pair and on the three-channel 5424^2 pair, max |d|, ms, plain ms, bound ms
@@ -171,7 +195,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
 PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
-          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh", "dist")
+          "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh", "dist",
+          "program")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
 MESO = 2000             # a mesoscale-sector shape for the first-guess gather path
 FLAT = 2048             # the flat-grid phase's correctness shape
@@ -304,6 +329,17 @@ def phase_env():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the flow program's capture: graph IF nodes of its own (csrc/graph.cu),
+    # bodies allocating from a MemPool, programs sharing a graph pool
+    missing = [name for name in ("MemPool", "use_mem_pool", "graph_pool_handle", "CUDAGraph")
+               if not hasattr(torch.cuda, name)]
+    if missing:
+        raise RuntimeError(f"env: torch {torch.__version__} lacks torch.cuda."
+                           f"{', torch.cuda.'.join(missing)}, which the flow program needs")
+    say("env", "flow program: torch.cuda.MemPool, use_mem_pool, graph_pool_handle present; "
+               "IF nodes from csrc/graph.cu (torch's own conditional-node helper "
+               f"{'present' if importlib.util.find_spec('torch._higher_order_ops.cudagraph_conditional_nodes') else 'absent'}"
+               ", not used)")
     return have
 
 
@@ -591,12 +627,13 @@ def phase_golden(dev):
 
     g = np.load(os.path.join(ROOT, "tests", "golden", "variational_256.npz"))
     z = torch.zeros(g["u"].shape, device=dev)
+    im1, im2 = (torch.from_numpy(g[k]).to(dev) for k in ("im1", "im2"))
     for solver in ("pcg", "sor"):
-        u, v = variational_flow(torch.from_numpy(g["im1"]).to(dev),
-                                torch.from_numpy(g["im2"]).to(dev), z, z,
-                                OFConfig(kiters=4, solver=solver))
+        u, v = replayed(lambda: variational_flow(im1, im2, z, z,
+                                                 OFConfig(kiters=4, solver=solver)))
         mean, mx, _ = epe_stats(u.cpu().numpy(), v.cpu().numpy(), g["u"], g["v"])
-        say("golden", f"variational_256 (kiters=4, {solver}): mean EPE {mean:.3e} px, "
+        say("golden", f"variational_256 (kiters=4, {solver}; first call and replay "
+                      f"equal): mean EPE {mean:.3e} px, "
                       f"max {mx:.3e} px")
         if not (mean < 0.01 and mx < 0.1):
             raise AssertionError(f"golden: {solver} EPE outside the budget")
@@ -716,11 +753,13 @@ def grid_sample_fn(stack, u, v):
 
 
 def time_pair(run):
-    """One warm-up, then one pair timed with CUDA events after the counters
-    are reset: (u, v, ms, peak GiB)."""
+    """Two warm-ups (a flow program's first call runs the pair eagerly, its
+    second captures it), then one pair timed with CUDA events after the
+    counters are reset: (u, v, ms, peak GiB)."""
     from octane_tpu_torch import ops
     from octane_tpu_torch.parallel import sharded
 
+    run()
     run()
     torch.cuda.synchronize()
     ops.reset_counters()
@@ -734,13 +773,25 @@ def time_pair(run):
     return u, v, start.elapsed_time(end), torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+def replayed(run):
+    """``run()`` twice: a key's first call, which runs the pair eagerly,
+    then the capture and first replay of its program; the replay's (u, v),
+    after both calls' flows are held torch.equal."""
+    fu, fv_ = run()
+    u, v = run()
+    if not (torch.equal(u, fu) and torch.equal(v, fv_)):
+        raise AssertionError("the replayed program's flow differs from the first call's")
+    return u, v
+
+
 def phase_fulldisk(dev, report):
     from octane_tpu_torch import ops
     from octane_tpu_torch.config import OFConfig
     from octane_tpu_torch.core.gradients import gradient_4th
     from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_size
     from octane_tpu_torch.flow.stencil import assemble
-    from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
+    from octane_tpu_torch.flow.variational import (_coarse_to_fine, program_pool_bytes,
+                                                   variational_flow)
     from octane_tpu_torch.nav.winds import pix2uv
     from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
     from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
@@ -769,8 +820,10 @@ def phase_fulldisk(dev, report):
             u, v, ms, peak = time_pair(run)
             results[label] = (u, v)
             c = ops.counters()
+            pools = (f" (a replay: the programs' pools reserve "
+                     f"{program_pool_bytes(dev) / 2 ** 30:.2f} GiB)" if label == "kernels" else "")
             say("fulldisk", f"{solver} {label}: {ms:.1f} ms per pair, "
-                            f"{mpix / (ms / 1e3):.3f} Mpix/s, peak {peak:.2f} GiB, "
+                            f"{mpix / (ms / 1e3):.3f} Mpix/s, peak {peak:.2f} GiB{pools}, "
                             f"host syncs {c[f'{solver}_host_syncs']}")
             if label == "kernels":
                 pair_ms[solver] = ms
@@ -993,13 +1046,13 @@ def phase_hybrid(dev, report):
         raise AssertionError("hybrid: patch-match on the card differs from the CPU")
     for solver in ("pcg", "sor"):
         cfg = OFConfig(kiters=4, solver=solver)
-        ku, kv = variational_flow(g1, g2, pu, pv, cfg)
+        ku, kv = replayed(lambda: variational_flow(g1, g2, pu, pv, cfg))
         qu, qv = _coarse_to_fine(g1, g2, pu, pv, cfg, plain=True)
         torch.cuda.synchronize()
         same = torch.equal(ku, qu) and torch.equal(kv, qv)
         m = SECTOR // 8
         say("hybrid", f"{SECTOR}x{SECTOR} {solver}: refinement of the patch-match flow, "
-                      f"kernels vs plain route torch.equal {same}; median "
+                      f"replayed program vs plain route torch.equal {same}; median "
                       f"({float(ku[m:-m, m:-m].median()):.4f}, "
                       f"{float(kv[m:-m, m:-m].median()):.4f}) px, truth (2.4, 0)")
         if not same:
@@ -1027,9 +1080,10 @@ def phase_hybrid(dev, report):
             return compute_flow(Scene(nav=dataclasses.replace(nav), data=g1, t=fx.FIXTURE_T0),
                                 Scene(nav=nav, data=g2, t=fx.FIXTURE_T0 + 60.0), cfg)
 
-        # compute_flow warms up and gives the flow the counted, timed run
-        # of its two calls must equal
+        # compute_flow's first call (eager) gives the flow the counted, timed
+        # replay of its two calls must equal; its second captures the program
         s1 = run()
+        run()
         torch.cuda.synchronize()
         ops.reset_counters()
         torch.cuda.reset_peak_memory_stats()
@@ -1079,6 +1133,12 @@ def phase_hybrid(dev, report):
     if not (abs(med[0] - 2.4) < 0.5 and abs(med[1]) < 0.5 and torch.isfinite(u).all()):
         raise AssertionError("hybrid: the first-guess patch-match flow misses the truth")
     return (*flows["sor"], g1, g2, nav)
+
+
+def phase_hybrid_interp(dev, report, interp):
+    hybrid = phase_hybrid(dev, report)
+    if interp:
+        phase_interp(dev, hybrid)
 
 
 def phase_interp(dev, hybrid):
@@ -1284,13 +1344,13 @@ def phase_multichannel(dev, report):
         z = torch.zeros((SECTOR, SECTOR), device=dev)
         for solver in ("pcg", "sor"):
             cfg = OFConfig(kiters=4, solver=solver, nchannels=c)
-            ku, kv = variational_flow(s1, s2, z, z, cfg)
+            ku, kv = replayed(lambda: variational_flow(s1, s2, z, z, cfg))
             qu, qv = _coarse_to_fine(s1, s2, z, z, cfg, plain=True)
             torch.cuda.synchronize()
             same = torch.equal(ku, qu) and torch.equal(kv, qv)
             m = SECTOR // 8
-            say("multichannel", f"C={c} {SECTOR}x{SECTOR} {solver}: variational_flow with "
-                                f"the kernels torch.equal to the plain route {same}; median "
+            say("multichannel", f"C={c} {SECTOR}x{SECTOR} {solver}: variational_flow's "
+                                f"replayed program torch.equal to the plain route {same}; median "
                                 f"({float(ku[m:-m, m:-m].median()):.4f}, "
                                 f"{float(kv[m:-m, m:-m].median()):.4f}) px, truth (2.4, 0)")
             if not same:
@@ -1315,7 +1375,8 @@ def phase_multichannel(dev, report):
     launches, pair_ms, flows = {}, {}, {}
     for solver in ("pcg", "sor"):
         cfg = OFConfig(kiters=4, solver=solver, nchannels=3)
-        compute_flow(s1, s2, cfg)
+        compute_flow(s1, s2, cfg)              # the eager first call
+        compute_flow(s1, s2, cfg)              # capture and first replay
         torch.cuda.synchronize()
         ops.reset_counters()
         torch.cuda.reset_peak_memory_stats()
@@ -1472,20 +1533,21 @@ def sequence_frames(dev, n=12, hw=500):
     return [torch.from_numpy(fx.bench_pair(hw, hw, seed=i)[0][None]).to(dev) for i in range(n)]
 
 
-def run_chain(frames, nav, cfg, t0, plain=False):
+def run_chain(frames, nav, cfg, t0, plain=False, eager=False):
     """The frames' consecutive pairs, each warm-started from the previous
     pair's flow: through compute_flow(..., first_guess=...) over in-memory
-    scenes (run_sequence's loop), or through the plain route."""
+    scenes (run_sequence's loop, whose pairs replay the flow program), or
+    through the plain route, or (``eager``) through the eager kernel route."""
     from octane_tpu_torch.flow.dispatcher import compute_flow
     from octane_tpu_torch.flow.variational import _coarse_to_fine
     from octane_tpu_torch.io.datamodel import Scene
 
     flows, prev = [], None
     for i in range(len(frames) - 1):
-        if plain:
+        if plain or eager:
             z = torch.zeros(frames[i].shape[1:], device=frames[i].device)
             u0, v0 = prev if prev is not None else (z, z)
-            prev = _coarse_to_fine(frames[i], frames[i + 1], u0, v0, cfg, plain=True)
+            prev = _coarse_to_fine(frames[i], frames[i + 1], u0, v0, cfg, plain=plain)
         else:
             s1 = Scene(nav=dataclasses.replace(nav), data=frames[i], t=t0 + 60.0 * i)
             s2 = Scene(nav=nav, data=frames[i + 1], t=t0 + 60.0 * (i + 1))
@@ -1567,6 +1629,199 @@ def phase_sequence(dev, have_h5py):
         say("sequence", "h5py is not installed: run_sequence's checkpoint/resume is not run "
                         "here (tests/test_torch_sequence.py runs it on the CPU)")
     say("sequence", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+PROGRAM_RUNS = 3        # pairs timed per route and turn in the program phase
+
+
+def program_pair(run, n=PROGRAM_RUNS):
+    """``run()`` n times, each timed with CUDA events and the host clock
+    around it (synchronised): (u, v, [ms], [wall ms])."""
+    ms, wall = [], []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        u, v = run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return u, v, ms, wall
+
+
+def phase_program(dev, report):
+    """The captured pair (flow.variational.flow_program) against the eager
+    kernel route and the plain route."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+
+    fx = load_tests_module("torch_fixtures")
+    t_phase = time.perf_counter()
+    key = {"pcg": "pcg_iterations", "sor": "sor_passes"}
+
+    def replay_checked(prog, *args):
+        """One replay under sync-debug "error", counted: (u, v, count)."""
+        syncs = {s: ops.counters()[f"{s}_host_syncs"] for s in key}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            u, v = prog(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        c = ops.counters()
+        if any(c[f"{s}_host_syncs"] != syncs[s] for s in key):
+            raise AssertionError("program: a replayed pair read the host")
+        return u, v, c[key[prog.cfg.solver]]
+
+    def early_tol(g1, g2, z, solver):
+        """The first of 1e-1, 1e1, 1e3, 1e5 at which the eager pair stops a
+        relaxer early."""
+        for tol in (1e-1, 1e1, 1e3, 1e5):
+            fv._coarse_to_fine(g1, g2, z, z, OFConfig(kiters=3, solver=solver, cg_tol=tol))
+            if ops.counters()[key[solver]] < most[solver]:
+                return tol
+        raise AssertionError(f"program: no tolerance stops the {solver} relaxer early")
+
+    # (a) small shapes: the default tolerance and one that stops the
+    # relaxer early, and a second replay with other inputs of the same shape
+    most = {"pcg": 3 * 9 * 30, "sor": 3 * 9 * 4}     # kiters 3, 9 rounds, 30 its / 4 passes
+    for (h, w) in ((512, 512), (500, 372)):
+        g1, g2 = bench_images(h, w, dev)
+        z = torch.zeros((h, w), device=dev)
+        ua, va = noisy_flow(h, w, dev, seed=3)
+        for solver in ("pcg", "sor"):
+            for tol in (OFConfig().cg_tol, early_tol(g1, g2, z, solver)):
+                cfg = OFConfig(kiters=3, solver=solver, cg_tol=tol)
+                prog = fv.flow_program(cfg, (h, w), 1, dev)
+                line = []
+                for u0, v0 in ((z, z), (0.5 * ua, 0.5 * va)):
+                    eu, ev = fv._coarse_to_fine(g1, g2, u0, v0, cfg)
+                    e_count = ops.counters()[key[solver]]
+                    pu, pv = fv._coarse_to_fine(g1, g2, u0, v0, cfg, plain=True)
+                    while prog.graph is None:       # the eager call, then the capture
+                        prog(g1, g2, u0, v0)
+                    gu, gv, g_count = replay_checked(prog, g1, g2, u0, v0)
+                    ok = (torch.equal(gu, eu) and torch.equal(gv, ev) and torch.equal(gu, pu)
+                          and torch.equal(gv, pv) and g_count == e_count)
+                    line.append(f"{key[solver]} {g_count} (eager {e_count}) equal {ok}")
+                    if not ok:
+                        raise AssertionError(f"program: {h}x{w} {solver} tol {tol}: the "
+                                             "replay differs from the eager or plain route")
+                say("program", f"{h}x{w} {solver} cg_tol {tol:g}: " + "; ".join(line)
+                               + f"; capture {prog.capture_seconds:.2f} s")
+        fv.clear_program_cache()
+
+    # (b) the full-disk pair per relaxer, in turns: eager, graph, graph, eager
+    h = w = FULLDISK
+    g1, g2 = bench_images(h, w, dev)
+    z = torch.zeros((h, w), device=dev)
+    out = {}
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=4, solver=solver)
+        prog = fv.flow_program(cfg, (h, w), 1, dev)
+        torch.cuda.reset_peak_memory_stats()
+        first_s = []
+        for _ in range(2):             # the eager first call, then capture + replay
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog(g1, g2, z, z)
+            torch.cuda.synchronize()
+            first_s.append(time.perf_counter() - t0)
+        capture_peak = torch.cuda.max_memory_allocated()
+        pool = fv.program_pool_bytes(dev)
+        times = {"eager": ([], []), "graph": ([], [])}
+        flows, launched = {}, {}
+        for route in ("eager", "graph", "graph", "eager"):
+            if route == "eager":
+                run = lambda: fv._coarse_to_fine(g1, g2, z, z, cfg)   # noqa: E731
+            else:
+                run = lambda: prog(g1, g2, z, z)                       # noqa: E731
+            ops.reset_counters()
+            u, v, ms, wall = program_pair(run)
+            c = ops.counters()
+            flows[route] = (u, v, c[key[solver]], c[f"{solver}_host_syncs"])
+            launched[route] = {n: c[n][0] for n in ops.WRAPPERS if c[n][0]}
+            times[route][0].extend(ms)
+            times[route][1].extend(wall)
+        gu, gv, g_count, g_syncs = flows["graph"]
+        eu, ev, e_count, e_syncs = flows["eager"]
+        torch.cuda.reset_peak_memory_stats()
+        gu2, gv2, checked_count = replay_checked(prog, g1, g2, z, z)
+        replay_peak = torch.cuda.max_memory_allocated()
+        pu, pv = fv._coarse_to_fine(g1, g2, z, z, cfg, plain=True)
+        same = (torch.equal(gu, eu) and torch.equal(gv, ev) and torch.equal(gu, pu)
+                and torch.equal(gv, pv) and torch.equal(gu2, gu) and torch.equal(gv2, gv))
+        m = 512
+        med = (float(gu[m:-m, m:-m].median()), float(gv[m:-m, m:-m].median()))
+        stat = {r: (min(t[0]), float(np.median(t[0])), min(t[1]), float(np.median(t[1])))
+                for r, t in times.items()}
+        say("program", f"{h}x{w} {solver} (kiters 4): graph {stat['graph'][0]:.1f} / "
+                       f"{stat['graph'][1]:.1f} ms per pair (min / median of "
+                       f"{len(times['graph'][0])}, CUDA events; host wall "
+                       f"{stat['graph'][2]:.1f} / {stat['graph'][3]:.1f} ms), eager "
+                       f"{stat['eager'][0]:.1f} / {stat['eager'][1]:.1f} ms (host wall "
+                       f"{stat['eager'][2]:.1f} / {stat['eager'][3]:.1f} ms); first call "
+                       f"(eager) {first_s[0]:.2f} s, second (capture + instantiate + "
+                       f"replay) {first_s[1]:.2f} s, capture "
+                       f"+ instantiate {prog.capture_seconds:.2f} s; host syncs per pair "
+                       f"graph {g_syncs / PROGRAM_RUNS:g}, eager {e_syncs / PROGRAM_RUNS:g}; "
+                       f"{key[solver]} graph "
+                       f"{g_count} eager {e_count} checked replay {checked_count}; launches "
+                       f"graph {json.dumps(launched['graph'])} eager "
+                       f"{json.dumps(launched['eager'])}; peak "
+                       f"{capture_peak / 2 ** 30:.2f} GiB over the first two calls, "
+                       f"{replay_peak / 2 ** 30:.2f} GiB at a replay, pools reserve "
+                       f"{pool / 2 ** 30:.2f} GiB; graph == eager == plain {same}; median "
+                       f"({med[0]:.4f}, {med[1]:.4f}) px")
+        if not (same and g_count == e_count == checked_count and g_syncs == 0
+                and launched["graph"] == launched["eager"]
+                and abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1):
+            raise AssertionError(f"program: the {solver} full-disk replay differs from the "
+                                 "eager or plain route, or read the host")
+        out[solver] = {"graph_ms": stat["graph"][:2], "eager_ms": stat["eager"][:2],
+                       "first_s": first_s, "capture_s": prog.capture_seconds,
+                       "pool_bytes": pool}
+        del flows, gu, gv, eu, ev, pu, pv, gu2, gv2
+        fv.clear_program_cache()
+    del g1, g2, z
+
+    # (c) bench config 5's sequence through the program against the eager chain
+    frames = sequence_frames(dev)
+    _, _, _, nav, *_ = fx.goes_arrays(np.zeros((500, 500), np.int16), fx.FIXTURE_T0)
+    nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
+    npairs = len(frames) - 1
+    for solver in ("pcg", "sor"):
+        cfg = OFConfig(kiters=3, alpha=5.0, lambda_=1.0, lambdac=0.05, solver=solver)
+        timed = {}
+        for label, eager in (("eager", True), ("graph", False)):
+            run_chain(frames, nav, cfg, fx.FIXTURE_T0, eager=eager)    # warm-up / capture
+            ops.reset_counters()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            flows = run_chain(frames, nav, cfg, fx.FIXTURE_T0, eager=eager)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / npairs
+            timed[label] = (flows, ev[0].elapsed_time(ev[1]) / npairs, wall,
+                            ops.counters()[f"{solver}_host_syncs"])
+        same = all(torch.equal(a, b) for f, e in zip(timed["graph"][0], timed["eager"][0])
+                   for a, b in zip(f, e))
+        say("program", f"config 5 sequence {solver}: {npairs} pairs through the program "
+                       f"{timed['graph'][1]:.2f} ms per pair (host wall {timed['graph'][2]:.2f}"
+                       f", host syncs {timed['graph'][3]}), eager chain "
+                       f"{timed['eager'][1]:.2f} ms (host wall {timed['eager'][2]:.2f}, host "
+                       f"syncs {timed['eager'][3]}); every pair torch.equal {same}")
+        if not same or timed["graph"][3] != 0:
+            raise AssertionError(f"program: the {solver} sequence differs from the eager chain")
+        out[f"seq_{solver}"] = (timed["graph"][1], timed["eager"][1])
+        fv.clear_program_cache()
+    report["_program"] = out
+    say("program", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 MESH_BANDS = 4                      # the mesh phase's bands, all on cuda:0
@@ -2132,35 +2387,29 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     report = {}
     have = phase_env()
+    from octane_tpu_torch.flow.variational import clear_program_cache
+
     if "build" in only:
         phase_build()
-    for name, phase in (("warp", phase_warp), ("pcg", phase_pcg),
-                        ("assemble", phase_assemble), ("sor", phase_sor)):
+    phases = [("warp", lambda: phase_warp(dev, report)),
+              ("pcg", lambda: phase_pcg(dev, report)),
+              ("assemble", lambda: phase_assemble(dev, report)),
+              ("sor", lambda: phase_sor(dev, report)),
+              ("main", lambda: phase_main(dev, have["h5py"])),
+              ("golden", lambda: phase_golden(dev)),
+              ("srsal", lambda: phase_srsal(dev, report)),
+              ("fulldisk", lambda: phase_fulldisk(dev, report)),
+              ("hybrid", lambda: phase_hybrid_interp(dev, report, "interp" in only)),
+              ("multichannel", lambda: phase_multichannel(dev, report)),
+              ("flatgrid", lambda: phase_flatgrid(dev)),
+              ("sequence", lambda: phase_sequence(dev, have["h5py"])),
+              ("mesh", lambda: phase_mesh(dev, report)),
+              ("dist", lambda: phase_dist(dev, report, have["h5py"])),
+              ("program", lambda: phase_program(dev, report))]
+    for name, phase in phases:
         if name in only:
-            phase(dev, report)
-    if "main" in only:
-        phase_main(dev, have["h5py"])
-    if "golden" in only:
-        phase_golden(dev)
-    if "srsal" in only:
-        phase_srsal(dev, report)
-    if "fulldisk" in only:
-        phase_fulldisk(dev, report)
-    if "hybrid" in only:
-        hybrid = phase_hybrid(dev, report)
-        if "interp" in only:
-            phase_interp(dev, hybrid)
-        del hybrid
-    if "multichannel" in only:
-        phase_multichannel(dev, report)
-    if "flatgrid" in only:
-        phase_flatgrid(dev)
-    if "sequence" in only:
-        phase_sequence(dev, have["h5py"])
-    if "mesh" in only:
-        phase_mesh(dev, report)
-    if "dist" in only:
-        phase_dist(dev, report, have["h5py"])
+            phase()
+            clear_program_cache()        # each phase's programs leave the card
 
     if {"warp", "pcg", "assemble", "sor", "srsal", "fulldisk", "hybrid", "multichannel"} <= only:
         from octane_tpu_torch import ops

@@ -6,9 +6,10 @@
   exact index selection.
 * ``zoom_in_flow``: Catmull-Rom at half-pixel-offset positions, divided by
   the scale factor (:450-466).  The separable interpolation matrices are
-  built on the device from their taps and weights and applied with
-  ``torch.matmul`` (keep TF32 off on the card:
-  ``torch.backends.cuda.matmul.allow_tf32`` is False by default).
+  built on the device from their taps and weights, once per shape
+  (``flow_zoom_matrix``), and applied with ``torch.matmul`` (keep TF32 off
+  on the card: ``torch.backends.cuda.matmul.allow_tf32`` is False by
+  default).
 * ``pyramid_rows`` / ``pyramid_downsample_rows`` and ``flow_rows`` /
   ``zoom_in_flow_rows``: the same two solver resamplings for output rows
   [a, b) only, from the input rows they read (the row-banded mesh path);
@@ -42,9 +43,15 @@ def _weights_sigma(factor: float) -> float:
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """Host array -> tensor on ``device``, without a stream sync on CUDA."""
+    """Host array -> tensor on ``device``, without a stream sync on CUDA.
+
+    Raises while a CUDA graph is being captured: the copy would read a
+    temporary host buffer at every replay, long after it is freed."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == "cuda":
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a host array is uploaded during CUDA graph capture; "
+                               "build it on the device before the capture")
         return t.pin_memory().to(device, non_blocking=True)
     return t
 
@@ -236,12 +243,29 @@ def zoom_in_flow_rows(flow: torch.Tensor, c0: int, h_in: int, new_hw, rows,
     return out / float(np.float32(scale_factor))
 
 
+_flow_matrices: dict = {}
+
+
+def flow_zoom_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """The (n_out, n_in) Catmull-Rom matrix of ``zoom_in_flow`` along one
+    axis, built once per (n_in, n_out, device) and kept on the device, so a
+    captured solve finds it there (``clear_flow_zoom_matrices`` drops them)."""
+    key = (n_in, n_out, torch.device(device))
+    if key not in _flow_matrices:
+        _flow_matrices[key] = _catmull_matrix_1d(
+            n_in, _half_pixel_positions(n_out, n_in), device)
+    return _flow_matrices[key]
+
+
+def clear_flow_zoom_matrices() -> None:
+    _flow_matrices.clear()
+
+
 def zoom_in_flow(flow: torch.Tensor, new_hw, scale_factor: float) -> torch.Tensor:
     """Upsample a (..., h, w) flow field to ``new_hw`` and rescale it."""
     nyy, nxx = new_hw
     h, w = flow.shape[-2], flow.shape[-1]
-    i2, j2 = _half_pixel_positions(nxx, w), _half_pixel_positions(nyy, h)
-    ry = _catmull_matrix_1d(h, j2, flow.device)
-    rx = _catmull_matrix_1d(w, i2, flow.device)
+    ry = flow_zoom_matrix(h, nyy, flow.device)
+    rx = flow_zoom_matrix(w, nxx, flow.device)
     out = torch.matmul(torch.matmul(ry, flow), rx.T)
     return out / float(np.float32(scale_factor))

@@ -14,8 +14,17 @@ instead (each call counted as a plain call), so the kernels can be timed
 and checked against them on the card; no option of ``OFConfig`` or the CLI
 reaches it.
 
+``flow_program(cfg, shape, nchan, device)`` is the counterpart of the JAX
+package's one jitted program per (shape, channels, config): on a CUDA
+device the first pair of a key runs eagerly, the second captures the whole
+coarse-to-fine solve into one CUDA graph, and it and every later pair are
+one replay each, with the relaxers' stopping tests in graph IF nodes
+(ops.guard) and no host read between the first launch and the result.
+``variational_flow`` goes through it; on the CPU a program runs the solve
+eagerly.  ``clear_program_cache`` drops every program.
+
 The mesh path (octane_tpu_torch.parallel.sharded) runs the same schedule
-(``level_schedule``, ``gnc_rounds``) on row bands.
+(``level_schedule``, ``gnc_rounds``) on row bands, eagerly.
 
 Numerics follow the reference (SURVEY.md section 8): per-level images are
 blurred and floor-subsampled from full resolution, first-guess fields are
@@ -26,16 +35,20 @@ decays as lambdac * 0.5^k (oct_variational_optical_flow.cu:487-575).
 
 from __future__ import annotations
 
+import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from octane_tpu_torch import ops
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.gradients import gradient_4th
-from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_in_flow, zoom_size
+from octane_tpu_torch.core.zoom import (clear_flow_zoom_matrices, pyramid_downsample,
+                                        zoom_in_flow, zoom_size)
 from octane_tpu_torch.flow.stencil import assemble
 from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+from octane_tpu_torch.ops.guard import body_pool, recording
 from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                       pcg_pass_b_plain, pcg_solve_fused)
 from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain, sor_solve_cf
@@ -83,14 +96,15 @@ def solve_level(
     g1, g2, u, v, uhat, vhat,
     alpha: float, lam_over_alpha: float, lambdac: float, tol: float,
     liters: int, cgiters: int, gnc_steps: int, dozim: bool,
-    solver: str = "pcg", sor_omega: float = 1.9, plain: bool = False,
+    solver: str = "pcg", sor_omega: float = 1.9, plain: bool = False, count=None,
 ):
     """GNC x inner iterations at one pyramid level; returns (u, v).
 
     g1/g2: (C, H, W) level images; u/v: initial flow; uhat/vhat: first-guess
     hint fields at this level.  ``solver`` is "pcg" or "sor" (relaxation
     factor ``sor_omega``); ``plain`` calls the kernels' plain versions on
-    any device (see the module docstring).
+    any device (see the module docstring).  ``count``, an int32 device
+    scalar, gains the relaxer's iterations (PCG) or passes (SOR).
     """
     gx1, gy1 = gradient_4th(g1)
     gx2, gy2 = gradient_4th(g2)
@@ -112,7 +126,7 @@ def solve_level(
             cf, partials = asm_fn(samples, bc_x, bc_y, g1s, u, v, uhat, vhat,
                                   al1, lambdac, alpha, lam_over_alpha, dozim)
             return sor_solve_cf(cf, torch.sum(partials), tol, cgiters,
-                                sor_omega, pass_fn)
+                                sor_omega, pass_fn, count)
     else:
         passes = _PLAIN_PASSES if plain else (pcg_pass_a, pcg_pass_b)
 
@@ -120,7 +134,7 @@ def solve_level(
             sysm = assemble(g1, g2, gx1, gy1, gx2, gy2, gxx, gxy, gyy,
                             u, v, uhat, vhat, al1, alpha, lam_over_alpha,
                             lambdac, dozim, warp_fn=warp_fn, stack=stack)
-            return pcg_solve_fused(sysm, tol, cgiters, *passes)
+            return pcg_solve_fused(sysm, tol, cgiters, *passes, count)
 
     for al1 in gnc_rounds(gnc_steps, liters):
         du, dv = round_(u, v, al1)
@@ -128,10 +142,12 @@ def solve_level(
     return u, v
 
 
-def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
+def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
+    """(u, v, the relaxer's iterations or passes as an int32 device scalar)."""
     h, w = u0.shape
     c = geo1.shape[0]
     kiters = cfg.kiters
+    count = torch.zeros((), dtype=torch.int32, device=u0.device)
     # the four full-resolution inputs are resampled together (each plane
     # independently, so the values are those of separate calls)
     full = torch.cat([geo1, geo2, u0[None], v0[None]])
@@ -154,8 +170,166 @@ def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
             g1, g2, u, v, uhat, vhat,
             cfg.alpha, cfg.lambda_over_alpha, lambdac_k, cfg.cg_tol,
             cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim,
-            solver=cfg.solver, sor_omega=cfg.sor_omega, plain=plain)
+            solver=cfg.solver, sor_omega=cfg.sor_omega, plain=plain, count=count)
+    return u, v, count
+
+
+def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
+    """The eager solve: (u, v)."""
+    u, v, count = _pair(geo1, geo2, u0, v0, cfg, plain)
+    ops.record_pair(cfg.solver, count)
     return u, v
+
+
+_program_cache: dict = {}
+_graph_pools: dict = {}
+
+
+def _graph_pool(device):
+    """The memory pool that every program of ``device`` is captured into."""
+    if device not in _graph_pools:
+        _graph_pools[device] = torch.cuda.graph_pool_handle()
+    return _graph_pools[device]
+
+
+def program_pool_bytes(device) -> int:
+    """Bytes reserved on ``device`` by the programs' graph pool and the
+    IF-node bodies' pool."""
+    device = _device(device)
+    ids = {tuple(body_pool(device).id)}
+    if device in _graph_pools:
+        ids.add(tuple(_graph_pools[device]))
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == device.index
+               and tuple(seg.get("segment_pool_id", (0, 0))) in ids)
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class FlowProgram:
+    """The coarse-to-fine solve of one (shape, channels, config, device);
+    call it as ``program(geo1, geo2, u0, v0)`` -> (u, v).
+
+    On a CUDA device the first call runs the solve eagerly on a side
+    stream (the warm-up: it builds the kernels, loads them and fills the
+    device-side caches, such as the flow zoom's matrices) and returns its
+    flow, so a key used once costs one eager pair.  The second call copies
+    its inputs into static buffers and captures the solve into one CUDA
+    graph in the device's shared pool (capture and instantiation take
+    ``capture_seconds``); it and every later call copy their inputs in,
+    replay the graph and return copies of the outputs, which no later
+    replay touches.  A failed capture raises; nothing falls back to the
+    eager solve.
+
+    The wrappers count launches in Python, where a replay calls none, so
+    the capture records which of them its graph launches outside guarded
+    bodies (``nodes``) and in one guarded body (``per_body``), and each
+    replay reports these with its device count of the bodies that ran to
+    ``ops.record_pair``.  On the CPU a program runs the solve eagerly.
+    """
+
+    def __init__(self, cfg: OFConfig, shape, nchan: int, device):
+        self.cfg, self.shape, self.nchan = cfg, tuple(shape), nchan
+        self.device = _device(device)
+        self.warmed = False
+        self.graph = None
+        self.inputs = self.outputs = None
+        self.nodes: dict = {}
+        self.per_body: dict = {}
+        self.capture_seconds = None
+
+    def __call__(self, geo1, geo2, u0, v0):
+        if (tuple(geo1.shape) != (self.nchan, *self.shape) or geo2.shape != geo1.shape
+                or tuple(u0.shape) != self.shape or v0.shape != u0.shape):
+            raise ValueError(f"flow program of {self.nchan} x {self.shape}: got images "
+                             f"{tuple(geo1.shape)}, {tuple(geo2.shape)} and flows "
+                             f"{tuple(u0.shape)}, {tuple(v0.shape)}")
+        if self.device.type != "cuda":
+            return _coarse_to_fine(geo1, geo2, u0, v0, self.cfg)
+        if not self.warmed:
+            u, v, count = self._warm_up(geo1, geo2, u0, v0)
+            ops.record_pair(self.cfg.solver, count)
+            return u, v
+        if self.graph is None:
+            self._capture(geo1, geo2, u0, v0)
+        for buf, t in zip(self.inputs, (geo1, geo2, u0, v0)):
+            buf.copy_(t)
+        self.graph.replay()
+        u, v, count = (t.clone() for t in self.outputs)
+        ops.record_pair(self.cfg.solver, count, self.nodes, self.per_body)
+        return u, v
+
+    def _warm_up(self, geo1, geo2, u0, v0):
+        """The eager solve on a side stream: (u, v, count)."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = _pair(geo1, geo2, u0, v0, self.cfg)
+        current.wait_stream(side)
+        for t in out:                   # made on the side stream, used on this one
+            t.record_stream(current)
+        self.warmed = True
+        return out
+
+    def _capture(self, geo1, geo2, u0, v0):
+        dev = self.device
+        inputs = [t.to(device=dev, dtype=torch.float32).clone()
+                  for t in (geo1, geo2, u0, v0)]
+        before = {name: fn.launches for name, fn in ops.WRAPPERS.items()}
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with (recording() as bodies, torch.cuda.device(dev),
+                  torch.cuda.graph(graph, pool=_graph_pool(dev))):
+                outputs = _pair(*inputs, self.cfg)
+        finally:                        # a capture launches nothing
+            captured = {name: fn.launches - before[name] for name, fn in ops.WRAPPERS.items()}
+            for name, fn in ops.WRAPPERS.items():
+                fn.launches = before[name]
+        self.capture_seconds = time.perf_counter() - t0
+        per_body = bodies[0] if bodies else {}
+        if any(b != per_body for b in bodies):
+            raise RuntimeError("flow program: its guarded bodies launch different kernels")
+        for name, n in per_body.items():
+            captured[name] -= n * len(bodies)
+        self.nodes = {name: n for name, n in captured.items() if n}
+        self.per_body = per_body
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+
+
+def program_key(cfg: OFConfig, shape, nchan: int, device) -> tuple:
+    """The fields a program is keyed on: those of octane_tpu's
+    flow_program (variational.py:262-263) but its TPU option, and the
+    device."""
+    return (tuple(shape), nchan, cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor,
+            cfg.kiters, cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim,
+            cfg.solver, cfg.sor_omega, cfg.cg_tol, _device(device))
+
+
+def flow_program(cfg: OFConfig, shape, nchan: int, device) -> FlowProgram:
+    """The cached program of the entire coarse-to-fine solve for a
+    (shape, channels, config, device); see FlowProgram."""
+    key = program_key(cfg, shape, nchan, device)
+    if key not in _program_cache:
+        _program_cache[key] = FlowProgram(cfg, shape, nchan, device)
+    return _program_cache[key]
+
+
+def clear_program_cache() -> None:
+    """Drop every program and the flow zoom's cached matrices, and return
+    their memory to the card."""
+    _program_cache.clear()
+    _graph_pools.clear()            # a pool whose graphs are gone is not reused
+    clear_flow_zoom_matrices()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def variational_flow(
@@ -165,7 +339,8 @@ def variational_flow(
     v0: torch.Tensor,
     cfg: OFConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full coarse-to-fine solve on the device of the inputs.
+    """Full coarse-to-fine solve on the device of the inputs, through its
+    program (``flow_program``).
 
     geo1/geo2: (C, H, W) or (H, W) float32 images normalised to [0, 255];
     u0/v0: (H, W) first-guess pixel displacements (zeros if none).
@@ -175,6 +350,6 @@ def variational_flow(
     geo2 = geo2.to(torch.float32)
     if geo1.dim() == 2:
         geo1, geo2 = geo1[None], geo2[None]
-    return _coarse_to_fine(geo1.contiguous(), geo2.contiguous(),
-                           u0.to(torch.float32).contiguous(),
-                           v0.to(torch.float32).contiguous(), cfg)
+    program = flow_program(cfg, u0.shape, geo1.shape[0], geo1.device)
+    return program(geo1.contiguous(), geo2.contiguous(),
+                   u0.to(torch.float32).contiguous(), v0.to(torch.float32).contiguous())

@@ -2,9 +2,11 @@
 only when a file is read or written."""
 
 from octane_tpu_torch.io.datamodel import NavConstants, Scene, scene_from_numpy
-from octane_tpu_torch.io.readers import (channel_onto_scene, read_scene,
-                                         scene_from_flat_arrays, scene_from_goes_arrays)
+from octane_tpu_torch.io.readers import (channel_onto_scene, read_cth, read_first_guess,
+                                         read_scene, scene_from_flat_arrays,
+                                         scene_from_goes_arrays)
 from octane_tpu_torch.io.writers import write_product
 
-__all__ = ["NavConstants", "Scene", "scene_from_numpy", "read_scene", "channel_onto_scene",
+__all__ = ["NavConstants", "Scene", "scene_from_numpy", "read_scene", "read_cth",
+           "read_first_guess", "channel_onto_scene",
            "scene_from_flat_arrays", "scene_from_goes_arrays", "write_product"]

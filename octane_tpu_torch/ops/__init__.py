@@ -11,7 +11,19 @@ the wrappers each relaxer's solve goes through, and the one SRSAL
 smoothing goes through, on one device and (``mesh_*``) on the row bands of
 the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
 ``pcg_pass_a_band`` and ``bilateral_band``.
+
+A pair reports its device count of PCG iterations or SOR passes through
+``record_pair``; a replayed pair (flow.variational.FlowProgram) also
+reports what its graph launches, which the wrappers, called only at
+capture, do not count: the nodes that every replay runs, and the launches
+of one guarded body, which ran as often as the device count says.
+``counters()`` adds those to the wrappers' own counts, reading the device
+counts there and nowhere else, and gives the last pair's count as
+``pcg_iterations`` / ``sor_passes``.  A replay adds nothing to the
+drivers' host syncs.
 """
+
+import torch
 
 from octane_tpu_torch.ops import assemble as _assemble
 from octane_tpu_torch.ops import bilateral as _bilateral
@@ -32,21 +44,50 @@ PATHS = {"pcg": ("warp", "pcg_pass_a", "pcg_pass_b"),
          "mesh_srsal": ("bilateral_band",)}
 
 
+_last_count: dict = {}      # solver -> the last pair's device count
+_graph_nodes: dict = {}     # wrapper -> launches of replayed unguarded nodes
+_graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launches
+
+
 def reset_counters() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
         fn.plain_calls = 0
-    _pcg.pcg_solve_fused.host_syncs = 0
-    _sor.sor_solve_cf.host_syncs = 0
+    for driver in (_pcg.pcg_solve_fused, _sor.sor_solve_cf):
+        driver.host_syncs = 0
+    for tally in (_last_count, _graph_nodes, _graph_bodies):
+        tally.clear()
+
+
+def record_pair(solver: str, count, nodes=None, per_body=None) -> None:
+    """Note a pair of ``solver`` whose relaxer ran ``count`` (an int32
+    device scalar) iterations or passes.  For a replayed graph, ``nodes``
+    {wrapper: launches} are its nodes outside guarded bodies and
+    ``per_body`` {wrapper: launches} those of one guarded body; the
+    guarded launches are summed on the device, with no host read."""
+    _last_count[solver] = count
+    for name, n in (nodes or {}).items():
+        _graph_nodes[name] = _graph_nodes.get(name, 0) + n
+    for name, n in (per_body or {}).items():
+        key = (name, count.device)
+        _graph_bodies[key] = _graph_bodies.get(key, 0) + n * count.to(torch.int64)
 
 
 def counters() -> dict:
     """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
-    host syncs."""
-    out = {name: (fn.launches, fn.plain_calls) for name, fn in WRAPPERS.items()}
+    host syncs and the last pair's iterations (PCG) and passes (SOR), read
+    from the device.  A wrapper's launches include those of replayed
+    graphs (see the module docstring)."""
+    launches = {name: fn.launches + _graph_nodes.get(name, 0)
+                for name, fn in WRAPPERS.items()}
+    for (name, _), total in _graph_bodies.items():
+        launches[name] += int(total)
+    out = {name: (launches[name], fn.plain_calls) for name, fn in WRAPPERS.items()}
     out["pcg_host_syncs"] = _pcg.pcg_solve_fused.host_syncs
     out["sor_host_syncs"] = _sor.sor_solve_cf.host_syncs
+    for key, solver in (("pcg_iterations", "pcg"), ("sor_passes", "sor")):
+        out[key] = int(_last_count[solver]) if solver in _last_count else 0
     return out
 
 
-__all__ = ["WRAPPERS", "PATHS", "reset_counters", "counters"]
+__all__ = ["WRAPPERS", "PATHS", "reset_counters", "record_pair", "counters"]

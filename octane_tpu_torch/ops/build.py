@@ -46,6 +46,8 @@ _SIGNATURES = {
     "octane_sor_pass_band": (I, [P] * 4 + [I] * 6 + [L] + [I] * 4 + [F, P]),
     "octane_bilateral": (I, [P] * 5 + [I] * 3 + [F, P]),
     "octane_bilateral_band": (I, [P] * 5 + [I] * 7 + [F, P]),
+    "octane_if_begin": (I, [P] * 3),
+    "octane_if_end": (I, [P]),
     "octane_error_string": (ctypes.c_char_p, [I]),
 }
 

@@ -31,10 +31,15 @@ On a CUDA tensor it launches ``octane_pcg_pass_a_band`` of ``csrc/pcg.cu``,
 on a CPU tensor ``pcg_pass_a_band_plain``.  Pass B needs no ghost rows and
 runs unchanged on each band.
 
+Passes A and B take ``out=`` buffers for their planes, which the driver
+fixes before its loop.
+
 ``pcg_solve_fused`` is the driver (cg.py:271): stop when ||r||^2 <= tol or
-after ``iters`` iterations, then the deferred x += alpha p.  The stopping
-test is read on the host once per iteration; ``pcg_solve_fused.host_syncs``
-counts those reads.
+after ``iters`` iterations, then the deferred x += alpha p.  Each iteration
+is a body guarded by ``resid > tol`` (ops.guard.Guard): an IF node of the
+graph while flow.variational's program captures the pair, a host read
+otherwise (``pcg_solve_fused.host_syncs`` counts those).  The loop walks
+all ``iters`` bodies and never breaks.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 
 from octane_tpu_torch.core.bc import mirror_shift
 from octane_tpu_torch.ops.build import check_status, load_kernels
+from octane_tpu_torch.ops.guard import Guard
 
 
 BLOCK_X, BLOCK_Y = 32, 8        # csrc/pcg.cu, assemble.cu, sor.cu: kBX, kBY
@@ -97,14 +103,22 @@ def _offdiag(f, cf, rows=slice(None)):
     return cf[3] * wv + cf[5] * ev + cf[4] * nv + cf[6] * sv
 
 
-def pcg_pass_a_plain(x, r, p, cf, ab):
-    """Plain pass A: (x + alpha_prev p, p', A p', block partials of <p', A p'>)."""
+def _into(out, planes):
+    """``planes``, or each copied into its buffer of ``out``."""
+    if out is None:
+        return planes
+    return tuple(o.copy_(t) for o, t in zip(out, planes))
+
+
+def pcg_pass_a_plain(x, r, p, cf, ab, out=None):
+    """Plain pass A: (x + alpha_prev p, p', A p', block partials of <p', A p'>),
+    the three planes in ``out`` when given."""
     alpha, beta = ab[0], ab[1]
     pn = (1.0 / cf[0:2]) * r + beta * p
     au = cf[0] * pn[0] + cf[2] * pn[1] + _offdiag(pn[0], cf)
     av = cf[2] * pn[0] + cf[1] * pn[1] + _offdiag(pn[1], cf)
     partials = block_partials(pn[0] * au + pn[1] * av)
-    return x + alpha * p, pn, torch.stack([au, av]), partials
+    return (*_into(out, (x + alpha * p, pn, torch.stack([au, av]))), partials)
 
 
 def pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
@@ -127,14 +141,17 @@ def pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
     return x + alpha * p, pb.contiguous(), torch.stack([au, av]), partials
 
 
-def pcg_pass_b_plain(r, ap, cf, alpha):
+def pcg_pass_b_plain(r, ap, cf, alpha, out=None):
     """Plain pass B: (r - alpha ap, (n, 2) block partials of
-    [<r, M^-1 r>, <r, r>])."""
+    [<r, M^-1 r>, <r, r>]), the new r in ``out`` when given."""
     rn = r - alpha[0] * ap
     z = (1.0 / cf[0:2]) * rn
     rz = rn[0] * z[0] + rn[1] * z[1]
     rr = rn[0] * rn[0] + rn[1] * rn[1]
-    return rn, torch.stack([block_partials(rz), block_partials(rr)], dim=1)
+    partials = torch.stack([block_partials(rz), block_partials(rr)], dim=1)
+    if out is not None:
+        rn = out.copy_(rn)
+    return rn, partials
 
 
 def _check(name, planes, cf, scalars, min_rows=2):
@@ -159,17 +176,32 @@ def _check(name, planes, cf, scalars, min_rows=2):
         raise ValueError(f"{name}: unsupported device {ref.device}")
 
 
-def pcg_pass_a(x, r, p, cf, ab):
-    """Pass A; returns (x_new, p_new, ap, block partials of <p_new, ap>)."""
+def _check_out(name, out, inputs):
+    """``out`` buffers: each like ``inputs[0]``, none of them an input."""
+    ref = inputs[0]
+    for o in out:
+        if (o.shape != ref.shape or o.dtype != torch.float32 or not o.is_contiguous()
+                or o.device != ref.device):
+            raise ValueError(f"{name}: out buffers must be contiguous float32 "
+                             f"{tuple(ref.shape)} on the device of the inputs")
+        if any(o.data_ptr() == t.data_ptr() for t in inputs):
+            raise ValueError(f"{name}: an out buffer is an input")
+
+
+def pcg_pass_a(x, r, p, cf, ab, out=None):
+    """Pass A; returns (x_new, p_new, ap, block partials of <p_new, ap>),
+    the three planes in ``out`` = (x_new, p_new, ap) buffers when given."""
     _check("pcg_pass_a", (x, r, p), cf, (ab,))
     if ab.numel() != 2:
         raise ValueError("pcg_pass_a: ab must hold [alpha_prev, beta]")
+    if out is not None:
+        _check_out("pcg_pass_a", out, (x, r, p))
     if x.device.type == "cpu":
         pcg_pass_a.plain_calls += 1
-        return pcg_pass_a_plain(x, r, p, cf, ab)
+        return pcg_pass_a_plain(x, r, p, cf, ab, out)
     lib = load_kernels()
     _, h, w = x.shape
-    x_new, p_new, ap = (torch.empty_like(x) for _ in range(3))
+    x_new, p_new, ap = (torch.empty_like(x) for _ in range(3)) if out is None else out
     partials = torch.empty(num_partials(h, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.octane_pcg_pass_a(
@@ -182,17 +214,20 @@ def pcg_pass_a(x, r, p, cf, ab):
     return x_new, p_new, ap, partials
 
 
-def pcg_pass_b(r, ap, cf, alpha):
-    """Pass B; returns (r_new, (n, 2) block partials of [<r, M^-1 r>, <r, r>])."""
+def pcg_pass_b(r, ap, cf, alpha, out=None):
+    """Pass B; returns (r_new, (n, 2) block partials of [<r, M^-1 r>, <r, r>]),
+    r_new in the ``out`` buffer when given."""
     _check("pcg_pass_b", (r, ap), cf, (alpha,), min_rows=1)   # no neighbours: any band
     if alpha.numel() != 1:
         raise ValueError("pcg_pass_b: alpha must be a one-element tensor")
+    if out is not None:
+        _check_out("pcg_pass_b", (out,), (r, ap))
     if r.device.type == "cpu":
         pcg_pass_b.plain_calls += 1
-        return pcg_pass_b_plain(r, ap, cf, alpha)
+        return pcg_pass_b_plain(r, ap, cf, alpha, out)
     lib = load_kernels()
     _, h, w = r.shape
-    r_new = torch.empty_like(r)
+    r_new = torch.empty_like(r) if out is None else out
     partials = torch.empty((num_partials(h, w), 2), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         status = lib.octane_pcg_pass_b(
@@ -239,12 +274,22 @@ for _fn in (pcg_pass_a, pcg_pass_a_band, pcg_pass_b):
     _fn.plain_calls = 0
 
 
-def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b):
+def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
+                    count=None):
     """Solve A x = b from x = 0 with the two passes; returns (du, dv).
 
     ``sysm`` is a flow.stencil.StencilSystem; a scalar ``a5`` marks the
     quadratic GNC step (off-diagonals -1).  ``pass_a``/``pass_b`` default to
     the wrappers; the solver's plain route passes the plain versions.
+    ``count``, an int32 device scalar, gains the iterations that ran.
+
+    The state lives in buffers fixed before the loop, so that a skipped
+    body leaves nothing stale: x, p and r ping-pong between two sets
+    (iteration i reads set i % 2 and writes the other), gamma between two
+    scalars, and alpha and beta stay in ``ab``, which pass A reads.  The
+    iterations that ran, counted on the device, pick the final set by their
+    parity.  Ping-pong rather than a copy back keeps each iteration's
+    traffic that of its two passes.
     """
     quad = not torch.is_tensor(sysm.a5)
     planes = [sysm.a1, sysm.a4, sysm.a2]
@@ -253,26 +298,34 @@ def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b)
     cf = torch.stack(planes)
     b = torch.stack([sysm.bu, sysm.bv])
     part = initial_partials(cf, b)
-    gamma = torch.sum(part[:, 0]) + torch.sum(part[:, 1])
+    gammas = [torch.sum(part[:, 0]) + torch.sum(part[:, 1]), torch.empty_like(part[0, 0])]
     resid = torch.sum(part[:, 2])
-    x = torch.zeros_like(b)
-    p = torch.zeros_like(b)
-    r = b
-    alpha = torch.zeros((), dtype=torch.float32, device=b.device)
-    beta = torch.zeros_like(alpha)
+    xs = [torch.zeros_like(b), torch.empty_like(b)]
+    ps = [torch.zeros_like(b), torch.empty_like(b)]
+    rs = [b, torch.empty_like(b)]
+    ap = torch.empty_like(b)
+    ab = torch.zeros(2, dtype=torch.float32, device=b.device)      # [alpha, beta]
+    ran = torch.zeros((), dtype=torch.int32, device=b.device)
     tol32 = float(np.float32(tol))
-    for _ in range(iters):
-        pcg_solve_fused.host_syncs += 1
-        if not float(resid) > tol32:
-            break
-        x, p, ap, pap = pass_a(x, r, p, cf, torch.stack([alpha, beta]))
-        alpha = gamma / torch.sum(pap)
-        r, part = pass_b(r, ap, cf, alpha.reshape(1))
-        gamma_new = torch.sum(part[:, 0])
-        resid = torch.sum(part[:, 1])
-        beta = gamma_new / gamma
-        gamma = gamma_new
-    x = x + alpha * p                    # the final deferred update
+
+    def body(k):
+        i, j = k % 2, 1 - k % 2
+        _, _, _, pap = pass_a(xs[i], rs[i], ps[i], cf, ab, out=(xs[j], ps[j], ap))
+        torch.div(gammas[i], torch.sum(pap), out=ab[0])
+        _, part = pass_b(rs[i], ap, cf, ab[0:1], out=rs[j])
+        torch.sum(part[:, 0], 0, out=gammas[j])
+        torch.sum(part[:, 1], 0, out=resid)
+        torch.div(gammas[j], gammas[i], out=ab[1])
+        ran.add_(1)
+
+    guard = Guard(pcg_solve_fused)
+    for k in range(iters):
+        guard(resid, tol32, lambda k=k: body(k))
+    odd = ran % 2 == 1
+    x = torch.where(odd, xs[1], xs[0])
+    x = x + ab[0] * torch.where(odd, ps[1], ps[0])     # the final deferred update
+    if count is not None:
+        count.add_(ran)
     return x[0], x[1]
 
 

@@ -36,9 +36,10 @@ whole-image pass's rows bit for bit.  On a CUDA tensor it launches
 ``sor_pass_band_plain``.
 
 ``sor_solve_cf`` is the driver (sor.py:482): passes of S = min(8, iters)
-red+black sweeps, the stopping test ||r||^2 <= tol read on the host once
-per pass (``sor_solve_cf.host_syncs`` counts the reads) and a remainder
-pass of iters mod S sweeps only while the residual exceeds tol.  Each pass
+red+black sweeps, each a body guarded by ``resid > tol`` (ops.guard.Guard:
+an IF node of the graph while flow.variational's program captures the
+pair, else a host read, which ``sor_solve_cf.host_syncs`` counts), and a
+remainder pass of iters mod S sweeps under the same guard.  Each pass
 reports the residual of its incoming iterate, so the test after pass k
 reads the residual at the start of pass k, as on the TPU.  The reference
 loop flow.cg.sor_solve tests every sweep: the two agree bit for bit while
@@ -54,6 +55,7 @@ import numpy as np
 import torch
 
 from octane_tpu_torch.ops.build import check_status, load_kernels
+from octane_tpu_torch.ops.guard import Guard
 from octane_tpu_torch.ops.pcg import block_partials, num_partials
 
 OMEGA = 1.9            # the SOR over-relaxation factor (config.sor_omega)
@@ -254,13 +256,18 @@ sor_pass_band.launches = 0
 sor_pass_band.plain_calls = 0
 
 
-def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_pass):
+def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_pass,
+                 count=None):
     """Multi-sweep SOR from x = 0 on a coefficient stack; returns (du, dv).
 
     ``resid0`` is ||b||^2 (a device scalar, e.g. the sum of the assembly's
     partials); ``pass_fn`` defaults to the wrapper, and the solver's plain
-    route passes the counted plain version.  The passes ping-pong between
-    two iterate buffers.
+    route passes the counted plain version.  ``count``, an int32 device
+    scalar, gains the passes that ran.  The passes ping-pong between two
+    iterate buffers (pass k reads buffer k % 2), and the passes that ran,
+    counted on the device, pick the final one by their parity.  The
+    remainder pass runs under the main passes' guard: the residual exceeds
+    tol after the loop only if no main pass was skipped.
     """
     _check_cf("sor_solve_cf", cf)
     if iters < 1:
@@ -271,24 +278,23 @@ def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_
     tol32 = float(np.float32(tol))
     bufs = [torch.zeros((2, h, w), dtype=torch.float32, device=cf.device),
             torch.empty((2, h, w), dtype=torch.float32, device=cf.device)]
+    resid = resid0.clone()
+    ran = torch.zeros((), dtype=torch.int32, device=cf.device)
 
-    def run(ns):
-        _, part = pass_fn(bufs[0], cf, ns, omega, out=bufs[1])
-        bufs.reverse()
-        return torch.sum(part)
+    def body(k, ns):
+        _, part = pass_fn(bufs[k % 2], cf, ns, omega, out=bufs[1 - k % 2])
+        torch.sum(part, 0, out=resid)
+        ran.add_(1)
 
-    resid = resid0
-    for _ in range(n_main):
-        sor_solve_cf.host_syncs += 1
-        if not float(resid) > tol32:
-            break
-        resid = run(s_main)
-    else:
-        if s_rem:
-            sor_solve_cf.host_syncs += 1
-            if float(resid) > tol32:
-                run(s_rem)
-    return bufs[0][0], bufs[0][1]
+    guard = Guard(sor_solve_cf)
+    for k in range(n_main):
+        guard(resid, tol32, lambda k=k: body(k, s_main))
+    if s_rem:
+        guard(resid, tol32, lambda: body(n_main, s_rem))
+    x = torch.where(ran % 2 == 1, bufs[1], bufs[0])
+    if count is not None:
+        count.add_(ran)
+    return x[0], x[1]
 
 
 sor_solve_cf.host_syncs = 0

@@ -18,7 +18,11 @@ for bit (the bilateral: rel 1e-5 to its plain version), and the banded
 pair on a mesh of cuda:0 bands agrees with the single-device pair within
 1e-3 px.  Two processes (``parallel.distributed``: gloo on cuda:0, or
 nccl one per card where there are two) solve the 512^2 fixture pair, each
-its row block, equal to the single-process banded flow's rows.
+its row block, equal to the single-process banded flow's rows.  The flow
+program's replay equals the eager kernel route bit for bit, with the same
+count of relaxer iterations, at a tolerance that stops the relaxer early
+too, for a second replay on other inputs as well, and raises nothing
+under ``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
 from octane_tpu_torch.ops import assemble, bilateral, pcg, sor, warp
 # by its module name (pytest puts tests/ on the path): an installed package
 # named ``tests`` would shadow ``tests.torch_fixtures``
-from torch_fixtures import cth_steps
+from torch_fixtures import bench_pair, cth_steps
 
 pytestmark = pytest.mark.cuda
 
@@ -404,3 +408,47 @@ def test_two_processes_on_the_card(dev, tmp_path, solver):
         np.testing.assert_array_equal(got["u"], u[r0:r1].cpu().numpy())
         np.testing.assert_array_equal(got["v"], v[r0:r1].cpu().numpy())
         assert (got["launches"] > 0).all() and not got["plain"].any()
+
+
+@pytest.mark.parametrize("solver,early_tol,most", [("pcg", 1e-1, 3 * 9 * 30),
+                                                   ("sor", 10.0, 3 * 9 * 4)])
+@pytest.mark.parametrize("hw", [(512, 512), (500, 372)])
+def test_program_replay_equals_the_eager_route(dev, hw, solver, early_tol, most):
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+
+    h, w = hw
+    key = "pcg_iterations" if solver == "pcg" else "sor_passes"
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in bench_pair(h, w))
+    z = torch.zeros((h, w), device=dev)
+    rng = np.random.default_rng(1)
+    u1 = torch.from_numpy(rng.uniform(-1, 3, (h, w)).astype(np.float32)).to(dev)
+    v1 = torch.from_numpy(rng.uniform(-2, 2, (h, w)).astype(np.float32)).to(dev)
+    try:
+        for tol in (OFConfig().cg_tol, early_tol):
+            cfg = OFConfig(kiters=3, solver=solver, cg_tol=tol)
+            prog = fv.flow_program(cfg, (h, w), 1, dev)
+            for args in ((im1, im2, z, z), (im2, im1, u1, v1)):
+                ops.reset_counters()
+                eu, ev = fv._coarse_to_fine(*args, cfg)
+                e = ops.counters()
+                while prog.graph is None:           # the eager call, then the capture
+                    wu, wv = prog(*args)
+                    assert torch.equal(wu, eu) and torch.equal(wv, ev)
+                ops.reset_counters()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    gu, gv = prog(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                c = ops.counters()
+                assert torch.equal(gu, eu) and torch.equal(gv, ev)
+                assert c[key] == e[key] and c[f"{solver}_host_syncs"] == 0
+                # a replay's launches, from its device count, are the eager route's
+                assert all(c[name][0] == e[name][0] for name in ops.WRAPPERS)
+                if tol == early_tol:
+                    assert e[key] < most
+    finally:
+        fv.clear_program_cache()

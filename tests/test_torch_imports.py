@@ -43,7 +43,8 @@ def test_port_imports_without_jax():
         "        'octane_tpu_torch.sequence', 'octane_tpu_torch.parallel',\n"
         "        'octane_tpu_torch.parallel.sharded',\n"
         "        'octane_tpu_torch.parallel.post',\n"
-        "        'octane_tpu_torch.parallel.distributed'} <= set(names)\n"
+        "        'octane_tpu_torch.parallel.distributed', 'octane_tpu_torch.ops.guard',\n"
+        "        'octane_tpu_torch.utils', 'octane_tpu_torch.utils.profiling'} <= set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'octane_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -1,9 +1,12 @@
 """Device-time breakdown of one octane_tpu_torch pair solve on a CUDA card.
 
     python3 tools/profile_torch_pair.py [--size 5424] [--kiters 4] [--solver pcg|sor]
-                                        [--hybrid]
+                                        [--route graph|eager] [--hybrid]
 
-Runs the bench.py synthetic pair through ``variational_flow`` (with
+Runs the bench.py synthetic pair through ``variational_flow``, which
+replays the pair's captured CUDA graph (``--route eager``: the eager
+kernel route, ``flow.variational._coarse_to_fine``; the profiler sees the
+kernels of a replay one by one, so the breakdown holds for both) (with
 ``--hybrid``: ``patch_match_flow``, then ``variational_flow`` from its flow,
 as compute_flow's "hybrid" does; patch-match is also profiled alone) once
 to warm up, once timed without the profiler (wall clock, CUDA events around
@@ -13,11 +16,13 @@ busy / unprofiled wall (the profiler's own host cost would inflate a wall
 taken under it), and the device time by kernel grouped into the port's
 layers (warp, PCG passes, fused assembly, SOR passes, the scalar glue
 and the eager assembly's elementwise work, shifts/gathers, reductions,
-matmuls).  Writes the chrome trace to chiprun_out/profile_pair_<solver>.json.
+matmuls, the graph's IF-node conditions).  Writes the summary and the
+chrome trace to chiprun_out/profile_pair_<solver>_<route>.{txt,json}.
 """
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -30,7 +35,7 @@ sys.path.insert(0, ROOT)
 from octane_tpu_torch import ops  # noqa: E402
 from octane_tpu_torch.config import OFConfig  # noqa: E402
 from octane_tpu_torch.flow.patch_match import patch_match_flow  # noqa: E402
-from octane_tpu_torch.flow.variational import variational_flow  # noqa: E402
+from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow  # noqa: E402
 from chip_smoke import load_tests_module  # noqa: E402
 
 GROUPS = (("warp_bilinear", "warp kernel"), ("pcg_pass_a", "PCG pass A"),
@@ -38,7 +43,8 @@ GROUPS = (("warp_bilinear", "warp kernel"), ("pcg_pass_a", "PCG pass A"),
           ("sor_pass", "SOR pass kernel"), ("gemm", "matmul (zoom)"),
           ("index", "index_select (shifts, subsample)"),
           ("reduce", "reductions (sums)"), ("elementwise", "elementwise"),
-          ("copy", "copies / cat / stack"), ("fill", "fills"))
+          ("copy", "copies / cat / stack"), ("fill", "fills"),
+          ("set_if", "graph IF-node conditions"))
 
 
 def group(name):
@@ -52,8 +58,10 @@ def group(name):
 
 
 def profile(run, label, trace):
-    """Warm-up, a run timed without the profiler, a run under it; prints
+    """Two warm-ups (a flow program's first call runs eagerly, its second
+    captures), a run timed without the profiler, a run under it; prints
     the breakdown and writes the chrome trace."""
+    run()
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -81,17 +89,20 @@ def profile(run, label, trace):
             by_group[group(ev.key)] += dt / 1e3
             counts[group(ev.key)] += ev.count
     busy = sum(by_group.values())
-    print(f"{label}: wall {wall:.1f} ms without "
-          f"the profiler (CUDA events {event_ms:.1f} ms, peak {peak:.2f} GiB), "
-          f"{wall_prof:.1f} ms under it; device "
-          f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
-          f"wall; counters {ops.counters()}")
+    lines = [f"{label}: wall {wall:.1f} ms without "
+             f"the profiler (CUDA events {event_ms:.1f} ms, peak {peak:.2f} GiB), "
+             f"{wall_prof:.1f} ms under it; device "
+             f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
+             f"wall; counters {ops.counters()}"]
     for name, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {name:36s} {ms:9.2f} ms  {ms / wall:6.1%} of wall  "
-              f"({counts[name]} launches)")
+        lines.append(f"  {name:36s} {ms:9.2f} ms  {ms / wall:6.1%} of wall  "
+                     f"({counts[name]} launches)")
+    print("\n".join(lines))
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"profile_{trace}.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
     prof.export_chrome_trace(os.path.join(out, f"profile_{trace}.json"))
 
 
@@ -100,6 +111,8 @@ def main():
     ap.add_argument("--size", type=int, default=5424)
     ap.add_argument("--kiters", type=int, default=4)
     ap.add_argument("--solver", choices=("pcg", "sor"), default="pcg")
+    ap.add_argument("--route", choices=("graph", "eager"), default="graph",
+                    help="the captured pair (variational_flow) or the eager kernel route")
     ap.add_argument("--hybrid", action="store_true",
                     help="patch-match initialization, then the variational refinement")
     a = ap.parse_args()
@@ -113,9 +126,13 @@ def main():
     g2 = torch.from_numpy(im2[None]).to(dev)
     z = torch.zeros((h, w), device=dev)
     cfg = OFConfig(kiters=a.kiters, solver=a.solver)
-    label = f"{h}x{w} kiters={a.kiters} solver={a.solver}"
+    flow = variational_flow if a.route == "graph" else _coarse_to_fine
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    label = f"{h}x{w} kiters={a.kiters} solver={a.solver} route={a.route}"
     if not a.hybrid:
-        profile(lambda: variational_flow(g1, g2, z, z, cfg), label, f"pair_{a.solver}")
+        profile(lambda: flow(g1, g2, z, z, cfg), label, f"pair_{a.solver}_{a.route}")
         return 0
 
     def patch_match():
@@ -123,8 +140,8 @@ def main():
 
     profile(patch_match, f"{h}x{w} patch_match_flow rad={cfg.rad} srad={cfg.srad}",
             "patch_match")
-    profile(lambda: variational_flow(g1, g2, *patch_match(), cfg), label + " hybrid",
-            f"hybrid_{a.solver}")
+    profile(lambda: flow(g1, g2, *patch_match(), cfg), label + " hybrid",
+            f"hybrid_{a.solver}_{a.route}")
     return 0
 
 
