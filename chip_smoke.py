@@ -115,16 +115,26 @@ Phases, one line each (any failure exits non-zero):
      bilateral within rel 1e-5) and against the whole-image kernel's rows
      (bit-exact), timed on the 4 bands beside the bound of every band's
      slab, ghost rows included; (b) the full-disk pair per relaxer through
-     sharded_variational_flow on a (1, 4) mesh of cuda:0 and
-     sharded_pix2uv, kernels only, in turns with the single-device pair
-     (single, banded, banded, single): ms and peak memory, each band form
-     of the relaxer launched and no plain version called, host reads (the
-     solver's and the warp's reach guard: at most 144 / 1080 + 36), the
-     flow within 1e-3 px of the single-device flow, the interior median
-     within 0.1 px of (2.4, 0), sharded_pix2uv equal to pix2uv; (c)
-     sharded_srsal of the banded SOR flow with the 5424^2 CTH within rel
-     1e-5 of srsal_smooth; (d) where the machine has several cards, the
-     pair with one band per card (else it says it did not run).
+     the banded program (parallel.sharded.sharded_flow_program: a key's
+     first call eager, its second the capture) on a (1, 4) mesh of cuda:0
+     and sharded_pix2uv, kernels only, the replay in turns with the eager
+     banded route and the single-device replay (graph, eager, single,
+     single, eager, graph; 3 pairs each): ms min / median, the first
+     calls' and the capture's seconds, the pools' bytes, peaks, host reads
+     (the solver's and the warp's reach test: 0 replayed, at most 144 /
+     1080 + 36 eager), each band form of the relaxer launched and no plain
+     version called, the replay's launches (from its device tallies) equal
+     to the eager route's, the replay torch.equal to the eager banded flow
+     and within 1e-3 px of the single-device flow (bit-identical printed),
+     the interior median within 0.1 px of (2.4, 0), sharded_pix2uv equal to
+     pix2uv; (b') at 1024^2 per relaxer the replay torch.equal to the first
+     call, the eager and the plain banded routes, launches equal, and a
+     reach case (a 20-px first guess, halo_warp 4) whose wide body runs at
+     every level, the same equalities held; (c) sharded_srsal of the banded
+     SOR flow with the 5424^2 CTH within rel 1e-5 of srsal_smooth; (d)
+     where the machine has several cards, the pair with one band per card,
+     which runs the eager banded loop and says so (else it says it did not
+     run).
  17. dist: the multi-process path (parallel.distributed, -nprocs).  (a) 2
      processes spawned on cuda:0 in a gloo group (their rows staged through
      pinned host memory), and where the machine has several cards one
@@ -1848,8 +1858,9 @@ def phase_mesh(dev, report):
     from octane_tpu_torch.ops.pcg import pcg_pass_a, pcg_pass_a_band, pcg_pass_a_band_plain
     from octane_tpu_torch.ops.sor import sor_pass, sor_pass_band, sor_pass_band_plain
     from octane_tpu_torch.ops.warp import warp, warp_band, warp_band_plain
-    from octane_tpu_torch.parallel import (make_mesh, sharded_pix2uv, sharded_srsal,
-                                           sharded_variational_flow)
+    from octane_tpu_torch.flow.variational import clear_program_cache, program_pool_bytes
+    from octane_tpu_torch.parallel import (LocalExchange, make_mesh, sharded_pix2uv,
+                                           sharded_srsal, sharded_variational_flow)
     from octane_tpu_torch.parallel import sharded
     from octane_tpu_torch.post.srsal import srsal_smooth
 
@@ -2007,30 +2018,58 @@ def phase_mesh(dev, report):
     torch.cuda.empty_cache()
 
     # (b) the GOES full-disk pair on a (1, 4) mesh of cuda:0 per relaxer,
-    # kernels only, in turns with the single-device pair
+    # kernels only: the banded program's replay in turns with the eager
+    # banded route and the single-device replay
     mesh = make_mesh((1, MESH_BANDS), [dev] * MESH_BANDS)
     z = torch.zeros((h, w), device=dev)
     _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
     nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
     m = min(512, h // 4)
+    key = {"pcg": "pcg_iterations", "sor": "sor_passes"}
     launches, flows = {}, {}
     for solver in ("sor", "pcg"):
         cfg = OFConfig(kiters=4, solver=solver)
-        runs = {"single": lambda: variational_flow(g1, g2, z, z, cfg),
-                "banded": lambda: sharded_variational_flow(g1, g2, z, z, cfg, mesh)}
-        res, ms = {}, {k: [] for k in runs}
-        for label in ("single", "banded", "banded", "single"):
-            uu, vv, t, peak = time_pair(runs[label])
-            ms[label].append((t, peak))
+        prog = sharded.sharded_flow_program(cfg, (h, w), 1, mesh)
+        info = sharded.last_program_info
+        if info["route"] != "graph":
+            raise AssertionError(f"mesh: the (1, 4) mesh of {dev} runs {info['route']}: "
+                                 f"{info['reason']}")
+        torch.cuda.reset_peak_memory_stats()
+        first_s = []
+        for _ in range(2):             # the eager first call, then capture + replay
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog(g1, g2, z, z)
+            torch.cuda.synchronize()
+            first_s.append(time.perf_counter() - t0)
+        pool = program_pool_bytes(dev)
+        capture_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs = {"graph": lambda: prog(g1, g2, z, z),
+                "eager": lambda: sharded._coarse_to_fine_banded(g1, g2, z, z, cfg, mesh,
+                                                                LocalExchange()),
+                "single": lambda: variational_flow(g1, g2, z, z, cfg)}
+        variational_flow(g1, g2, z, z, cfg)            # the single-device program's
+        variational_flow(g1, g2, z, z, cfg)            # first call and its capture
+        res, ms, counts = {}, {k: [] for k in runs}, {}
+        for label in ("graph", "eager", "single", "single", "eager", "graph"):
+            ops.reset_counters()
+            sharded.guard_reads.reads = 0
+            torch.cuda.reset_peak_memory_stats()
+            uu, vv, t, _ = program_pair(runs[label])
+            c = ops.counters()
+            ms[label].extend(t)
             res[label] = (uu, vv)
-            if label == "banded":
-                c = _check_counters("mesh", f"mesh_{solver}")
-                guard = sharded.guard_reads.reads
-                reads = c[f"{solver}_host_syncs"] + guard
-                launches[solver] = c
-        stray = {n: c[n][0] for n in ops.WRAPPERS if n not in ops.PATHS[f"mesh_{solver}"]
-                 and c[n][0]}
-        (bu, bv), (su, sv) = res["banded"], res["single"]
+            counts[label] = (c, (c[f"{solver}_host_syncs"] + sharded.guard_reads.reads)
+                             / PROGRAM_RUNS, torch.cuda.max_memory_allocated() / 2 ** 30)
+        c, g_reads, g_peak = counts["graph"]
+        e, e_reads, e_peak = counts["eager"]
+        _check_counters("mesh", f"mesh_{solver}")       # the last run: a replay
+        launches[solver] = {n: (c[n][0] // PROGRAM_RUNS, 0) for n in ops.WRAPPERS}
+        g_launch = {n: c[n][0] for n in ops.WRAPPERS if c[n][0]}
+        e_launch = {n: e[n][0] for n in ops.WRAPPERS if e[n][0]}
+        stray = {n: k for n, k in g_launch.items() if n not in ops.PATHS[f"mesh_{solver}"]}
+        (bu, bv), (eu, ev), (su, sv) = res["graph"], res["eager"], res["single"]
+        replay_eq = torch.equal(bu, eu) and torch.equal(bv, ev)
         same = torch.equal(bu, su) and torch.equal(bv, sv)
         diff = max(float((bu - su).abs().max()), float((bv - sv).abs().max()))
         med = (float(bu[m:-m, m:-m].median()), float(bv[m:-m, m:-m].median()))
@@ -2038,21 +2077,91 @@ def phase_mesh(dev, report):
         nav_equal = all(torch.equal(a, b) for a, b in zip((uw, vw, ur, vr),
                                                           pix2uv(bu, bv, nav, 60.0)))
         limit = 144 if solver == "sor" else 1080
-        say("mesh", f"{solver} {h}x{w} on {MESH_BANDS} bands of cuda:0: "
-                    + ", ".join(f"{t:.1f}" for t, _ in ms["banded"]) + " ms per pair (single "
-                    + ", ".join(f"{t:.1f}" for t, _ in ms["single"]) + " ms, in turns); peak "
-                    f"{ms['banded'][-1][1]:.2f} GiB (single {ms['single'][-1][1]:.2f}); host "
-                    f"reads {reads} ({c[f'{solver}_host_syncs']} solver + "
-                    f"{guard} reach guard; at most {limit} + 36); vs the "
+        stat = {k: (min(t), float(np.median(t))) for k, t in ms.items()}
+        say("mesh", f"{solver} {h}x{w} on {MESH_BANDS} bands of cuda:0: banded replay "
+                    f"{stat['graph'][0]:.1f} / {stat['graph'][1]:.1f} ms per pair (min / "
+                    f"median of {len(ms['graph'])}, CUDA events), eager banded "
+                    f"{stat['eager'][0]:.1f} / {stat['eager'][1]:.1f}, single-device replay "
+                    f"{stat['single'][0]:.1f} / {stat['single'][1]:.1f} (in turns); first "
+                    f"call (eager) {first_s[0]:.2f} s, second (capture + instantiate + "
+                    f"replay) {first_s[1]:.2f} s, capture + instantiate "
+                    f"{prog.capture_seconds:.2f} s; pools reserve {pool / 2 ** 30:.2f} GiB "
+                    f"with the banded program alone; peak {capture_peak:.2f} GiB over its "
+                    f"first two calls, {g_peak:.2f} at a replay, {e_peak:.2f} eager; host "
+                    f"reads per pair replay {g_reads:g}, eager {e_reads:g} (at most "
+                    f"{limit} + 36); {key[solver]} replay {c[key[solver]]} eager "
+                    f"{e[key[solver]]}; launches replay {json.dumps(g_launch)} eager "
+                    f"{json.dumps(e_launch)}; replay == eager banded {replay_eq}; vs the "
                     f"single-device flow bit-identical {same}, max |d| {diff:.3e} px; median "
-                    f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0); sharded_pix2uv equal to "
-                    f"pix2uv {nav_equal}")
-        if stray or reads > limit + 36 or diff > 1e-3 or not nav_equal or not (
-                abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1 and torch.isfinite(bu).all()):
-            raise AssertionError(f"mesh: the banded {solver} pair is off (stray launches {stray})")
-        report.setdefault("_mesh_pairs", {})[solver] = (ms["banded"], ms["single"], reads, diff)
+                    f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0); sharded_pix2uv equal "
+                    f"to pix2uv {nav_equal}")
+        if (stray or not replay_eq or g_reads != 0 or e_reads > limit + 36
+                or g_launch != e_launch or c[key[solver]] != e[key[solver]] or diff > 1e-3
+                or not nav_equal or not (abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1
+                                         and torch.isfinite(bu).all())):
+            raise AssertionError(f"mesh: the banded {solver} pair is off (stray launches "
+                                 f"{stray})")
+        report.setdefault("_mesh_pairs", {})[solver] = {
+            "graph_ms": stat["graph"], "eager_ms": stat["eager"], "single_ms": stat["single"],
+            "first_s": first_s, "capture_s": prog.capture_seconds, "pool_bytes": pool,
+            "diff": diff}
         flows[solver] = (bu, bv)
-        del res
+        del res, uu, vv, eu, ev, su, sv
+        clear_program_cache()
+    del z
+
+    # (b') 1024^2 on the (1, 4) mesh, both relaxers: the replay torch.equal
+    # to the first call and to the plain banded route; the reach case: a
+    # first guess of 20 px downwards with halo_warp 4 (reach 2 px; the guess
+    # is 2.5 px at the coarsest of 4 levels) and a hint weight (lambdac 5)
+    # that holds v near it runs the wide body at every level, the replay
+    # equal to the eager and plain banded routes
+    n = SECTOR
+    s1, s2 = bench_images(n, n, dev)
+    zs = torch.zeros((n, n), device=dev)
+    cases = [(solver, OFConfig(kiters=4, solver=solver), zs) for solver in ("sor", "pcg")]
+    cases += [(solver, OFConfig(kiters=4, solver=solver, halo_warp=4, lambdac=5.0),
+               torch.full((n, n), 20.0, device=dev)) for solver in ("sor", "pcg")]
+    wide_fn = sharded._warp_wide
+    for solver, cfg, v0 in cases:
+        reach = cfg.halo_warp == 4
+        prog = sharded.sharded_flow_program(cfg, (n, n), 1, mesh)
+        fired = []
+
+        def spy(bands, exchange, hl, warp_fn, tally):
+            fired.append(hl)
+            wide_fn(bands, exchange, hl, warp_fn, tally)
+
+        sharded._warp_wide = spy           # the eager calls' wide bodies, level by level
+        try:
+            ops.reset_counters()
+            eu, ev = sharded._coarse_to_fine_banded(s1, s2, zs, v0, cfg, mesh, LocalExchange())
+            e = ops.counters()
+            wide_bodies, levels = len(fired), sorted(set(fired))
+            pu, pv = sharded._coarse_to_fine_banded(s1, s2, zs, v0, cfg, mesh, LocalExchange(),
+                                                    plain=True)
+            fu, fv_ = prog(s1, s2, zs, v0)
+        finally:
+            sharded._warp_wide = wide_fn
+        prog(s1, s2, zs, v0)                    # capture
+        ops.reset_counters()
+        gu, gv = prog(s1, s2, zs, v0)
+        c = ops.counters()
+        same = all(torch.equal(a, b) for a, b in ((gu, fu), (gv, fv_), (gu, eu), (gv, ev),
+                                                  (gu, pu), (gv, pv)))
+        g_launch = {k: c[k][0] for k in ops.WRAPPERS if c[k][0]}
+        e_launch = {k: e[k][0] for k in ops.WRAPPERS if e[k][0]}
+        tag = " reach (v0 20 px, halo_warp 4, lambdac 5)" if reach else ""
+        say("mesh", f"{n}x{n} {solver}{tag}: "
+                    f"replay == first call == eager == plain banded {same}; wide bodies in "
+                    f"the eager pair {wide_bodies} at level heights {levels}; launches "
+                    f"replay {json.dumps(g_launch)} eager {json.dumps(e_launch)}")
+        if not same or g_launch != e_launch or (
+                reach and len(levels) != cfg.kiters) or (not reach and wide_bodies):
+            raise AssertionError(f"mesh: the {n}^2 banded {solver} replay differs"
+                                 f"{' (reach case)' if reach else ''}")
+    del s1, s2, zs, eu, ev, pu, pv, fu, fv_, gu, gv
+    clear_program_cache()
 
     # (c) banded SRSAL of the SOR flow
     bu, bv = flows["sor"]
@@ -2071,14 +2180,17 @@ def phase_mesh(dev, report):
     n = torch.cuda.device_count()
     if n > 1:
         cards = make_mesh((1, n), [torch.device("cuda", i) for i in range(n)])
+        z = torch.zeros((h, w), device=dev)
         for solver in ("sor", "pcg"):
             cfg = OFConfig(kiters=4, solver=solver)
             uu, vv, t, peak = time_pair(lambda: sharded_variational_flow(g1, g2, z, z, cfg,
                                                                          cards))
+            info = sharded.last_program_info
             su, sv = flows[solver]
             d = max(float((uu - su).abs().max()), float((vv - sv).abs().max()))
-            say("mesh", f"{solver} on {n} cards, one band each: {t:.1f} ms per pair, max |d| "
-                        f"vs the banded flow on one card {d:.3e} px")
+            say("mesh", f"{solver} on {n} cards, one band each, route {info['route']} "
+                        f"({info['reason']}): {t:.1f} ms per pair, max |d| vs the banded flow "
+                        f"on one card {d:.3e} px")
     else:
         say("mesh", "one card: the pair with one band per card is not run")
     report["_mesh"] = {"launches": launches, "times": times, "bounds": bounds, "errs": errs}

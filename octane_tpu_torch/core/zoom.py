@@ -236,9 +236,8 @@ def zoom_in_flow_rows(flow: torch.Tensor, c0: int, h_in: int, new_hw, rows,
     product may (float round-off)."""
     nyy, nxx = new_hw
     w = flow.shape[-1]
-    j2 = _half_pixel_positions(nyy, h_in)[rows[0]:rows[1]]
-    ry = _catmull_matrix_1d(h_in, j2, flow.device)[:, c0:c0 + flow.shape[-2]]
-    rx = _catmull_matrix_1d(w, _half_pixel_positions(nxx, w), flow.device)
+    ry = flow_zoom_matrix(h_in, nyy, flow.device, rows)[:, c0:c0 + flow.shape[-2]]
+    rx = flow_zoom_matrix(w, nxx, flow.device)
     out = torch.matmul(torch.matmul(ry, flow), rx.T)
     return out / float(np.float32(scale_factor))
 
@@ -246,14 +245,18 @@ def zoom_in_flow_rows(flow: torch.Tensor, c0: int, h_in: int, new_hw, rows,
 _flow_matrices: dict = {}
 
 
-def flow_zoom_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+def flow_zoom_matrix(n_in: int, n_out: int, device, rows=None) -> torch.Tensor:
     """The (n_out, n_in) Catmull-Rom matrix of ``zoom_in_flow`` along one
-    axis, built once per (n_in, n_out, device) and kept on the device, so a
-    captured solve finds it there (``clear_flow_zoom_matrices`` drops them)."""
-    key = (n_in, n_out, torch.device(device))
+    axis, or its output rows [a, b) = ``rows``, built once per (n_in, n_out,
+    rows, device) and kept on the device, so a captured solve finds it
+    there (``clear_flow_zoom_matrices`` drops them)."""
+    device = torch.device(device)
+    rows = None if rows is None else (int(rows[0]), int(rows[1]))
+    key = (n_in, n_out, rows, device)
     if key not in _flow_matrices:
+        pos = _half_pixel_positions(n_out, n_in)
         _flow_matrices[key] = _catmull_matrix_1d(
-            n_in, _half_pixel_positions(n_out, n_in), device)
+            n_in, pos if rows is None else pos[rows[0]:rows[1]], device)
     return _flow_matrices[key]
 
 

@@ -140,9 +140,10 @@ __global__ void __launch_bounds__(kThreads) warp_bilinear(
 // flags are those of the whole-image kernel in global coordinates
 // (sample_coefs at row r0 + lrow against th), and the taps are read at slab
 // row jv1 - s0, so the samples and flags equal the whole-image kernel's rows
-// bit for bit.  The caller's reach guard (parallel/sharded.py) sizes the
-// slab to hold every sample row; the clamp only keeps a read inside the
-// slab if it did not.  No tile statistics: the slab replaces the window.
+// bit for bit.  The caller's reach test (parallel/sharded.py) warps the
+// band again from the whole level wherever the slab may miss a sample row;
+// the clamp only keeps the first warp's reads inside the slab then.  No
+// tile statistics: the slab replaces the window.
 // Bound: memory, as the whole-image kernel, on the band's pixels.
 __global__ void __launch_bounds__(kThreads) warp_band(
     const float* __restrict__ slab, const float* __restrict__ u,

@@ -24,7 +24,8 @@ one replay each, with the relaxers' stopping tests in graph IF nodes
 eagerly.  ``clear_program_cache`` drops every program.
 
 The mesh path (octane_tpu_torch.parallel.sharded) runs the same schedule
-(``level_schedule``, ``gnc_rounds``) on row bands, eagerly.
+(``level_schedule``, ``gnc_rounds``) on row bands, through a program of
+its own built on ``CapturedPair``.
 
 Numerics follow the reference (SURVEY.md section 8): per-level images are
 blurred and floor-subsampled from full resolution, first-guess fields are
@@ -211,46 +212,55 @@ def _device(device) -> torch.device:
     return device
 
 
-class FlowProgram:
-    """The coarse-to-fine solve of one (shape, channels, config, device);
-    call it as ``program(geo1, geo2, u0, v0)`` -> (u, v).
+class CapturedPair:
+    """A pair's solve for one (shape, channels, config, device), captured as
+    one CUDA graph: the machinery that ``FlowProgram`` and the banded
+    program (parallel.sharded.ShardedFlowProgram) share.  Call it as
+    ``program(geo1, geo2, u0, v0)`` -> (u, v).
 
-    On a CUDA device the first call runs the solve eagerly on a side
-    stream (the warm-up: it builds the kernels, loads them and fills the
-    device-side caches, such as the flow zoom's matrices) and returns its
-    flow, so a key used once costs one eager pair.  The second call copies
-    its inputs into static buffers and captures the solve into one CUDA
-    graph in the device's shared pool (capture and instantiation take
-    ``capture_seconds``); it and every later call copy their inputs in,
-    replay the graph and return copies of the outputs, which no later
-    replay touches.  A failed capture raises; nothing falls back to the
-    eager solve.
+    A subclass gives ``_solve(geo1, geo2, u0, v0)`` -> (u, v, count), the
+    solve on this device with ``count`` its relaxer's iterations or passes
+    as an int32 device scalar, and ``_eager(geo1, geo2, u0, v0)`` -> (u, v),
+    the solve where nothing is captured (it records its own pair); it sets
+    ``captures``.  Where ``captures`` holds, the first call runs the solve
+    eagerly on a side stream (the warm-up: it builds the kernels, loads
+    them and fills the device-side caches, such as the flow zoom's
+    matrices) and returns its flow, so a key used once costs one eager
+    pair.  The second call copies its inputs into static buffers and
+    captures the solve into one CUDA graph in the device's shared pool
+    (capture and instantiation take ``capture_seconds``); it and every
+    later call copy their inputs in, replay the graph and return copies of
+    the outputs, which no later replay touches.  A failed capture raises;
+    nothing falls back to the eager solve.
 
     The wrappers count launches in Python, where a replay calls none, so
     the capture records which of them its graph launches outside guarded
-    bodies (``nodes``) and in one guarded body (``per_body``), and each
-    replay reports these with its device count of the bodies that ran to
-    ``ops.record_pair``.  On the CPU a program runs the solve eagerly.
+    bodies (``nodes``) and, for each kind of guarded body (one per device
+    tally, ops.guard), the launches of one body; each replay reports these
+    with the tallies of the bodies that ran to ``ops.record_pair``.
     """
 
-    def __init__(self, cfg: OFConfig, shape, nchan: int, device):
+    label = "flow program"
+
+    def __init__(self, cfg: OFConfig, shape, nchan: int, device, captures: bool):
         self.cfg, self.shape, self.nchan = cfg, tuple(shape), nchan
-        self.device = _device(device)
+        self.device = device
+        self.captures = captures
         self.warmed = False
         self.graph = None
         self.inputs = self.outputs = None
         self.nodes: dict = {}
-        self.per_body: dict = {}
+        self.guarded: list = []         # [(launches of one body, its device tally)]
         self.capture_seconds = None
 
     def __call__(self, geo1, geo2, u0, v0):
         if (tuple(geo1.shape) != (self.nchan, *self.shape) or geo2.shape != geo1.shape
                 or tuple(u0.shape) != self.shape or v0.shape != u0.shape):
-            raise ValueError(f"flow program of {self.nchan} x {self.shape}: got images "
+            raise ValueError(f"{self.label} of {self.nchan} x {self.shape}: got images "
                              f"{tuple(geo1.shape)}, {tuple(geo2.shape)} and flows "
                              f"{tuple(u0.shape)}, {tuple(v0.shape)}")
-        if self.device.type != "cuda":
-            return _coarse_to_fine(geo1, geo2, u0, v0, self.cfg)
+        if not self.captures:
+            return self._eager(geo1, geo2, u0, v0)
         if not self.warmed:
             u, v, count = self._warm_up(geo1, geo2, u0, v0)
             ops.record_pair(self.cfg.solver, count)
@@ -261,8 +271,15 @@ class FlowProgram:
             buf.copy_(t)
         self.graph.replay()
         u, v, count = (t.clone() for t in self.outputs)
-        ops.record_pair(self.cfg.solver, count, self.nodes, self.per_body)
+        ops.record_pair(self.cfg.solver, count, self.nodes,
+                        guarded=[(body, tally.clone()) for body, tally in self.guarded])
         return u, v
+
+    def _solve(self, geo1, geo2, u0, v0):
+        raise NotImplementedError
+
+    def _eager(self, geo1, geo2, u0, v0):
+        raise NotImplementedError
 
     def _warm_up(self, geo1, geo2, u0, v0):
         """The eager solve on a side stream: (u, v, count)."""
@@ -270,7 +287,7 @@ class FlowProgram:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = _pair(geo1, geo2, u0, v0, self.cfg)
+            out = self._solve(geo1, geo2, u0, v0)
         current.wait_stream(side)
         for t in out:                   # made on the side stream, used on this one
             t.record_stream(current)
@@ -287,20 +304,39 @@ class FlowProgram:
         try:
             with (recording() as bodies, torch.cuda.device(dev),
                   torch.cuda.graph(graph, pool=_graph_pool(dev))):
-                outputs = _pair(*inputs, self.cfg)
+                outputs = self._solve(*inputs)
         finally:                        # a capture launches nothing
             captured = {name: fn.launches - before[name] for name, fn in ops.WRAPPERS.items()}
             for name, fn in ops.WRAPPERS.items():
                 fn.launches = before[name]
         self.capture_seconds = time.perf_counter() - t0
-        per_body = bodies[0] if bodies else {}
-        if any(b != per_body for b in bodies):
-            raise RuntimeError("flow program: its guarded bodies launch different kernels")
-        for name, n in per_body.items():
-            captured[name] -= n * len(bodies)
+        kinds = {}                      # id(tally) -> (tally, launches of one body)
+        for tally, body in bodies:
+            if tally is None:
+                raise RuntimeError(f"{self.label}: a guarded body has no device tally")
+            if kinds.setdefault(id(tally), (tally, body))[1] != body:
+                raise RuntimeError(f"{self.label}: guarded bodies of one tally launch "
+                                   "different kernels")
+            for name, n in body.items():
+                captured[name] -= n
         self.nodes = {name: n for name, n in captured.items() if n}
-        self.per_body = per_body
+        self.guarded = [(body, tally) for tally, body in kinds.values()]
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
+
+
+class FlowProgram(CapturedPair):
+    """The coarse-to-fine solve of one (shape, channels, config, device)
+    (see CapturedPair); on the CPU it runs the solve eagerly."""
+
+    def __init__(self, cfg: OFConfig, shape, nchan: int, device):
+        device = _device(device)
+        super().__init__(cfg, shape, nchan, device, device.type == "cuda")
+
+    def _solve(self, geo1, geo2, u0, v0):
+        return _pair(geo1, geo2, u0, v0, self.cfg)
+
+    def _eager(self, geo1, geo2, u0, v0):
+        return _coarse_to_fine(geo1, geo2, u0, v0, self.cfg)
 
 
 def program_key(cfg: OFConfig, shape, nchan: int, device) -> tuple:
@@ -322,9 +358,12 @@ def flow_program(cfg: OFConfig, shape, nchan: int, device) -> FlowProgram:
 
 
 def clear_program_cache() -> None:
-    """Drop every program and the flow zoom's cached matrices, and return
-    their memory to the card."""
+    """Drop every program, the banded ones too, and the flow zoom's cached
+    matrices, and return their memory to the card."""
+    from octane_tpu_torch.parallel.sharded import _sharded_program_cache
+
     _program_cache.clear()
+    _sharded_program_cache.clear()
     _graph_pools.clear()            # a pool whose graphs are gone is not reused
     clear_flow_zoom_matrices()
     if torch.cuda.is_initialized():

@@ -13,10 +13,11 @@ the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
 ``pcg_pass_a_band`` and ``bilateral_band``.
 
 A pair reports its device count of PCG iterations or SOR passes through
-``record_pair``; a replayed pair (flow.variational.FlowProgram) also
-reports what its graph launches, which the wrappers, called only at
-capture, do not count: the nodes that every replay runs, and the launches
-of one guarded body, which ran as often as the device count says.
+``record_pair``; a replayed pair (flow.variational.FlowProgram,
+parallel.sharded.ShardedFlowProgram) also reports what its graph launches,
+which the wrappers, called only at capture, do not count: the nodes that
+every replay runs, and for each kind of guarded body the launches of one
+body, which ran as often as that kind's device count says.
 ``counters()`` adds those to the wrappers' own counts, reading the device
 counts there and nowhere else, and gives the last pair's count as
 ``pcg_iterations`` / ``sor_passes``.  A replay adds nothing to the
@@ -59,18 +60,20 @@ def reset_counters() -> None:
         tally.clear()
 
 
-def record_pair(solver: str, count, nodes=None, per_body=None) -> None:
+def record_pair(solver: str, count, nodes=None, guarded=()) -> None:
     """Note a pair of ``solver`` whose relaxer ran ``count`` (an int32
     device scalar) iterations or passes.  For a replayed graph, ``nodes``
     {wrapper: launches} are its nodes outside guarded bodies and
-    ``per_body`` {wrapper: launches} those of one guarded body; the
+    ``guarded`` [({wrapper: launches of one body}, the device tally of the
+    bodies that ran), ...] has one pair per kind of guarded body; the
     guarded launches are summed on the device, with no host read."""
     _last_count[solver] = count
     for name, n in (nodes or {}).items():
         _graph_nodes[name] = _graph_nodes.get(name, 0) + n
-    for name, n in (per_body or {}).items():
-        key = (name, count.device)
-        _graph_bodies[key] = _graph_bodies.get(key, 0) + n * count.to(torch.int64)
+    for body, ran in guarded:
+        for name, n in body.items():
+            key = (name, ran.device)
+            _graph_bodies[key] = _graph_bodies.get(key, 0) + n * ran.to(torch.int64)
 
 
 def counters() -> dict:

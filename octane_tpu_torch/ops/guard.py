@@ -1,10 +1,10 @@
 """Guarded iteration bodies: the relaxers' stopping tests on the device.
 
-``Guard(owner)`` guards the iteration bodies of one solve.  ``guard(resid,
-tol, body)`` runs ``body()`` while the 0-dim float32 tensor ``resid``
-exceeds ``tol``, the counterpart of the condition of the JAX package's
-``lax.while_loop`` (octane_tpu/ops/pallas/cg.py:306-320) and of the
-``lax.cond`` of its SOR remainder pass (ops/pallas/sor.py:523-525):
+``Guard(owner, tally)`` guards the iteration bodies of one solve.
+``guard(resid, tol, body)`` runs ``body()`` while the 0-dim float32 tensor
+``resid`` exceeds ``tol``, the counterpart of the condition of the JAX
+package's ``lax.while_loop`` (octane_tpu/ops/pallas/cg.py:306-320) and of
+the ``lax.cond`` of its SOR remainder pass (ops/pallas/sor.py:523-525):
 
 * while a CUDA graph is being captured on the current stream, ``body`` is
   captured into the body of a graph IF node (``csrc/graph.cu``), whose
@@ -18,15 +18,24 @@ exceeds ``tol``, the counterpart of the condition of the JAX package's
   the test skips, the later ones are skipped unread: nothing updates the
   residual any more, as on the device.
 
-The drivers (ops.pcg.pcg_solve_fused, ops.sor.sor_solve_cf) call the guard
-once per iteration and never break out of their loops, so the host route
-walks the same guarded bodies as the captured one.  A body writes only
-into buffers fixed before the loop.
+The drivers (ops.pcg.pcg_solve_fused, ops.sor.sor_solve_cf and the banded
+parallel.sor / parallel.cg ``solve_bands``) call the guard once per
+iteration and never break out of their loops, so the host route walks the
+same guarded bodies as the captured one.  A body writes only into buffers
+fixed before the loop.
 
-Inside ``recording()`` every body captured into an IF node appends to the
-list it yields the launches it added to each wrapper of ``ops.WRAPPERS``,
-so that a program can tell the launches under its IF nodes from those
-that every replay runs.
+``when(pred, body, tally)`` runs ``body()`` where the 0-dim bool ``pred``
+holds, every time, with no latch: the counterpart of a ``lax.cond`` that
+a loop meets again (the banded warp's reach test, parallel.sharded).
+Under capture it is the same IF node; otherwise one host read of
+``pred``, which it reports by returning True.
+
+A guard's ``tally`` is the int32 device scalar that counts its bodies that
+ran (the driver or the body adds to it).  Inside ``recording()`` every body
+captured into an IF node appends to the list it yields (tally, the launches
+it added to each wrapper of ``ops.WRAPPERS``), so that a program can tell
+the launches under its IF nodes, kind by kind, from those that every
+replay runs.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ _bodies = None          # the list of recording(), while it is open
 @contextlib.contextmanager
 def recording():
     """Yield a list that gains, for each body captured into an IF node
-    inside the block, {wrapper name: launches the body added}."""
+    inside the block, (its tally, {wrapper name: launches the body
+    added})."""
     global _bodies
     outer, _bodies = _bodies, []
     try:
@@ -80,13 +90,14 @@ def body_pool(device):
 class Guard:
     """The guard of one solve's iteration bodies; see the module docstring."""
 
-    def __init__(self, owner):
+    def __init__(self, owner, tally=None):
         self.owner = owner
+        self.tally = tally
         self.stopped = False
 
     def __call__(self, resid: torch.Tensor, tol: float, body) -> None:
         if resid.is_cuda and torch.cuda.is_current_stream_capturing():
-            _if_node(resid > tol, body)
+            _if_node(resid > tol, body, self.tally)
             return
         if self.stopped:
             return
@@ -97,7 +108,18 @@ class Guard:
             self.stopped = True
 
 
-def _if_node(pred: torch.Tensor, body) -> None:
+def when(pred: torch.Tensor, body, tally=None) -> bool:
+    """``body()`` where the 0-dim bool ``pred`` holds, with no latch (see the
+    module docstring); returns whether ``pred`` was read on the host."""
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        _if_node(pred, body, tally)
+        return False
+    if bool(pred):
+        body()
+    return True
+
+
+def _if_node(pred: torch.Tensor, body, tally) -> None:
     """Capture ``body()`` into an IF node on ``pred`` (a 0-dim bool)."""
     lib = load_kernels()
     dev = pred.device
@@ -111,7 +133,8 @@ def _if_node(pred: torch.Tensor, body) -> None:
             with torch.cuda.stream(side), torch.cuda.use_mem_pool(body_pool(dev)):
                 body()
             if _bodies is not None:
-                _bodies.append({name: n - before[name]
-                                for name, n in _launches().items() if n != before[name]})
+                _bodies.append((tally, {name: n - before[name]
+                                        for name, n in _launches().items()
+                                        if n != before[name]}))
         finally:
             check_status(lib.octane_if_end(side.cuda_stream), "octane_if_end")

@@ -31,8 +31,8 @@ On a CUDA tensor it launches ``octane_pcg_pass_a_band`` of ``csrc/pcg.cu``,
 on a CPU tensor ``pcg_pass_a_band_plain``.  Pass B needs no ghost rows and
 runs unchanged on each band.
 
-Passes A and B take ``out=`` buffers for their planes, which the driver
-fixes before its loop.
+Passes A and B and pass A's band form take ``out=`` buffers for their
+planes, which the drivers fix before their loops.
 
 ``pcg_solve_fused`` is the driver (cg.py:271): stop when ||r||^2 <= tol or
 after ``iters`` iterations, then the deferred x += alpha p.  Each iteration
@@ -121,9 +121,10 @@ def pcg_pass_a_plain(x, r, p, cf, ab, out=None):
     return (*_into(out, (x + alpha * p, pn, torch.stack([au, av]))), partials)
 
 
-def pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
+def pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int, out=None):
     """Plain band form: pass A's arithmetic on the band with its ghost rows,
-    p' recomputed at the ghost rows, the outputs cropped to the band."""
+    p' recomputed at the ghost rows, the outputs cropped to the band (the
+    three planes in ``out`` when given)."""
     hb = x.shape[1]
     lo, hi = row0 > 0, row0 + hb < true_h
 
@@ -138,7 +139,7 @@ def pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
     au = cf[0] * pb[0] + cf[2] * pb[1] + _offdiag(pn[0], cf, rows)
     av = cf[2] * pb[0] + cf[1] * pb[1] + _offdiag(pn[1], cf, rows)
     partials = block_partials(pb[0] * au + pb[1] * av)
-    return x + alpha * p, pb.contiguous(), torch.stack([au, av]), partials
+    return (*_into(out, (x + alpha * p, pb.contiguous(), torch.stack([au, av]))), partials)
 
 
 def pcg_pass_b_plain(r, ap, cf, alpha, out=None):
@@ -239,9 +240,10 @@ def pcg_pass_b(r, ap, cf, alpha, out=None):
     return r_new, partials
 
 
-def pcg_pass_a_band(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
+def pcg_pass_a_band(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int, out=None):
     """Pass A on a band; returns (x_new, p_new, ap, block partials of
-    <p_new, ap> over the band).  See the module docstring."""
+    <p_new, ap> over the band), the three planes in ``out`` = (x_new, p_new,
+    ap) buffers when given.  See the module docstring."""
     _check("pcg_pass_a_band", (x, r, p), cf, (ab, gr, gp, gd), min_rows=1)
     _, hb, w = x.shape
     if ab.numel() != 2:
@@ -252,11 +254,13 @@ def pcg_pass_a_band(x, r, p, cf, ab, gr, gp, gd, row0: int, true_h: int):
     if not (row0 >= 0 and row0 + hb <= true_h and true_h >= 2):
         raise ValueError(f"pcg_pass_a_band: rows [{row0}, {row0 + hb}) do not fit an image "
                          f"of {true_h} rows")
+    if out is not None:
+        _check_out("pcg_pass_a_band", out, (x, r, p))
     if x.device.type == "cpu":
         pcg_pass_a_band.plain_calls += 1
-        return pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0, true_h)
+        return pcg_pass_a_band_plain(x, r, p, cf, ab, gr, gp, gd, row0, true_h, out)
     lib = load_kernels()
-    x_new, p_new, ap = (torch.empty_like(x) for _ in range(3))
+    x_new, p_new, ap = (torch.empty_like(x) for _ in range(3)) if out is None else out
     partials = torch.empty(num_partials(hb, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.octane_pcg_pass_a_band(
@@ -318,7 +322,7 @@ def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
         torch.div(gammas[j], gammas[i], out=ab[1])
         ran.add_(1)
 
-    guard = Guard(pcg_solve_fused)
+    guard = Guard(pcg_solve_fused, count)
     for k in range(iters):
         guard(resid, tol32, lambda k=k: body(k))
     odd = ran % 2 == 1

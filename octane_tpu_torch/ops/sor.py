@@ -286,7 +286,7 @@ def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_
         torch.sum(part, 0, out=resid)
         ran.add_(1)
 
-    guard = Guard(sor_solve_cf)
+    guard = Guard(sor_solve_cf, count)
     for k in range(n_main):
         guard(resid, tol32, lambda k=k: body(k, s_main))
     if s_rem:

@@ -12,12 +12,14 @@ each tile's window statistics (``warp_block_stats`` is their plain version).
 ``warp.launches`` counts kernel launches, ``warp.plain_calls`` the calls
 served by the plain version.
 
-``warp_band(slab, u, v, s0, r0, true_h)`` is the band form for the mesh
-path (parallel.sharded): output rows [r0, r0 + hb) of a true_h-row image,
-sampled from a slab that holds global rows [s0, s0 + hs) of the stack; its
-samples and flags equal the whole-image warp's rows bit for bit.  On a
-CUDA tensor it launches ``warp_band`` of ``csrc/warp.cu``, on a CPU tensor
-``warp_band_plain``; ``warp_band.launches`` / ``.plain_calls`` count them.
+``warp_band(slab, u, v, s0, r0, true_h, out)`` is the band form for the
+mesh path (parallel.sharded): output rows [r0, r0 + hb) of a true_h-row
+image, sampled from a slab that holds global rows [s0, s0 + hs) of the
+stack; its samples and flags equal the whole-image warp's rows bit for
+bit.  They go into the ``out`` = (samples, bc_x, bc_y) buffers when given,
+as a captured solve needs.  On a CUDA tensor it launches ``warp_band`` of
+``csrc/warp.cu``, on a CPU tensor ``warp_band_plain``;
+``warp_band.launches`` / ``.plain_calls`` count them.
 """
 
 from __future__ import annotations
@@ -81,9 +83,10 @@ def warp_bilinear_dense(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
 
 def warp_band_plain(slab: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                    s0: int, r0: int, true_h: int):
+                    s0: int, r0: int, true_h: int, out=None):
     """Plain band form: ``warp_bilinear_dense``'s gathers at global
-    positions, read from the slab of rows [s0, s0 + hs)."""
+    positions, read from the slab of rows [s0, s0 + hs); written into
+    ``out`` = (samples, bc_x, bc_y) when given."""
     k, hs, w = slab.shape
     hb = u.shape[0]
     iv1, jv1, p1, p2, p3, p4, bc_x, bc_y = bilinear_coefs(u, v, r0, true_h)
@@ -95,7 +98,9 @@ def warp_band_plain(slab: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
     f11, f21, f12, f22 = take(0), take(1), take(w), take(w + 1)
     samples = p3 * (p1 * f11 + p2 * f21) + p4 * (p1 * f12 + p2 * f22)
-    return samples, bc_x, bc_y
+    if out is None:
+        return samples, bc_x, bc_y
+    return tuple(o.copy_(t) for o, t in zip(out, (samples, bc_x, bc_y)))
 
 
 def warp_block_stats(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -189,9 +194,10 @@ warp.plain_calls = 0
 
 
 def warp_band(slab: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-              s0: int, r0: int, true_h: int):
+              s0: int, r0: int, true_h: int, out=None):
     """(samples, bc_x, bc_y) of band rows [r0, r0 + hb) from the slab of
-    global rows [s0, s0 + hs); see the module docstring."""
+    global rows [s0, s0 + hs), in the ``out`` buffers when given; see the
+    module docstring."""
     if slab.dim() != 3 or u.dim() != 2 or u.shape != v.shape or u.shape[1] != slab.shape[2]:
         raise ValueError(f"warp_band: shapes {tuple(slab.shape)}, {tuple(u.shape)}, "
                          f"{tuple(v.shape)} are not (K, hs, W), (hb, W), (hb, W)")
@@ -204,16 +210,26 @@ def warp_band(slab: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             and hs >= 2 and w >= 2):
         raise ValueError(f"warp_band: rows [{r0}, {r0 + hb}) and slab [{s0}, {s0 + hs}) "
                          f"do not fit an image of {true_h} rows")
+    if out is not None:
+        want = (((k, hb, w), torch.float32), ((hb, w), torch.bool), ((hb, w), torch.bool))
+        if len(out) != 3 or any(
+                o.shape != shape or o.dtype != dtype or not o.is_contiguous()
+                or o.device != slab.device for o, (shape, dtype) in zip(out, want)):
+            raise ValueError(f"warp_band: out must be contiguous ({k}, {hb}, {w}) float32 "
+                             f"samples and two ({hb}, {w}) bool flag planes on the device "
+                             "of the slab")
     if slab.device.type == "cpu":
         warp_band.plain_calls += 1
-        return warp_band_plain(slab, u, v, s0, r0, true_h)
+        return warp_band_plain(slab, u, v, s0, r0, true_h, out)
     if slab.device.type != "cuda":
         raise ValueError(f"warp_band: unsupported device {slab.device}")
     lib = load_kernels()
     dev = slab.device
-    samples = torch.empty((k, hb, w), dtype=torch.float32, device=dev)
-    bc_x = torch.empty((hb, w), dtype=torch.bool, device=dev)
-    bc_y = torch.empty((hb, w), dtype=torch.bool, device=dev)
+    if out is None:
+        out = (torch.empty((k, hb, w), dtype=torch.float32, device=dev),
+               torch.empty((hb, w), dtype=torch.bool, device=dev),
+               torch.empty((hb, w), dtype=torch.bool, device=dev))
+    samples, bc_x, bc_y = out
     with torch.cuda.device(dev):
         status = lib.octane_warp_band(
             slab.data_ptr(), u.data_ptr(), v.data_ptr(), samples.data_ptr(),

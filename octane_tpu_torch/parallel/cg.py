@@ -10,8 +10,9 @@ every process under a ``halo.ProcessExchange``): on bands aligned to the
 reduction blocks (parallel.mesh.band_rows) every sum is one device's,
 so the iterates equal the single-device solve's bit for bit (a truncated
 CG amplifies round-off: other sums moved a 5424^2 pair by 4e-2 px).  The
-stopping test is read on the host once per iteration, as on one device
-(``ops.pcg.pcg_solve_fused.host_syncs`` counts the reads).  The JAX
+stopping test guards each iteration as on one device (ops.guard.Guard): a
+graph IF node when the banded program captures the pair, else one host
+read per iteration (``ops.pcg.pcg_solve_fused.host_syncs`` counts them).  The JAX
 package's 8-row ghost strips were the TPU's tiling: the stencil needs one
 row.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from octane_tpu_torch.ops.guard import Guard
 from octane_tpu_torch.ops.pcg import (initial_partials, pcg_pass_a_band, pcg_pass_b,
                                       pcg_solve_fused)
 from octane_tpu_torch.parallel.halo import LocalExchange, stub
@@ -40,14 +42,25 @@ def _ghost_reqs(bands, outs):
 
 
 def solve_bands(bands, true_h: int, tol: float, iters: int, exchange=None,
-                pass_a=pcg_pass_a_band, pass_b=pcg_pass_b):
+                pass_a=pcg_pass_a_band, pass_b=pcg_pass_b, count=None):
     """PCG from x = 0 on banded systems; returns the bands' (2, hb, W)
     (du, dv) rows, None for another process's band.
 
     ``bands`` is [(r0, cf, b), ...] over every band in row order: the band's
     (3|7, hb, W) coefficient rows [a1, a4, a2(, a5, a6, a7, a8)] and its
     (2, hb, W) right-hand side, on its device, or ``halo.stub``s for a band
-    of another process.  The loop is ops.pcg.pcg_solve_fused's.
+    of another process.  The loop is ops.pcg.pcg_solve_fused's, each
+    iteration a body guarded by ||r||^2 > tol (ops.guard.Guard), and so is
+    its state: each band's x, p and r ping-pong between two sets fixed
+    before the loop (iteration k reads set k % 2 and writes the other), one
+    Ap per band, [alpha, beta] in one ``ab`` per device (the first band's
+    written ``out=``, copied to the others), gamma between two scalars; the
+    iterations that ran, counted on the device, pick the final set, then
+    the deferred update.  The ghost rows of r and p are fetched into one
+    buffer per band at the start of each body, which only that body reads.
+    The right-hand sides serve as r's first set, so the solve overwrites
+    them.  ``count``, an int32 device scalar, gains the iterations that ran
+    and tallies the guarded bodies.
     """
     exchange = exchange or LocalExchange()
     layout = [(r0, cf) for r0, cf, _ in bands]
@@ -74,39 +87,65 @@ def solve_bands(bands, true_h: int, tol: float, iters: int, exchange=None,
     # the single-device solve's first sums (ops.pcg.pcg_solve_fused)
     part = exchange.join([initial_partials(cfs[i], b[i]) for i in mine], dev0, 0,
                          ("init", *key))
-    gamma = torch.sum(part[:, 0]) + torch.sum(part[:, 1])
+    gammas = [torch.sum(part[:, 0]) + torch.sum(part[:, 1]), torch.empty((), device=dev0)]
     resid = torch.sum(part[:, 2])
-    x = [None if bb is None else torch.zeros_like(bb) for bb in b]
-    p = [None if bb is None else torch.zeros_like(bb) for bb in b]
-    r = list(b)
-    alpha = torch.zeros((), dtype=torch.float32, device=dev0)
-    beta = torch.zeros_like(alpha)
-    tol32 = float(np.float32(tol))
-    for _ in range(iters):
-        pcg_solve_fused.host_syncs += 1
-        if not float(resid) > tol32:
-            break
-        exchange.fetch_bands(field(r), _ghost_reqs(layout, gr))
-        exchange.fetch_bands(field(p), _ghost_reqs(layout, gp))
-        ab = torch.stack([alpha, beta])
-        pap = {}
+
+    def pair(first):
+        return [None if bb is None else [first(bb), torch.empty_like(bb)] for bb in b]
+
+    xs, ps, rs = pair(torch.zeros_like), pair(torch.zeros_like), pair(lambda bb: bb)
+    ap = [None if bb is None else torch.empty_like(bb) for bb in b]
+    ab = {dev0: torch.zeros(2, dtype=torch.float32, device=dev0)}     # [alpha, beta]
+    for i in mine:
+        ab.setdefault(cfs[i].device, torch.zeros_like(ab[dev0]))
+    ran = torch.zeros((), dtype=torch.int32, device=dev0)
+    fetches = [[(field([None if t is None else t[j] for t in planes]), _ghost_reqs(layout, g))
+                for planes, g in ((rs, gr), (ps, gp))] for j in (0, 1)]
+
+    def spread():
+        for dev, t in ab.items():
+            if dev != dev0:
+                t.copy_(ab[dev0])
+
+    def body(k):
+        i0, j = k % 2, 1 - k % 2
+        for step in fetches[i0]:
+            exchange.fetch_bands(*step)
+        spread()
+        paps = []
         for i in mine:
             r0, cf = layout[i]
-            x[i], p[i], ap, part = pass_a(x[i], r[i], p[i], cf, ab.to(cf.device), gr[i], gp[i],
-                                          gd[i], r0, true_h)
-            pap[i] = (ap, part)
-        alpha = gamma / cat_sum([pap[i][1] for i in mine], dev0, exchange, ("pap", *key))
+            *_, pap = pass_a(xs[i][i0], rs[i][i0], ps[i][i0], cf, ab[cf.device], gr[i], gp[i],
+                             gd[i], r0, true_h, out=(xs[i][j], ps[i][j], ap[i]))
+            paps.append(pap)
+        torch.div(gammas[i0], cat_sum(paps, dev0, exchange, ("pap", *key)), out=ab[dev0][0])
+        spread()
         parts = []
         for i in mine:
-            r[i], part = pass_b(r[i], pap[i][0], cfs[i], alpha.reshape(1).to(cfs[i].device))
+            _, part = pass_b(rs[i][i0], ap[i], cfs[i], ab[cfs[i].device][0:1], out=rs[i][j])
             parts.append(part)
         part = exchange.join(parts, dev0, 0, ("rr", *key))
-        gamma_new = torch.sum(part[:, 0])
-        resid = torch.sum(part[:, 1])
-        beta = gamma_new / gamma
-        gamma = gamma_new
-    # the deferred update
-    return [None if xi is None else xi + alpha.to(xi.device) * pi for xi, pi in zip(x, p)]
+        torch.sum(part[:, 0], 0, out=gammas[j])
+        torch.sum(part[:, 1], 0, out=resid)
+        torch.div(gammas[j], gammas[i0], out=ab[dev0][1])
+        ran.add_(1)
+
+    guard = Guard(pcg_solve_fused, count)
+    tol32 = float(np.float32(tol))
+    for k in range(iters):
+        guard(resid, tol32, lambda k=k: body(k))
+    if count is not None:
+        count.add_(ran)
+    out = []
+    for i, bb in enumerate(b):
+        if bb is None:
+            out.append(None)
+            continue
+        odd = (ran % 2 == 1).to(bb.device)
+        x = torch.where(odd, xs[i][1], xs[i][0])
+        # the deferred update
+        out.append(x + ab[dev0][0].to(bb.device) * torch.where(odd, ps[i][1], ps[i][0]))
+    return out
 
 
 def system_bands(sysm, rows):

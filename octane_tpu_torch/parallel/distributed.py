@@ -197,8 +197,8 @@ def distributed_variational_flow(geo1_local, geo2_local, global_shape, cfg: OFCo
     block = torch.cat([geo1, geo2, u0[None], v0[None]])
     from octane_tpu_torch.parallel.sharded import banded_flow
 
-    prev = banded_flow(local_parts(block, r0, mesh, h), (h, w), geo1.shape[0], cfg, mesh,
-                       exchange)
+    prev, _ = banded_flow(local_parts(block, r0, mesh, h), (h, w), geo1.shape[0], cfg, mesh,
+                          exchange)
     uv = local_rows(prev, block[:2])
     return uv[0], uv[1]
 

@@ -29,8 +29,10 @@ batch (``dist.batch_isend_irecv``).  Both exchanges also provide the
 collectives the banded solvers need: ``join`` (the bands' pieces of a
 partial vector joined in band order on every process, so a sum of it is
 one device's), ``band_values`` (one scalar per band, every band's on
-every process) and ``barrier``.  ``LocalExchange`` implements them within
-the process.
+every process), ``band_max`` (their maximum as a 0-dim tensor: on the
+device, with no host read, within a process; on the host, the same on
+every process, across processes) and ``barrier``.  ``LocalExchange``
+implements them within the process.
 """
 
 from __future__ import annotations
@@ -115,6 +117,12 @@ class LocalExchange:
         """One host read of a 0-d tensor per band."""
         dev = values[0].device
         return torch.stack([v.to(dev) for v in values]).tolist()
+
+    @staticmethod
+    def band_max(values, device) -> torch.Tensor:
+        """The largest of a 0-d tensor per band (NaN if any is), on
+        ``device``: no host read."""
+        return torch.stack([v.to(device) for v in values]).amax()
 
     @staticmethod
     def barrier() -> None:
@@ -253,6 +261,11 @@ class ProcessExchange:
         dist.all_reduce(vec)
         self.sent["collectives"] += 1
         return vec.tolist()
+
+    def band_max(self, values, device=None) -> torch.Tensor:
+        """The largest of every band's value (``band_values``; NaN if any
+        is) as a 0-d tensor on the host, the same on every process."""
+        return torch.tensor(self.band_values(values)).amax()
 
     def barrier(self) -> None:
         dist.barrier()

@@ -2,7 +2,8 @@
 
 ``sharded_variational_flow(geo1, geo2, u0, v0, cfg, mesh)`` runs the
 single-device schedule (flow.variational: levels, GNC x liters rounds of
-warp -> assemble -> solve) on the mesh's row bands.  Per level, each band
+warp -> assemble -> solve) on the mesh's row bands, through the mesh's
+program (``sharded_flow_program``).  Per level, each band
 builds once, on a slab of its rows and a halo, the level-invariant parts:
 the level images and hints (``core.zoom.pyramid_downsample_rows`` of the
 full-resolution rows they read), their gradients (``gradient_4th`` twice:
@@ -23,30 +24,49 @@ the solvers' sums are one device's; only the zoom's matrix products may
 sum in another order, so the flow equals the single-device flow or agrees
 with it to float round-off.
 
-**Warp reach guard** (JAX's ``lax.cond`` to the dense gather,
-sharded.py:201-210 of octane_tpu): before each warp one host read brings
-every band's max |v| (whole rows, so only v matters).  Within ``halo_warp -
-2`` the level's slab holds every sample row; beyond it the band's slab is
-rebuilt wide enough for the rest of the level, so a sample is never
-clamped (the reference has no reach bound).  ``guard_reads`` counts the
-reads: one per round, 36 per default pair.
+**Warp reach test** (JAX's ``lax.cond`` to the dense gather,
+sharded.py:203-211 of octane_tpu): every round each band warps from its
+level slab of ``halo_warp`` rows beside the assembly's rows.  The slab
+holds every sample row while max |v| <= halo_warp - 2 on every band (whole
+rows, so only v matters); the test of that, the max over the bands, runs
+on the device, and where it fails (NaN included) a body guarded by it
+(``ops.guard.when``: a graph IF node when the program captures the pair,
+else one host read) fetches the whole level's sample stack from the
+bands' slabs, one per device (per process under a ProcessExchange), and
+warps every band again from it into the same buffers.  A sample is never
+clamped by the slab (the reference has no reach bound), and the band warp
+samples in global coordinates, so the flow is the same bit for bit
+whichever slab served a round.  ``guard_reads`` counts the host reads: one
+per round, 36 per default pair, none in a replay.
+
+``sharded_flow_program(cfg, shape, nchan, mesh)`` is the counterpart of
+JAX's one program per (mesh, shape, channels, config): where every band of
+the mesh lies on one CUDA device (``-mesh`` on one card) a key's first
+call runs the banded solve eagerly, its second captures the whole
+coarse-to-fine solve into one CUDA graph (flow.variational.CapturedPair),
+and it and every later call replay it: the banded solvers' stopping tests
+and the reach test are IF nodes, so a replay reads nothing on the host.
+Bands on the CPU or on several cards run the eager loop
+(``last_program_info["route"]`` says so and why); capturing bands on
+several cards is left for the multi-process program.
 
 Left behind from the TPU layout: the 2-D (dy, dx) block grid (a (ry, rx)
 mesh runs as ry * rx row bands, the same function: the kernels work on
 whole rows, JAX's solvers flatten the mesh to bands too, and processes
 split by rows); mesh-divisibility padding (``padded_global_shape``:
 shard_map needs equal shards, bands may be uneven, so there are no padded
-pixels); the halo-frame position shift with its edge-band patches (the
-band warp samples in global coordinates and is bit-exact); the 8-row
-ghost strips of the TPU's tiling.
+pixels and a ``true_shape`` other than the shape raises); the halo-frame
+position shift with its edge-band patches (the band warp samples in global
+coordinates and is bit-exact); the 8-row ghost strips of the TPU's tiling.
 
 The loop itself is ``banded_flow``, over a banded field's parts: with a
 ``halo.LocalExchange`` every band is the process's own, and with a
 ``halo.ProcessExchange`` (the multi-process path,
-``parallel.distributed``) the process holds tensors for its own bands
-only, but knows every band's rows and halos, so each exchange step
-(``fetch_bands``) and each join of the solvers' sums is one collective
-that every process enters with the same requests.
+``parallel.distributed``, eager) the process holds tensors for its own
+bands only, but knows every band's rows and halos, so each exchange step
+(``fetch_bands``), each join of the solvers' sums and the reach test's
+maximum is one collective that every process enters with the same
+requests.
 
 ``plain=True`` (internal, as flow.variational's) calls the band forms'
 plain versions, each call counted as a plain call.  The inputs and the
@@ -56,19 +76,21 @@ the mesh's first device.
 
 from __future__ import annotations
 
-import math
 import types
 from typing import Tuple
 
 import torch
 
+from octane_tpu_torch import ops
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.core.zoom import (flow_rows, pyramid_downsample_rows, pyramid_rows,
                                         zoom_in_flow_rows)
 from octane_tpu_torch.flow.stencil import assemble_samples
-from octane_tpu_torch.flow.variational import _counted_plain, _f32, gnc_rounds, level_schedule
+from octane_tpu_torch.flow.variational import (CapturedPair, _counted_plain, _device, _f32,
+                                               gnc_rounds, level_schedule)
 from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+from octane_tpu_torch.ops.guard import when
 from octane_tpu_torch.ops.pcg import (pcg_pass_a_band, pcg_pass_a_band_plain, pcg_pass_b,
                                       pcg_pass_b_plain)
 from octane_tpu_torch.ops.sor import sor_pass_band, sor_pass_band_plain
@@ -85,37 +107,31 @@ _PLAIN_PASSES = (_counted_plain(pcg_pass_a_band, pcg_pass_a_band_plain),
                  _counted_plain(pcg_pass_b, pcg_pass_b_plain))
 
 
-guard_reads = types.SimpleNamespace(reads=0)     # host reads of the warp reach guard
+guard_reads = types.SimpleNamespace(reads=0)     # host reads of the warp reach test
 
 
-def reach_halos(vmax, halos, floor: int):
-    """Each band's warp halo after a guard read: kept while max |v| <= halo -
-    2, else widened to ceil(max |v|) + 2 rounded up to 8 rows (the whole
-    level where max |v| is not finite)."""
-    out = []
-    for m, halo in zip(vmax, halos):
-        if m <= halo - 2:
-            out.append(halo)
-        elif math.isfinite(m):
-            out.append(max(floor, -(-(math.ceil(m) + 2) // 8) * 8))
-        else:
-            out.append(1 << 30)
-    return out
+def _beyond_reach(vs, exchange, halo: int, device) -> torch.Tensor:
+    """The reach test: a 0-dim bool, true unless every band's max |v| is at
+    most ``halo`` - 2 (``vs``: one (rows, W) plane per band, None for
+    another process's band)."""
+    m = exchange.band_max([None if v is None else v.abs().amax() for v in vs], device)
+    return torch.logical_not(m <= halo - 2)
 
 
-def _read_vmax(vs, exchange):
-    """One host read of every band's max |v| (``vs``: one (rows, W) plane per
-    band, None for another process's band), the same on every process."""
-    guard_reads.reads += 1
-    return exchange.band_values([None if v is None else v.abs().amax() for v in vs])
+def _warp_buffers(k: int, hb: int, w: int, device):
+    """Fixed (samples, bc_x, bc_y) buffers of a band's warp."""
+    return (torch.empty((k, hb, w), dtype=torch.float32, device=device),
+            torch.empty((hb, w), dtype=torch.bool, device=device),
+            torch.empty((hb, w), dtype=torch.bool, device=device))
 
 
 def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int, true_hw=None):
     """A warp sampler with warp_bilinear_dense's signature over whole
     tensors: each band of the mesh samples its rows from a slab of its rows
-    +- ``halo`` (widened by the reach guard), with the band form of the warp
-    kernel; the result is on the first band's device.  ``true_hw`` must equal
-    ``global_hw``: the bands need no padding."""
+    +- ``halo`` with the band form of the warp kernel, and again from the
+    whole fields where the reach test fails; the result is on the first
+    band's device.  ``true_hw`` must equal ``global_hw``: the bands need no
+    padding."""
     if true_hw is not None and tuple(true_hw) != tuple(global_hw):
         raise ValueError("make_sharded_warp: the bands are not padded, true_hw must equal "
                          "global_hw")
@@ -125,15 +141,23 @@ def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int, true_hw=None)
     def warp(fields, u, v):
         bands = mesh_bands(mesh, h)
         parts = [(0, fields)]
-        vs = [v[r0:r1].to(dev) for dev, r0, r1 in bands]
-        halos = reach_halos(_read_vmax(vs, exchange), [halo] * len(bands), halo)
         out = []
-        for (dev, r0, r1), hb, vb in zip(bands, halos, vs):
-            s0, s1 = max(0, r0 - hb), min(h, r1 + hb)
-            slab = exchange.rows(parts, s0, s1, dev)
-            out.append((r0, warp_band(slab, u[r0:r1].to(dev), vb, s0, r0, h)))
+        for dev, r0, r1 in bands:
+            s0, s1 = max(0, r0 - halo), min(h, r1 + halo)
+            ub, vb = u[r0:r1].to(dev), v[r0:r1].to(dev)
+            bufs = _warp_buffers(fields.shape[0], r1 - r0, fields.shape[2], dev)
+            warp_band(exchange.rows(parts, s0, s1, dev), ub, vb, s0, r0, h, out=bufs)
+            out.append((dev, r0, ub, vb, bufs))
+
+        def wide():
+            whole = {dev: fields.to(dev).contiguous() for dev, *_ in out}
+            for dev, r0, ub, vb, bufs in out:
+                warp_band(whole[dev], ub, vb, 0, r0, h, out=bufs)
+
         dev0 = bands[0][0]
-        return tuple(exchange.rows([(r0, o[j]) for r0, o in out], 0, h, dev0)
+        guard_reads.reads += when(_beyond_reach([vb for _, _, _, vb, _ in out], exchange,
+                                                halo, dev0), wide)
+        return tuple(exchange.rows([(r0, bufs[j]) for _, r0, _, _, bufs in out], 0, h, dev0)
                      for j in range(3))
 
     return warp
@@ -142,15 +166,14 @@ def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int, true_hw=None)
 class _Band:
     """One band's level state: rows [r0, r1), the assembly's rows [a0, a1)
     (the band and the stencil's ghost rows), the warp slab of rows
-    [s0, s0 + hs) with its halo, and u, v on the assembly's rows.  A band of
-    another process (``local`` False) keeps only its rows and halo: every
-    process knows every band's requests."""
+    [s0, s1) with its halo, u, v on the assembly's rows and the buffers of
+    its warp.  A band of another process (``local`` False) keeps only its
+    rows and halo: every process knows every band's requests."""
 
     def __init__(self, i, dev, r0, r1, h):
         self.i, self.dev, self.r0, self.r1 = i, dev, r0, r1
         self.local = dev.type != "meta"
         self.a0, self.a1 = max(0, r0 - 1), min(h, r1 + 1)
-        self.halo = None
         self.uv = None
 
     def interior(self, t):
@@ -160,7 +183,6 @@ class _Band:
         """Set the slab rows at warp halo ``halo``; returns the full-resolution
         rows [f0, f1) the band's level slab reads."""
         h = hw[0]
-        self.halo = halo
         self.s0, self.s1 = max(0, self.a0 - halo), min(h, self.a1 + halo)
         # gradient_4th twice: +-4 rows
         self.e0, self.e1 = max(0, self.s0 - 4), min(h, self.s1 + 4)
@@ -171,7 +193,7 @@ class _Band:
     def build(self, rows, f0: int, c: int, factor: float, hfull: int, top: bool):
         """The level-invariant slabs from the full-resolution ``rows`` [f0, f1):
         the stack on rows [s0, s1), [geo1, gx1, gy1] and the hints on the
-        assembly's rows."""
+        assembly's rows, and the warp's buffers."""
         if top:
             lvl = rows
             hint = lvl[2 * c:]
@@ -189,15 +211,16 @@ class _Band:
         a = slice(self.a0 - e0, self.a1 - e0)
         self.g1s = torch.cat([g1, gx1, gy1])[:, a].contiguous()
         self.uhat, self.vhat = hint[0, a].contiguous(), hint[1, a].contiguous()
+        self.warped = _warp_buffers(6 * c, self.a1 - self.a0, self.stack.shape[2], self.dev)
 
 
-def _build(bands, halos, exchange, full, wfull: int, c: int, factor: float, hw,
+def _build(bands, halo: int, exchange, full, wfull: int, c: int, factor: float, hw,
            top: bool) -> None:
-    """Plan every band of ``bands`` at its halo, fetch in one step the
+    """Plan every band at warp halo ``halo``, fetch in one step the
     full-resolution rows each reads, and build the local bands' slabs."""
     hfull = field_rows(full)
     reqs, got = [], []
-    for b, halo in zip(bands, halos):
+    for b in bands:
         f0, f1 = b.plan(halo, factor, hw, hfull, top)
         rows = (torch.empty((2 * c + 2, f1 - f0, wfull), dtype=torch.float32, device=b.dev)
                 if b.local else None)
@@ -209,6 +232,35 @@ def _build(bands, halos, exchange, full, wfull: int, c: int, factor: float, hw,
             b.build(rows, f0, c, factor, hfull, top)
 
 
+def _warp_wide(bands, exchange, h: int, warp_fn, tally) -> None:
+    """The reach test's body: the whole level's sample stack fetched from the
+    bands' rows of their slabs, once per device (the first band of each
+    device or process requests it), and every local band warped again from
+    it into its buffers."""
+    field = [(b.r0, b.stack[:, b.r0 - b.s0:b.r1 - b.s0] if b.local else stub(b.r1 - b.r0))
+             for b in bands]
+    first = {}
+    for b in bands:
+        first.setdefault((exchange.owner(b.i), b.dev), b)
+    level, reqs = {}, []
+    for b in first.values():
+        if b.local:
+            level[b.dev] = torch.empty((b.stack.shape[0], h, b.stack.shape[2]),
+                                       dtype=torch.float32, device=b.dev)
+        reqs.append((b.i, 0, h, level.get(b.dev) if b.local else None))
+    exchange.fetch_bands(field, reqs)
+    for b in bands:
+        if b.local:
+            warp_fn(level[b.dev], b.uv[0], b.uv[1], 0, b.a0, h, out=b.warped)
+    tally.add_(1)
+
+
+def _home(mesh, exchange) -> torch.device:
+    """The device of this process's tallies: its first band's."""
+    own = [dev for dev in mesh.devices if dev.type != "meta"]
+    return own[0] if own else exchange.device
+
+
 def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = False):
     """The coarse-to-fine solve on the mesh's bands: the one loop of the
     whole-tensor ``sharded_variational_flow`` and of the multi-process
@@ -218,12 +270,20 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
     geo2 (C), u0, v0] field as parts [(r0, (2C + 2, rows, W)), ...]: any
     parts under a LocalExchange; one per band of ``mesh_bands(mesh, H)``,
     a ``halo.stub`` for each band of another process, under a
-    ProcessExchange.  Returns the bands' [(r0, (2, rows, W) u, v)], stubs
-    for other processes' bands.
+    ProcessExchange.  Returns (the bands' [(r0, (2, rows, W) u, v)], stubs
+    for other processes' bands; the relaxer's iterations or passes as an
+    int32 device scalar).
+
+    Each level's guarded bodies have device tallies of their own, one for
+    the solver's and one for the reach test's, since the bands that run
+    them differ between levels (a band may be empty at a coarse level).
     """
     h, w = hw
     warp_fn = _PLAIN_WARP if plain else warp_band
+    round_fn = _sor_round if cfg.solver == "sor" else _pcg_round
     alpha, lam_a = _f32(cfg.alpha), _f32(cfg.lambda_over_alpha)
+    dev0 = _home(mesh, exchange)
+    count = torch.zeros((), dtype=torch.int32, device=dev0)
     bands = prev = None
     for k, factor, hw, lambdac_k in level_schedule(cfg, h, w):
         lambdac_k = _f32(lambdac_k)
@@ -231,7 +291,7 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
         first = bands is None
         bands = [_Band(i, dev, r0, r1, hw[0])
                  for i, (dev, r0, r1) in enumerate(mesh_bands(mesh, hw[0]))]
-        _build(bands, [cfg.halo_warp] * len(bands), exchange, full, w, c, factor, hw, top)
+        _build(bands, cfg.halo_warp, exchange, full, w, c, factor, hw, top)
         if first:
             for b in bands:
                 if b.local:
@@ -250,17 +310,21 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
                     b.uv = zoom_in_flow_rows(coarse, c0, hc, hw, (b.a0, b.a1),
                                              cfg.scale_factor).contiguous()
 
+        solved = torch.zeros((), dtype=torch.int32, device=dev0)
+        widened = torch.zeros((), dtype=torch.int32, device=dev0)
+
+        def wide(bands=bands, h_level=hw[0], widened=widened):
+            _warp_wide(bands, exchange, h_level, warp_fn, widened)
+
         for al1 in gnc_rounds(cfg.gnc_steps, cfg.liters):
-            vmax = _read_vmax([b.uv[1] if b.local else None for b in bands], exchange)
-            halos = reach_halos(vmax, [b.halo for b in bands], cfg.halo_warp)
-            wide = [(b, hb) for b, hb in zip(bands, halos) if hb != b.halo]
-            if wide:
-                _build(*zip(*wide), exchange, full, w, c, factor, hw, top)
-            warped = [warp_fn(b.stack, b.uv[0], b.uv[1], b.s0, b.a0, hw[0]) if b.local else None
-                      for b in bands]
-            round_fn = _sor_round if cfg.solver == "sor" else _pcg_round
-            du = round_fn(bands, warped, hw[0], al1, lambdac_k, alpha, lam_a, cfg, exchange,
-                          plain)
+            for b in bands:
+                if b.local:
+                    warp_fn(b.stack, b.uv[0], b.uv[1], b.s0, b.a0, hw[0], out=b.warped)
+            beyond = _beyond_reach([b.uv[1] if b.local else None for b in bands], exchange,
+                                   cfg.halo_warp, dev0)
+            guard_reads.reads += when(beyond, wide, widened)
+            du = round_fn(bands, hw[0], al1, lambdac_k, alpha, lam_a, cfg, exchange, plain,
+                          solved)
             for b, d in zip(bands, du):
                 if b.local:
                     b.interior(b.uv).add_(d.to(b.dev))
@@ -270,46 +334,54 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
                 reqs += [(b.i, b.a0, b.r0, b.uv[:, :b.r0 - b.a0] if b.local else None),
                          (b.i, b.r1, b.a1, b.uv[:, b.r1 - b.a0:] if b.local else None)]
             exchange.fetch_bands(prev, reqs)
+        count.add_(solved)
         wc = hw[1]
-    return prev
+    return prev, count
+
+
+def _banded_pair(geo1, geo2, u0, v0, cfg: OFConfig, mesh, exchange, plain: bool = False):
+    """``banded_flow`` of whole tensors within one process: (u, v) on the
+    mesh's first device, and the relaxer's device count."""
+    # the full-resolution inputs as one field of 2C + 2 planes; each band
+    # reads its rows of it through the exchange
+    full = [(0, torch.cat([geo1, geo2, u0[None], v0[None]]))]
+    prev, count = banded_flow(full, u0.shape, geo1.shape[0], cfg, mesh, exchange, plain)
+    uv = exchange.rows(prev, 0, u0.shape[0], prev[0][1].device)
+    return uv[0], uv[1], count
 
 
 def _coarse_to_fine_banded(geo1, geo2, u0, v0, cfg: OFConfig, mesh, exchange,
                            plain: bool = False):
-    """``banded_flow`` of whole tensors within one process: (u, v) on the
-    mesh's first device."""
-    # the full-resolution inputs as one field of 2C + 2 planes; each band
-    # reads its rows of it through the exchange
-    full = [(0, torch.cat([geo1, geo2, u0[None], v0[None]]))]
-    prev = banded_flow(full, u0.shape, geo1.shape[0], cfg, mesh, exchange, plain)
-    uv = exchange.rows(prev, 0, u0.shape[0], prev[0][1].device)
-    return uv[0], uv[1]
+    """The eager banded solve: (u, v) on the mesh's first device."""
+    u, v, count = _banded_pair(geo1, geo2, u0, v0, cfg, mesh, exchange, plain)
+    ops.record_pair(cfg.solver, count)
+    return u, v
 
 
-def _sor_round(bands, warped, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain):
+def _sor_round(bands, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain, count):
     asm_fn = _PLAIN_ASSEMBLE if plain else assemble_cf
     parts = []
-    for b, wp in zip(bands, warped):
+    for b in bands:
         if not b.local:
             parts.append((b.r0, stub(b.r1 - b.r0)))
             continue
-        samples, bc_x, bc_y = wp
+        samples, bc_x, bc_y = b.warped
         cf, _ = asm_fn(samples, bc_x, bc_y, b.g1s, b.uv[0], b.uv[1], b.uhat, b.vhat,
                        al1, lambdac, alpha, lam_a, cfg.dozim)
         parts.append((b.r0, b.interior(cf)))
     dev0 = band_sor.home(parts, exchange)
     resid0 = band_sor.resid0_of(parts, dev0, exchange)
     return band_sor.solve_bands(parts, h, resid0, cfg.cg_tol, cfg.cgiters, cfg.sor_omega,
-                                exchange, _PLAIN_PASS if plain else sor_pass_band)
+                                exchange, _PLAIN_PASS if plain else sor_pass_band, count)
 
 
-def _pcg_round(bands, warped, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain):
+def _pcg_round(bands, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain, count):
     systems = []
-    for b, wp in zip(bands, warped):
+    for b in bands:
         if not b.local:
             systems.append((b.r0, stub(b.r1 - b.r0), None))
             continue
-        samples, bc_x, bc_y = wp
+        samples, bc_x, bc_y = b.warped
         g1s = b.g1s
         c = g1s.shape[0] // 3
         sysm = assemble_samples(samples, bc_x, bc_y, g1s[:c], g1s[c:2 * c], g1s[2 * c:],
@@ -318,20 +390,91 @@ def _pcg_round(bands, warped, h, al1, lambdac, alpha, lam_a, cfg, exchange, plai
         cf, rhs = band_cg.system_bands(sysm, slice(b.r0 - b.a0, b.r1 - b.a0))
         systems.append((b.r0, cf, rhs))
     passes = _PLAIN_PASSES if plain else (pcg_pass_a_band, pcg_pass_b)
-    return band_cg.solve_bands(systems, h, cfg.cg_tol, cfg.cgiters, exchange, *passes)
+    return band_cg.solve_bands(systems, h, cfg.cg_tol, cfg.cgiters, exchange, *passes,
+                               count=count)
+
+
+_sharded_program_cache: dict = {}
+last_program_info = None         # the info of the last program sharded_flow_program gave
+
+
+def sharded_program_key(cfg: OFConfig, shape, nchan: int, mesh) -> tuple:
+    """The fields a banded program is keyed on: octane_tpu's
+    (sharded.py:231-234) with the mesh's shape and devices in place of its
+    identity, and without its TPU option or its true shape (the bands are
+    not padded)."""
+    return (tuple(mesh.shape), tuple(_device(d) for d in mesh.devices), tuple(shape), nchan,
+            cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor, cfg.kiters, cfg.liters,
+            cfg.cgiters, cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega, cfg.cg_tol,
+            cfg.halo_warp)
+
+
+class ShardedFlowProgram(CapturedPair):
+    """The banded coarse-to-fine solve of one mesh, shape, channel count and
+    config (see the module docstring and CapturedPair); ``info`` is what
+    ``last_program_info`` reports for it."""
+
+    label = "sharded flow program"
+
+    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key):
+        devices = {_device(d) for d in mesh.devices}
+        first = _device(mesh.devices[0])
+        if first.type != "cuda":
+            route, reason = "eager", f"the bands lie on the {first.type}"
+        elif len(devices) > 1:
+            route, reason = "eager", (f"the bands lie on {len(devices)} devices; only bands "
+                                      "on one card are captured")
+        else:
+            route, reason = "graph", f"every band lies on {first}"
+        super().__init__(cfg, shape, nchan, first, route == "graph")
+        self.mesh = mesh
+        h, w = self.shape
+        warp_levels = [k for k, _, hw, _ in level_schedule(cfg, h, w)
+                       if len(mesh_bands(mesh, hw[0])) > 1]
+        self.info = {"warp_levels": frozenset(warp_levels),
+                     "cg_levels": frozenset(range(cfg.kiters)), "kiters": cfg.kiters,
+                     "key": key, "route": route, "reason": reason}
+
+    def _solve(self, geo1, geo2, u0, v0):
+        return _banded_pair(geo1, geo2, u0, v0, self.cfg, self.mesh, LocalExchange())
+
+    def _eager(self, geo1, geo2, u0, v0):
+        return _coarse_to_fine_banded(geo1, geo2, u0, v0, self.cfg, self.mesh,
+                                      LocalExchange())
+
+
+def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh,
+                         true_shape=None) -> ShardedFlowProgram:
+    """The cached program of the whole banded coarse-to-fine solve over the
+    mesh (octane_tpu's sharded_flow_program); sets ``last_program_info``:
+    ``warp_levels`` (the levels with more than one non-empty band, which
+    the band warp serves), ``cg_levels`` (the levels whose solve runs
+    banded: all), ``kiters``, the ``key``, and the ``route`` ("graph" where
+    every band lies on one card, else "eager") with its ``reason``.  The
+    bands are not padded, so ``true_shape`` must be ``shape`` or None."""
+    global last_program_info
+    if true_shape is not None and tuple(true_shape) != tuple(shape):
+        raise ValueError(f"sharded_flow_program: the bands are not padded, true_shape "
+                         f"{tuple(true_shape)} must equal shape {tuple(shape)}")
+    key = sharded_program_key(cfg, shape, nchan, mesh)
+    if key not in _sharded_program_cache:
+        _sharded_program_cache[key] = ShardedFlowProgram(cfg, shape, nchan, mesh, key)
+    program = _sharded_program_cache[key]
+    last_program_info = program.info
+    return program
 
 
 def sharded_variational_flow(geo1, geo2, u0, v0, cfg: OFConfig, mesh):
-    """Coarse-to-fine variational flow on the mesh's row bands; see the
-    module docstring.  geo1/geo2: (C, H, W) or (H, W) float32 images; u0/v0:
-    (H, W) first-guess displacements.  Returns (u, v) on the mesh's first
-    device.  Every band stays on its device: there is no fallback to the
-    CPU or to one device."""
+    """Coarse-to-fine variational flow on the mesh's row bands, through the
+    mesh's program (``sharded_flow_program``); see the module docstring.
+    geo1/geo2: (C, H, W) or (H, W) float32 images; u0/v0: (H, W)
+    first-guess displacements.  Returns (u, v) on the mesh's first device.
+    Every band stays on its device: there is no fallback to the CPU or to
+    one device."""
     geo1 = geo1.to(torch.float32)
     geo2 = geo2.to(torch.float32)
     if geo1.dim() == 2:
         geo1, geo2 = geo1[None], geo2[None]
-    u0 = u0.to(torch.float32)
-    v0 = v0.to(torch.float32)
-    return _coarse_to_fine_banded(geo1.contiguous(), geo2.contiguous(), u0.contiguous(),
-                                  v0.contiguous(), cfg, mesh, LocalExchange())
+    program = sharded_flow_program(cfg, u0.shape, geo1.shape[0], mesh)
+    return program(geo1.contiguous(), geo2.contiguous(), u0.to(torch.float32).contiguous(),
+                   v0.to(torch.float32).contiguous())

@@ -10,9 +10,11 @@ the other slab of the ping-pong pair.  The band's rows equal the
 whole-image pass's bit for bit.  The residual partials of all bands are
 joined in band order and summed once (on the first band's device, or on
 every process under a ``halo.ProcessExchange``): the stopping test is
-deterministic, one device's on bands aligned to the reduction blocks, the
-same on every process, and costs one host read per pass, as on one device
-(``ops.sor.sor_solve_cf.host_syncs`` counts them).  ||b||^2 is summed the
+deterministic, one device's on bands aligned to the reduction blocks, and
+the same on every process.  It guards each pass as on one device
+(ops.guard.Guard): a graph IF node when the banded program captures the
+pair, else one host read per pass (``ops.sor.sor_solve_cf.host_syncs``
+counts them).  ||b||^2 is summed the
 same way from the bands' block partials of the coefficient planes, so no
 process joins a whole plane.
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from octane_tpu_torch.ops.guard import Guard
 from octane_tpu_torch.ops.sor import (OMEGA, PASS_SWEEPS, build_cf, sor_pass_band,
                                       sor_solve_cf)
 from octane_tpu_torch.ops.pcg import block_partials
@@ -45,15 +48,22 @@ def home(bands, exchange) -> torch.device:
 
 
 def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float = OMEGA,
-                exchange=None, pass_fn=sor_pass_band):
+                exchange=None, pass_fn=sor_pass_band, count=None):
     """SOR from x = 0 on a banded coefficient stack; returns the bands'
     (2, hb, W) (du, dv) rows, None for another process's band.
 
     ``bands`` is [(r0, cf), ...] over every band in row order, cf the band's
     (nc, hb, W) rows on its device (a view is fine) or a ``halo.stub`` for
     a band of another process; ``resid0`` is ||b||^2 on this process.  The
-    loop is ``ops.sor.sor_solve_cf``'s: passes of S = min(8, iters) sweeps
-    while ||r||^2 > tol, then a remainder pass.
+    loop is ``ops.sor.sor_solve_cf``'s: passes of S = min(8, iters) sweeps,
+    each a body guarded by ||r||^2 > tol (ops.guard.Guard), then a
+    remainder pass under the same guard.  ``count``, an int32 device scalar,
+    gains the passes that ran and tallies the guarded bodies.
+
+    Each band's iterate ping-pongs between two slabs fixed before the loop:
+    pass k fetches the ghost rows of slab set k % 2 from the bands' rows in
+    it and writes the band's rows of the other set; the passes that ran,
+    counted on the device, pick each band's final slab by their parity.
     """
     exchange = exchange or LocalExchange()
     if iters < 1:
@@ -81,37 +91,48 @@ def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float
     def interior(r0, r1, t0, x):
         return x[:, r0 - t0:r1 - t0]
 
-    def run(ns):
+    def ghosts(j):
+        """The field of slab set j's band rows and the requests of its ghost
+        rows."""
         cur, reqs = [], []
         for i, (r0, r1, t0, t1, _, xs) in enumerate(slabs):
-            x = xs[0] if xs else None
+            x = xs[j] if xs else None
             cur.append((r0, stub(r1 - r0) if x is None else interior(r0, r1, t0, x)))
             reqs += [(i, t0, r0, None if x is None else x[:, :r0 - t0]),
                      (i, r1, t1, None if x is None else x[:, r1 - t0:])]
-        exchange.fetch_bands(cur, reqs)
+        return cur, reqs
+
+    fetches = [ghosts(0), ghosts(1)]
+    resid = resid0.clone()
+    ran = torch.zeros((), dtype=torch.int32, device=dev0)
+
+    def body(k, ns):
+        j = k % 2
+        exchange.fetch_bands(*fetches[j])
         parts = []
         for r0, r1, t0, _, cfs, xs in slabs:
-            if xs is None:
-                continue
-            _, part = pass_fn(xs[0], cfs, ns, omega, t0, true_h, r0 - t0, r1 - t0,
-                              out=interior(r0, r1, t0, xs[1]))
-            parts.append(part)
-            xs.reverse()
-        return cat_sum(parts, dev0, exchange, ("sor", true_h, w))
+            if xs is not None:
+                _, part = pass_fn(xs[j], cfs, ns, omega, t0, true_h, r0 - t0, r1 - t0,
+                                  out=interior(r0, r1, t0, xs[1 - j]))
+                parts.append(part)
+        torch.sum(exchange.join(parts, dev0, 0, ("sor", true_h, w)), 0, out=resid)
+        ran.add_(1)
 
-    resid = resid0
-    for _ in range(n_main):
-        sor_solve_cf.host_syncs += 1
-        if not float(resid) > tol32:
-            break
-        resid = run(s_main)
-    else:
-        if s_rem:
-            sor_solve_cf.host_syncs += 1
-            if float(resid) > tol32:
-                run(s_rem)
-    return [None if xs is None else interior(r0, r1, t0, xs[0])
-            for r0, r1, t0, _, _, xs in slabs]
+    guard = Guard(sor_solve_cf, count)
+    for k in range(n_main):
+        guard(resid, tol32, lambda k=k: body(k, s_main))
+    if s_rem:
+        guard(resid, tol32, lambda: body(n_main, s_rem))
+    if count is not None:
+        count.add_(ran)
+    out = []
+    for r0, r1, t0, _, _, xs in slabs:
+        if xs is None:
+            out.append(None)
+            continue
+        odd = (ran % 2 == 1).to(xs[0].device)
+        out.append(torch.where(odd, interior(r0, r1, t0, xs[1]), interior(r0, r1, t0, xs[0])))
+    return out
 
 
 def resid0_of(bands, device, exchange=None) -> torch.Tensor:

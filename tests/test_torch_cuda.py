@@ -22,7 +22,9 @@ its row block, equal to the single-process banded flow's rows.  The flow
 program's replay equals the eager kernel route bit for bit, with the same
 count of relaxer iterations, at a tolerance that stops the relaxer early
 too, for a second replay on other inputs as well, and raises nothing
-under ``torch.cuda.set_sync_debug_mode("error")``.
+under ``torch.cuda.set_sync_debug_mode("error")``; so does the banded
+program's replay on a (1, 4) mesh of cuda:0, against the eager and plain
+banded routes, with and without the reach test's wide body.
 """
 
 import numpy as np
@@ -450,5 +452,59 @@ def test_program_replay_equals_the_eager_route(dev, hw, solver, early_tol, most)
                 assert all(c[name][0] == e[name][0] for name in ops.WRAPPERS)
                 if tol == early_tol:
                     assert e[key] < most
+    finally:
+        fv.clear_program_cache()
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+@pytest.mark.parametrize("reach", ["in", "beyond"])
+def test_banded_program_replay_equals_the_eager_route(dev, solver, reach):
+    """The banded program on a (1, 4) mesh of cuda:0 (``-mesh`` on one card):
+    its first call runs the banded solve eagerly, its second captures; the
+    replay is torch.equal to the eager and plain banded routes, with the
+    same device count, the same launches, and no host read (sync-debug
+    "error").  ``beyond``: a 12-px first guess with halo_warp 4 (reach 2;
+    the guess is 3 px at the coarsest level) and a hint weight that holds v
+    near it runs the reach test's wide body at every level."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.parallel import LocalExchange, make_mesh, sharded
+
+    h = w = 256
+    key = "pcg_iterations" if solver == "pcg" else "sor_passes"
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in bench_pair(h, w))
+    z = torch.zeros((h, w), device=dev)
+    v0 = torch.full((h, w), 12.0, device=dev) if reach == "beyond" else z
+    cfg = OFConfig(kiters=3, solver=solver, halo_warp=4 if reach == "beyond" else 8,
+                   lambdac=5.0 if reach == "beyond" else OFConfig().lambdac)
+    mesh = make_mesh((1, 4), [dev] * 4)
+    args = (im1, im2, z, v0)
+    try:
+        prog = sharded.sharded_flow_program(cfg, (h, w), 1, mesh)
+        assert sharded.last_program_info["route"] == "graph"
+        ops.reset_counters()
+        eu, ev = sharded._coarse_to_fine_banded(*args, cfg, mesh, LocalExchange())
+        e = ops.counters()
+        pu, pv = sharded._coarse_to_fine_banded(*args, cfg, mesh, LocalExchange(), plain=True)
+        assert torch.equal(eu, pu) and torch.equal(ev, pv)
+        while prog.graph is None:               # the eager call, then the capture
+            wu, wv = prog(*args)
+            assert torch.equal(wu, eu) and torch.equal(wv, ev)
+        ops.reset_counters()
+        sharded.guard_reads.reads = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gu, gv = prog(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        c = ops.counters()
+        assert torch.equal(gu, eu) and torch.equal(gv, ev)
+        assert c[key] == e[key] and c[f"{solver}_host_syncs"] == 0
+        assert sharded.guard_reads.reads == 0
+        assert all(c[name][0] == e[name][0] for name in ops.WRAPPERS)
+        slabs = 4 * cfg.kiters * cfg.gnc_steps * cfg.liters   # every band's warp per round
+        assert (c["warp_band"][0] > slabs) == (reach == "beyond")
     finally:
         fv.clear_program_cache()

@@ -8,6 +8,9 @@ joined within a time limit.
   ``LocalExchange.fetch`` of the whole field; ``join`` of uneven pieces
   equals the joined tensor of one process, so its sum is one process's
   sum; ``band_values`` gives every band's value on every process;
+* the banded warp's reach test over 2 processes: the wide body, which
+  fetches the whole level from every band, is entered by both together
+  and keeps the single-process banded flow bit for bit;
 * ``host_row_block`` and ``distributed_mesh`` (the layout, the default
   one band per process, the refusal of mesh rows that are not a multiple
   of the process count); ``-nprocs 1`` in one process, mirroring
@@ -125,6 +128,83 @@ def test_process_solvers_join_block_partials(tmp_path):
         np.testing.assert_array_equal(got[r]["pcg"], torch.stack(pcg)[:, a:z].numpy())
         assert got[r]["resid0_bytes"] == 4 * n                  # one partial per block
         assert got[r]["pcg1_bytes"] == 4 * (3 + 1 + 2) * n      # first sums, <p, Ap>, rr
+
+
+REACH_HW = (48, 40)                      # the reach probe's pair
+
+
+def reach_pair():
+    """A smooth pair with a 12-px first guess downwards (beyond the 2-px
+    reach of halo_warp 4)."""
+    h, w = REACH_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+
+    def mk(cx):
+        return torch.from_numpy((200 * np.exp(-((xx - cx) ** 2 + (yy - h / 2) ** 2) / 50.0)
+                                 + 30 + 5 * np.sin(xx / 5.0) * np.cos(yy / 7.0))
+                                .astype(np.float32))
+
+    return mk(w / 2 - 0.5), mk(w / 2 + 0.5), torch.full((h, w), 12.0)
+
+
+def reach_cfg(solver: str):
+    return OFConfig(kiters=2, cgiters=6, solver=solver, halo_warp=4, lambdac=5.0,
+                    mesh_shape=(4, 1))
+
+
+def reach_probe(out: str, rank: int, solver: str) -> None:
+    """Run in each process of the group (``worker.in_group``):
+    distributed_variational_flow of ``reach_pair`` on 4 bands, the reach
+    test's wide body running in every round; saves this process's rows of
+    (u, v), the level heights of the wide bodies it ran and the bytes its
+    exchange sent to ``out``.rank.npz."""
+    from octane_tpu_torch.parallel import sharded
+
+    cfg = reach_cfg(solver)
+    g1, g2, v0 = reach_pair()
+    mesh = distributed.distributed_mesh(cfg, "cpu")
+    ex = distributed.distributed_exchange(mesh)
+    r0, r1 = distributed.host_row_block(REACH_HW[0], mesh)
+    wide, bodies = sharded._warp_wide, []
+
+    def spy(*args):
+        bodies.append(args[2])
+        wide(*args)
+
+    sharded._warp_wide = spy
+    u, v = distributed.distributed_variational_flow(
+        g1[r0:r1], g2[r0:r1], REACH_HW, cfg, mesh, (0 * v0[r0:r1], v0[r0:r1]), ex, "cpu")
+    np.savez(f"{out}.{rank}.npz", u=u.numpy(), v=v.numpy(), rows=np.array([r0, r1]),
+             bodies=np.array(bodies), sent=np.array(ex.sent["bytes"]))
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+def test_process_reach_test_enters_the_wide_body_together(tmp_path, solver):
+    """A 12-px first guess beyond the reach of halo_warp 4 on 4 bands over
+    2 processes: the reach test is the gathered maximum, the same on both,
+    so both enter every wide body (the whole level's sample stack fetched
+    from the other's bands) together; each process's rows equal the
+    single-process banded flow bit for bit."""
+    from octane_tpu_torch.parallel import make_mesh, sharded
+
+    out = str(tmp_path / "reach")
+    worker.spawn(worker.in_group, [
+        ("tests.test_torch_distributed:reach_probe", r, 2, _url(tmp_path), THREADS, out, r,
+         solver) for r in range(2)], LIMIT)
+    got = [dict(np.load(f"{out}.{r}.npz")) for r in range(2)]
+    cfg = reach_cfg(solver)
+    g1, g2, v0 = reach_pair()
+    h, w = REACH_HW
+    u, v = sharded._coarse_to_fine_banded(g1[None], g2[None], 0 * v0, v0, cfg,
+                                          make_mesh((4, 1), [torch.device("cpu")] * 4),
+                                          LocalExchange())
+    rounds = cfg.kiters * cfg.gnc_steps * cfg.liters
+    for r in range(2):
+        r0, r1 = got[r]["rows"]
+        np.testing.assert_array_equal(got[r]["u"], u[r0:r1].numpy())
+        np.testing.assert_array_equal(got[r]["v"], v[r0:r1].numpy())
+        assert list(got[r]["bodies"]) == [h // 2] * (rounds // 2) + [h] * (rounds // 2)
+    assert got[0]["sent"] > 0 and got[1]["sent"] > 0
 
 
 # ----------------------------------------------------------------------------

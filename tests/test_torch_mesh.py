@@ -12,8 +12,8 @@ exchange, the band forms' plain versions, the banded solvers and warp.
   in interpret mode within rel 2e-5 (its CPU budget); the banded PCG
   solve within rel 2e-5 of the single-device one and rel 1e-4 of
   octane_tpu's ``make_sharded_fused_cg``, quad and robust;
-* the warp's reach guard widens a band's slab when a jet exceeds
-  ``halo_warp - 2`` and stays exact; ``make_sharded_warp`` against
+* the warp's reach test warps every band again from the whole field when
+  a jet exceeds ``halo_warp - 2`` and stays exact; ``make_sharded_warp`` against
   octane_tpu's on the (2, 4) CPU mesh within 1e-4 (its halo-frame shift
   is off by an ulp).
 
@@ -266,7 +266,7 @@ def test_banded_sor_uneven_bands_equal_one_band():
 
 
 # ----------------------------------------------------------------------------
-# the warp over bands: reach guard, against octane_tpu's sharded warp
+# the warp over bands: reach test, against octane_tpu's sharded warp
 # ----------------------------------------------------------------------------
 
 def test_reach_guard_widens_the_slab_and_stays_exact():

@@ -85,19 +85,19 @@ def test_banded_plain_route_equals_the_wrappers():
 
 def test_reach_guard_widens_the_level_slab(monkeypatch):
     """A first guess of 12 px downwards exceeds halo_warp - 2 = 2 of a
-    4-row halo at every level: the slabs widen, the flow stays that of one
-    device."""
+    4-row halo at every level: the reach test runs the wide body (the whole
+    level as the slab, every band warped again) in every round, and the
+    flow stays that of one device."""
     from octane_tpu_torch.parallel import sharded
 
     seen = []
 
-    def spy(vmax, halos, floor):
-        out = reach_halos(vmax, halos, floor)
-        seen.extend(out)
-        return out
+    def spy(bands, exchange, h, warp_fn, tally):
+        seen.append(h)
+        return wide(bands, exchange, h, warp_fn, tally)
 
-    reach_halos = sharded.reach_halos
-    monkeypatch.setattr(sharded, "reach_halos", spy)
+    wide = sharded._warp_wide
+    monkeypatch.setattr(sharded, "_warp_wide", spy)
     h = w = 48
     im1, im2 = _pair(h, w, shift=1.0)
     v0 = np.full((h, w), 12.0, np.float32)
@@ -105,7 +105,10 @@ def test_reach_guard_widens_the_level_slab(monkeypatch):
     cfg = OFConfig(kiters=2, cgiters=6, solver="sor", halo_warp=4, lambdac=0.5)
     t = [torch.from_numpy(a) for a in (im1, im2, z, v0)]
     u1, v1 = variational_flow(*t, cfg)
+    guard_reads.reads = 0
     u2, v2 = sharded_variational_flow(*t, cfg, make_mesh((1, 4), [CPU] * 4))
     np.testing.assert_allclose(u2.numpy(), u1.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(v2.numpy(), v1.numpy(), rtol=0, atol=1e-4)
-    assert min(seen) > 4 and max(seen) >= 16   # widened: ceil(max |v|) + 2, rounded to 8
+    rounds = cfg.gnc_steps * cfg.liters
+    assert seen == [24] * rounds + [48] * rounds       # every round of both levels
+    assert guard_reads.reads == 2 * rounds

@@ -180,3 +180,29 @@ def test_pass_input_checks():
         pcgmod.pcg_pass_b(x, x[:, :5], cf, ab[:1])
     with pytest.raises(ValueError):
         pcgmod.pcg_pass_b(x, x, cf, ab)
+
+
+@pytest.mark.parametrize("quad", [True, False])
+def test_pass_a_band_out_buffers(quad):
+    """pcg_pass_a_band writes into ``out`` = (x_new, p_new, ap) what it
+    returns without it (the plain route on the CPU), partials included, and
+    refuses buffers that are inputs or of another shape or type."""
+    h, w, row0, hb = 40, 33, 8, 16
+    s = _torch_sys(_system_np(h, w, quad, seed=9))
+    planes = [s.a1, s.a4, s.a2] + ([] if quad else [s.a5, s.a6, s.a7, s.a8])
+    cf = torch.stack(planes)[:, row0:row0 + hb].contiguous()
+    rng = np.random.default_rng(10)
+    x, r, p = (torch.from_numpy(rng.normal(0, 1, (2, hb, w)).astype(np.float32))
+               for _ in range(3))
+    gr, gp = (torch.from_numpy(rng.normal(0, 1, (2, 2, w)).astype(np.float32)) for _ in range(2))
+    gd = torch.from_numpy(rng.uniform(4.5, 9.0, (2, 2, w)).astype(np.float32))
+    args = (x, r, p, cf, torch.tensor([0.3, 0.7]), gr, gp, gd, row0, h)
+    want = pcgmod.pcg_pass_a_band(*args)
+    out = tuple(torch.empty_like(x) for _ in range(3))
+    got = pcgmod.pcg_pass_a_band(*args, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    assert all(torch.equal(g, wt) for g, wt in zip(got, want))
+    for bad in ((x, *out[1:]), (torch.empty((2, hb, w + 1)), *out[1:]),
+                (out[0].double(), *out[1:])):
+        with pytest.raises(ValueError, match="out"):
+            pcgmod.pcg_pass_a_band(*args, out=bad)

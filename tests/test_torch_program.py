@@ -244,7 +244,8 @@ def test_record_pair_counts_replayed_launches_from_the_device_count():
     ops.reset_counters()
     nodes, per_body = {"warp": 36}, {"pcg_pass_a": 1, "pcg_pass_b": 1}
     for ran in (700, 0, 380):
-        ops.record_pair("pcg", torch.tensor(ran, dtype=torch.int32), nodes, per_body)
+        count = torch.tensor(ran, dtype=torch.int32)
+        ops.record_pair("pcg", count, nodes, guarded=[(per_body, count)])
     c = ops.counters()
     assert c["warp"] == (108, 0)
     assert c["pcg_pass_a"] == c["pcg_pass_b"] == (1080, 0)

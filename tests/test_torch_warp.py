@@ -124,3 +124,25 @@ def test_wrapper_dispatch_and_checks():
     with pytest.raises(ValueError):
         warpmod.warp(f[:, :, ::2], u[:, ::2], u[:, ::2])
     assert warpmod.pick_bh(64) == 64 and warpmod.pick_bh(63) == 32
+
+
+def test_warp_band_out_buffers():
+    """warp_band writes into ``out`` = (samples, bc_x, bc_y) what it returns
+    without it (the plain route on the CPU), and refuses buffers of another
+    shape, type or layout."""
+    h, w, s0, r0, hb = 40, 24, 6, 10, 12
+    u, v = _flow("jet", hb, w, 8)
+    slab = torch.from_numpy(np.random.default_rng(9).normal(0, 1, (6, 20, w)).astype(np.float32))
+    args = (slab, torch.from_numpy(u) * 0.1, torch.from_numpy(v) * 0.1, s0, r0, h)
+    want = warpmod.warp_band(*args)
+    out = (torch.empty((6, hb, w)), torch.empty((hb, w), dtype=torch.bool),
+           torch.empty((hb, w), dtype=torch.bool))
+    got = warpmod.warp_band(*args, out=out)
+    assert all(g is o and torch.equal(g, wt) for g, o, wt in zip(got, out, want))
+    for bad in ((torch.empty((6, hb, w + 1)), *out[1:]),
+                (out[0].double(), *out[1:]),
+                (out[0], out[1].float(), out[2]),
+                (torch.empty((6, hb, 2 * w))[:, :, ::2], *out[1:]),
+                out[:2]):
+        with pytest.raises(ValueError, match="out"):
+            warpmod.warp_band(*args, out=bad)

@@ -1,12 +1,15 @@
 """Device-time breakdown of one octane_tpu_torch pair solve on a CUDA card.
 
     python3 tools/profile_torch_pair.py [--size 5424] [--kiters 4] [--solver pcg|sor]
-                                        [--route graph|eager] [--hybrid]
+                                        [--route graph|eager] [--hybrid] [--mesh RxC]
 
 Runs the bench.py synthetic pair through ``variational_flow``, which
 replays the pair's captured CUDA graph (``--route eager``: the eager
 kernel route, ``flow.variational._coarse_to_fine``; the profiler sees the
 kernels of a replay one by one, so the breakdown holds for both) (with
+``--mesh RxC``: on R*C row bands of cuda:0 through
+``parallel.sharded.sharded_variational_flow``, which replays the banded
+program's graph, or the eager banded route with ``--route eager``) (with
 ``--hybrid``: ``patch_match_flow``, then ``variational_flow`` from its flow,
 as compute_flow's "hybrid" does; patch-match is also profiled alone) once
 to warm up, once timed without the profiler (wall clock, CUDA events around
@@ -18,6 +21,7 @@ layers (warp, PCG passes, fused assembly, SOR passes, the scalar glue
 and the eager assembly's elementwise work, shifts/gathers, reductions,
 matmuls, the graph's IF-node conditions).  Writes the summary and the
 chrome trace to chiprun_out/profile_pair_<solver>_<route>.{txt,json}.
+With ``--mesh`` the files are named profile_mesh<R>x<C>_<solver>_<route>.
 """
 
 import argparse
@@ -36,9 +40,14 @@ from octane_tpu_torch import ops  # noqa: E402
 from octane_tpu_torch.config import OFConfig  # noqa: E402
 from octane_tpu_torch.flow.patch_match import patch_match_flow  # noqa: E402
 from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow  # noqa: E402
+from octane_tpu_torch.parallel import (LocalExchange, make_mesh,  # noqa: E402
+                                       sharded_variational_flow)
+from octane_tpu_torch.parallel import sharded  # noqa: E402
+from octane_tpu_torch.parallel.sharded import _coarse_to_fine_banded  # noqa: E402
 from chip_smoke import load_tests_module  # noqa: E402
 
-GROUPS = (("warp_bilinear", "warp kernel"), ("pcg_pass_a", "PCG pass A"),
+GROUPS = (("warp_bilinear", "warp kernel"), ("warp_band", "warp kernel (band form)"),
+          ("pcg_pass_a", "PCG pass A"),
           ("pcg_pass_b", "PCG pass B"), ("assemble_cf", "fused assembly kernel"),
           ("sor_pass", "SOR pass kernel"), ("gemm", "matmul (zoom)"),
           ("index", "index_select (shifts, subsample)"),
@@ -75,6 +84,7 @@ def profile(run, label, trace):
     event_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ops.reset_counters()
+    sharded.guard_reads.reads = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -93,7 +103,8 @@ def profile(run, label, trace):
              f"the profiler (CUDA events {event_ms:.1f} ms, peak {peak:.2f} GiB), "
              f"{wall_prof:.1f} ms under it; device "
              f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f} of the unprofiled "
-             f"wall; counters {ops.counters()}"]
+             f"wall; counters {ops.counters()}, banded reach reads "
+             f"{sharded.guard_reads.reads}"]
     for name, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         lines.append(f"  {name:36s} {ms:9.2f} ms  {ms / wall:6.1%} of wall  "
                      f"({counts[name]} launches)")
@@ -115,7 +126,11 @@ def main():
                     help="the captured pair (variational_flow) or the eager kernel route")
     ap.add_argument("--hybrid", action="store_true",
                     help="patch-match initialization, then the variational refinement")
+    ap.add_argument("--mesh", default=None, metavar="RxC",
+                    help="the banded pair on R*C row bands of cuda:0 (-mesh RxC)")
     a = ap.parse_args()
+    if a.mesh and a.hybrid:
+        ap.error("--mesh profiles the variational pair only")
     if not torch.cuda.is_available():
         print("profile_torch_pair: no CUDA device", file=sys.stderr)
         return 1
@@ -127,12 +142,23 @@ def main():
     z = torch.zeros((h, w), device=dev)
     cfg = OFConfig(kiters=a.kiters, solver=a.solver)
     flow = variational_flow if a.route == "graph" else _coarse_to_fine
+    trace = f"pair_{a.solver}_{a.route}"
+    label = f"{h}x{w} kiters={a.kiters} solver={a.solver} route={a.route}"
+    if a.mesh:
+        ry, rx = (int(k) for k in a.mesh.lower().split("x"))
+        mesh = make_mesh((ry, rx), [dev] * (ry * rx))
+        if a.route == "graph":
+            flow = lambda *args: sharded_variational_flow(*args, mesh)     # noqa: E731
+        else:
+            flow = lambda *args: _coarse_to_fine_banded(*args, mesh,       # noqa: E731
+                                                        LocalExchange())
+        trace = f"mesh{ry}x{rx}_{a.solver}_{a.route}"
+        label += f" mesh=({ry}, {rx}) of {dev}"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    label = f"{h}x{w} kiters={a.kiters} solver={a.solver} route={a.route}"
     if not a.hybrid:
-        profile(lambda: flow(g1, g2, z, z, cfg), label, f"pair_{a.solver}_{a.route}")
+        profile(lambda: flow(g1, g2, z, z, cfg), label, trace)
         return 0
 
     def patch_match():
