@@ -132,21 +132,34 @@ Phases, one line each (any failure exits non-zero):
      reach case (a 20-px first guess, halo_warp 4) whose wide body runs at
      every level, the same equalities held; (c) sharded_srsal of the banded
      SOR flow with the 5424^2 CTH within rel 1e-5 of srsal_smooth; (d)
-     where the machine has several cards, the pair with one band per card,
-     which runs the eager banded loop and says so (else it says it did not
-     run).
+     where the machine has several cards, the pair per relaxer on a (1, n)
+     mesh with band i on cuda:i through the banded program (route "graph":
+     one capture across the cards), its replay in turns with the eager
+     banded route of the same mesh (graph, eager, eager, graph; 2 pairs
+     each): ms min / median, the first calls' and the capture's seconds,
+     pool bytes and peaks per card, with SOR each card's idle share
+     (torch.profiler) replayed and eager, host reads (0 replayed), launches
+     equal, the replay
+     torch.equal to the eager route and to (b)'s one-card banded replay
+     (else it says on its own line that it did not run).
  17. dist: the multi-process path (parallel.distributed, -nprocs).  (a) 2
      processes spawned on cuda:0 in a gloo group (their rows staged through
      pinned host memory), and where the machine has several cards one
      process per card over NCCL (else it says it did not run).  Each builds
      its row block of the 5424^2 bench pair through
      scene_from_goes_arrays(row_range=) (equal to the whole arrays' rows),
-     then per relaxer runs distributed_variational_flow, a warm-up and one
-     pair timed with CUDA events between barriers: its rows torch.equal to
-     the single-device flow and to the single-process banded flow on a
-     (1, 2) mesh, each band kernel of the relaxer launched and no plain
-     version called, ms, peak memory, host reads, the messages and bytes
-     it sent and its collectives and the bytes they gathered from it; pix2uv_bands equal to pix2uv's rows,
+     then per relaxer runs distributed_variational_flow through the
+     process's program (route "eager" over gloo, "graph" over NCCL: its
+     first call eager, its second the capture), timed with CUDA events
+     between barriers: over gloo one pair after two warm-ups; over NCCL the
+     replay in turns with the program's eager route (graph, eager, eager,
+     graph), the capture's seconds and pool bytes, gated on route "graph", 0 host reads
+     replayed and launches and counts equal to the eager route's; its rows
+     torch.equal to the single-device flow and to the single-process
+     banded flow on a (1, n) mesh, each band kernel of the relaxer launched
+     and no plain version called, ms, peak memory, host reads, the
+     messages and bytes it sent and its collectives and the bytes they
+     gathered from it (a replay's from its capture); pix2uv_bands equal to pix2uv's rows,
      srsal_bands within rel 1e-5 of srsal_smooth's rows, and on the SOR
      flow one interpolate_bands frame equal to interpolate_frame's rows.
      A process that fails or hangs fails the phase.  (b) At 5424^2 on a
@@ -1859,8 +1872,7 @@ def phase_mesh(dev, report):
     from octane_tpu_torch.ops.sor import sor_pass, sor_pass_band, sor_pass_band_plain
     from octane_tpu_torch.ops.warp import warp, warp_band, warp_band_plain
     from octane_tpu_torch.flow.variational import clear_program_cache, program_pool_bytes
-    from octane_tpu_torch.parallel import (LocalExchange, make_mesh, sharded_pix2uv,
-                                           sharded_srsal, sharded_variational_flow)
+    from octane_tpu_torch.parallel import LocalExchange, make_mesh, sharded_pix2uv, sharded_srsal
     from octane_tpu_torch.parallel import sharded
     from octane_tpu_torch.post.srsal import srsal_smooth
 
@@ -2176,25 +2188,135 @@ def phase_mesh(dev, report):
     if not r <= BILATERAL_REL:
         raise AssertionError("mesh: sharded_srsal differs from srsal_smooth")
 
-    # (d) one band per card, where the machine has several
+    # (d) one band per card, where the machine has several: the banded
+    # program captured across the cards, its replay in turns with the eager
+    # banded route of the same mesh
     n = torch.cuda.device_count()
     if n > 1:
-        cards = make_mesh((1, n), [torch.device("cuda", i) for i in range(n)])
+        cards = [torch.device("cuda", i) for i in range(n)]
+        mesh_n = make_mesh((1, n), cards)
         z = torch.zeros((h, w), device=dev)
         for solver in ("sor", "pcg"):
-            cfg = OFConfig(kiters=4, solver=solver)
-            uu, vv, t, peak = time_pair(lambda: sharded_variational_flow(g1, g2, z, z, cfg,
-                                                                         cards))
-            info = sharded.last_program_info
-            su, sv = flows[solver]
-            d = max(float((uu - su).abs().max()), float((vv - sv).abs().max()))
-            say("mesh", f"{solver} on {n} cards, one band each, route {info['route']} "
-                        f"({info['reason']}): {t:.1f} ms per pair, max |d| vs the banded flow "
-                        f"on one card {d:.3e} px")
+            report.setdefault("_cards_pairs", {})[solver] = cards_pair(
+                g1, g2, z, OFConfig(kiters=4, solver=solver), mesh_n, flows[solver])
+            clear_program_cache()
+        del z
     else:
-        say("mesh", "one card: the pair with one band per card is not run")
+        say("mesh", "one card: the pair with one band per card (the banded program captured "
+                    "across cards) is not run")
     report["_mesh"] = {"launches": launches, "times": times, "bounds": bounds, "errs": errs}
     say("mesh", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def fmt_ms(ms):
+    """min / median of a list of ms."""
+    return f"{min(ms):.1f} / {float(np.median(ms)):.1f}"
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def idle_shares(run, devices):
+    """[1 - device busy / wall] per card of ``devices`` for one ``run()``:
+    the wall from a run without the profiler (host clock, every card
+    synchronised), the busy time from the kernels and copies that
+    torch.profiler saw on each card in a second run."""
+    sync_all()
+    t0 = time.perf_counter()
+    run()
+    sync_all()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        sync_all()
+    busy = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy[ev.device_index] = (busy.get(ev.device_index, 0.0)
+                                     + ev.time_range.elapsed_us() / 1e3)
+    return [1.0 - busy.get(d.index, 0.0) / wall for d in devices]
+
+
+def cards_pair(g1, g2, z, cfg, mesh, want):
+    """The mesh phase's (d): the full-disk pair on a (1, n) mesh with band i
+    on cuda:i through the banded program (route "graph", one capture
+    across the cards), its replay in turns with the eager banded route of
+    the same mesh (graph, eager, eager, graph); gated: 0 host reads
+    replayed, launches equal, the replay torch.equal to the eager route and
+    to ``want`` (the one-card banded replay)."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.flow.variational import program_pool_bytes
+    from octane_tpu_torch.parallel import LocalExchange, sharded
+
+    solver = cfg.solver
+    cards = list(dict.fromkeys(mesh.devices))
+    h, w = z.shape
+    prog = sharded.sharded_flow_program(cfg, (h, w), 1, mesh)
+    info = sharded.last_program_info
+    if info["route"] != "graph":
+        raise AssertionError(f"mesh: {len(cards)} cards run {info['route']}: {info['reason']}")
+    first_s = []
+    for _ in range(2):                  # the eager first call, then capture + replay
+        sync_all()
+        t0 = time.perf_counter()
+        prog(g1, g2, z, z)
+        sync_all()
+        first_s.append(time.perf_counter() - t0)
+    pools = [program_pool_bytes(c) / 2 ** 30 for c in cards]
+    runs = {"graph": lambda: prog(g1, g2, z, z),
+            "eager": lambda: sharded._coarse_to_fine_banded(g1, g2, z, z, cfg, mesh,
+                                                            LocalExchange())}
+    res, ms, counts = {}, {k: [] for k in runs}, {}
+    for label in ("graph", "eager", "eager", "graph"):
+        ops.reset_counters()
+        sharded.guard_reads.reads = 0
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        uu, vv, t, _ = program_pair(runs[label], n=2)
+        c = ops.counters()
+        ms[label].extend(t)
+        res[label] = (uu, vv)
+        counts[label] = (c, (c[f"{solver}_host_syncs"] + sharded.guard_reads.reads) / 2,
+                         [torch.cuda.max_memory_allocated(d) / 2 ** 30 for d in cards])
+    # each card's idle share, SOR only: under torch.profiler's device tracing
+    # the PCG pair on four cards, replayed or eager alike, does not finish
+    # within a minute (once it faulted), while runs without device tracing
+    # do (tools/profile_torch_pair.py --cards 4 --solver pcg --replays 3
+    # --host-first)
+    idle = ({label: [round(x, 4) for x in idle_shares(runs[label], cards)] for label in runs}
+            if solver == "sor" else None)
+    c, g_reads, g_peaks = counts["graph"]
+    e, e_reads, e_peaks = counts["eager"]
+    key = "pcg_iterations" if solver == "pcg" else "sor_passes"
+    g_launch = {k: c[k][0] for k in ops.WRAPPERS if c[k][0]}
+    e_launch = {k: e[k][0] for k in ops.WRAPPERS if e[k][0]}
+    (gu, gv), (eu, ev) = res["graph"], res["eager"]
+    replay_eq = torch.equal(gu, eu) and torch.equal(gv, ev)
+    one_card = torch.equal(gu, want[0]) and torch.equal(gv, want[1])
+    stat = {k: (min(t), float(np.median(t))) for k, t in ms.items()}
+    say("mesh", f"{solver} {h}x{w} on {len(cards)} cards, one band each, route "
+                f"{info['route']} ({info['reason']}): replay {stat['graph'][0]:.1f} / "
+                f"{stat['graph'][1]:.1f} ms per pair (min / median of {len(ms['graph'])}, "
+                f"CUDA events, every card synchronised), eager banded {stat['eager'][0]:.1f} / "
+                f"{stat['eager'][1]:.1f} (in turns); first call (eager) {first_s[0]:.2f} s, "
+                f"second (capture + instantiate + replay) {first_s[1]:.2f} s, capture + "
+                f"instantiate {prog.capture_seconds:.2f} s; pools per card "
+                f"{[round(p, 2) for p in pools]} GiB; peaks per card replay "
+                f"{[round(p, 2) for p in g_peaks]} eager {[round(p, 2) for p in e_peaks]} GiB; "
+                + (f"idle share per card replay {idle['graph']} eager {idle['eager']}; "
+                   if idle else "") + f"host reads per pair replay "
+                f"{g_reads:g}, eager {e_reads:g}; {key} replay {c[key]} eager {e[key]}; "
+                f"launches replay {json.dumps(g_launch)} eager {json.dumps(e_launch)}; replay "
+                f"== eager {replay_eq}; == the one-card banded replay {one_card}")
+    if (g_reads != 0 or not replay_eq or not one_card or g_launch != e_launch
+            or c[key] != e[key]):
+        raise AssertionError(f"mesh: the {solver} pair on {len(cards)} cards is off")
+    return {"graph_ms": stat["graph"], "eager_ms": stat["eager"], "first_s": first_s,
+            "capture_s": prog.capture_seconds, "pools_gib": pools, "idle": idle,
+            "reads": (g_reads, e_reads), "launches": g_launch}
 
 
 DIST_PROCS = 2                      # the dist phase's processes on one card
@@ -2222,13 +2344,15 @@ def _dist_scenes(rows, dev, fx):
 
 def dist_worker(rank, nprocs, url, backend, out):
     """Process ``rank`` of ``nprocs`` of the dist phase (spawned): its row block of the
-    full-disk pair, per relaxer the distributed pair (a warm-up, then one
-    timed between barriers) against the single-device and single-process
-    banded flows it computes itself, then pix2uv, SRSAL and one
-    interpolated frame on its band; its report goes to ``out``.rank.json."""
+    full-disk pair, per relaxer the distributed pair through its program
+    (the first two calls untimed; over NCCL the replay then timed in turns
+    with the eager route, over gloo one eager pair) against the
+    single-device and single-process banded flows it computes itself, then
+    pix2uv, SRSAL and one interpolated frame on its band; its report goes
+    to ``out``.rank.json."""
     from octane_tpu_torch import ops
     from octane_tpu_torch.config import OFConfig
-    from octane_tpu_torch.flow.variational import variational_flow
+    from octane_tpu_torch.flow.variational import program_pool_bytes, variational_flow
     from octane_tpu_torch.nav.winds import pix2uv
     from octane_tpu_torch.parallel import distributed as D
     from octane_tpu_torch.parallel import make_mesh, sharded, sharded_variational_flow
@@ -2262,8 +2386,25 @@ def dist_worker(rank, nprocs, url, backend, out):
             cfg = OFConfig(kiters=4, solver=solver)
             su, sv = variational_flow(w1.data, w2.data, z, z, cfg)
             bu, bv = sharded_variational_flow(w1.data, w2.data, z, z, cfg, banded_mesh)
-            equal = []
-            for timed in (False, True):
+            prog = sharded.sharded_flow_program(cfg, (h, w), 1, mesh, exchange=ex)
+            info = sharded.last_program_info
+            zr = z[r0:r1].contiguous()
+            runs = {"graph": lambda: D.distributed_variational_flow(
+                        b1.data, b2.data, (h, w), cfg, mesh, exchange=ex),
+                    "eager": lambda: prog._eager(b1.data, b2.data, zr, zr)}
+            first_s = []
+            for _ in range(2):      # the program's first call and (NCCL) its capture
+                ex.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs["graph"]()
+                torch.cuda.synchronize()
+                first_s.append(time.perf_counter() - t0)
+            ex.barrier()
+            turns = ("graph", "eager", "eager", "graph") if info["route"] == "graph" else (
+                "graph",)
+            ms, stats, equal = {}, {}, []
+            for label in turns:
                 ex.barrier()
                 torch.cuda.synchronize()
                 ops.reset_counters()
@@ -2272,24 +2413,28 @@ def dist_worker(rank, nprocs, url, backend, out):
                 torch.cuda.reset_peak_memory_stats(dev)
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
-                u, v = D.distributed_variational_flow(b1.data, b2.data, (h, w), cfg, mesh,
-                                                      exchange=ex)
+                u, v = runs[label]()
                 ev[1].record()
                 torch.cuda.synchronize()
                 ex.barrier()
+                ms.setdefault(label, []).append(ev[0].elapsed_time(ev[1]))
                 equal.append([torch.equal(u, su[r0:r1]) and torch.equal(v, sv[r0:r1]),
                               torch.equal(u, bu[r0:r1]) and torch.equal(v, bv[r0:r1])])
-            c = ops.counters()
-            rep[solver] = {
-                "ms": ev[0].elapsed_time(ev[1]),
-                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                "equal_single": all(e[0] for e in equal),
-                "equal_banded": all(e[1] for e in equal),
-                "launches": {k: c[k][0] for k in ops.WRAPPERS},
-                "plain": sum(c[k][1] for k in ops.WRAPPERS),
-                "host_reads": c[f"{solver}_host_syncs"] + sharded.guard_reads.reads,
-                "sent": dict(ex.sent),
-                "median": [float(u.median()), float(v.median())]}
+                c = ops.counters()
+                stats[label] = {
+                    "launches": {k: c[k][0] for k in ops.WRAPPERS},
+                    "plain": sum(c[k][1] for k in ops.WRAPPERS),
+                    "host_reads": c[f"{solver}_host_syncs"] + sharded.guard_reads.reads,
+                    "iterations": c["pcg_iterations" if solver == "pcg" else "sor_passes"],
+                    "sent": dict(ex.sent),
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            rep[solver] = dict(
+                stats["graph"], route=info["route"], reason=info["reason"],
+                ms=min(ms["graph"]), ms_graph=ms["graph"], ms_eager=ms.get("eager", []),
+                eager=stats.get("eager"), first_s=first_s, capture_s=prog.capture_seconds,
+                pool_gib=program_pool_bytes(dev) / 2 ** 30,
+                equal_single=all(e[0] for e in equal), equal_banded=all(e[1] for e in equal),
+                median=[float(u.median()), float(v.median())])
             # navigation, SRSAL and one interpolated frame on the band
             _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
             nav.g2x_offset, nav.g2y_offset = nav.x_offset, nav.y_offset
@@ -2308,7 +2453,7 @@ def dist_worker(rank, nprocs, url, backend, out):
             if solver == "sor":
                 peaks = [torch.maximum(u.abs().amax(), v.abs().amax()) if i == rank else None
                          for i in range(mesh.n)]
-                max_disp = max(8, int(-(-max(ex.band_values(peaks)) // 8) * 8))
+                max_disp = max(8, int(-(-max(ex.band_values(peaks).tolist()) // 8) * 8))
                 field = D.local_parts(torch.cat([u[None], v[None], b1.data, b2.data]), r0,
                                       mesh, h)
                 ex.barrier()
@@ -2381,24 +2526,39 @@ def phase_dist(dev, report, have_h5py):
                     s = rep[solver]
                     path = ops.PATHS[f"mesh_{solver}"]
                     launched = all(s["launches"][k] > 0 for k in path)
-                    say("dist", f"{where} {solver}: {s['ms']:.1f} ms per pair (CUDA events "
-                                f"between barriers, after a warm-up), peak {s['peak_gib']:.2f} "
-                                f"GiB; rows torch.equal to the single-device flow "
-                                f"{s['equal_single']} and to the single-process banded flow "
-                                f"{s['equal_banded']}; launches " + json.dumps(
-                                    {k: s["launches"][k] for k in path})
-                                + f", plain calls {s['plain']}; host reads {s['host_reads']}; "
-                                f"sent {s['sent']['messages']} messages of {s['sent']['bytes']} "
-                                f"bytes, {s['sent']['collectives']} collectives gathering "
-                                f"{s['sent']['gathered']} bytes; pix2uv equal "
-                                f"{s['pix2uv_equal']}; SRSAL rel {s['srsal_rel']:.2e} (equal "
-                                f"{s['srsal_equal']}, bilateral_band launches "
+                    say("dist", f"{where} {solver}: route {s['route']} ({s['reason']}); "
+                                f"{fmt_ms(s['ms_graph'])} ms per pair through the program "
+                                f"(CUDA events between barriers, after its first call "
+                                f"{s['first_s'][0]:.2f} s and second {s['first_s'][1]:.2f} s)"
+                                + (f", eager banded loop {fmt_ms(s['ms_eager'])} ms in turns, "
+                                   f"capture + instantiate {s['capture_s']:.2f} s, pools "
+                                   f"{s['pool_gib']:.2f} GiB" if s["eager"] else "")
+                                + f"; peak {s['peak_gib']:.2f} GiB; rows torch.equal to the "
+                                f"single-device flow {s['equal_single']} and to the "
+                                f"single-process banded flow {s['equal_banded']}; launches "
+                                + json.dumps({k: s["launches"][k] for k in path})
+                                + f", plain calls {s['plain']}; host reads {s['host_reads']}"
+                                + (f" (eager {s['eager']['host_reads']})" if s["eager"] else "")
+                                + f"; sent {s['sent']['messages']} messages of "
+                                f"{s['sent']['bytes']} bytes, {s['sent']['collectives']} "
+                                f"collectives gathering {s['sent']['gathered']} bytes; pix2uv "
+                                f"equal {s['pix2uv_equal']}; SRSAL rel {s['srsal_rel']:.2e} "
+                                f"(equal {s['srsal_equal']}, bilateral_band launches "
                                 f"{s['srsal_launches'][0]}, plain {s['srsal_launches'][1]}); "
                                 f"median ({s['median'][0]:.4f}, {s['median'][1]:.4f})")
                     ok = ok and (s["equal_single"] and s["equal_banded"] and launched
                                  and s["plain"] == 0 and s["pix2uv_equal"]
                                  and s["srsal_rel"] <= BILATERAL_REL
                                  and s["srsal_launches"][0] > 0 and s["srsal_launches"][1] == 0)
+                    if backend == "nccl":
+                        # the captured program: no host read, the eager route's launches
+                        e = s["eager"]
+                        ok = ok and (s["route"] == "graph" and e is not None
+                                     and s["host_reads"] == 0
+                                     and s["launches"] == e["launches"]
+                                     and s["iterations"] == e["iterations"])
+                    elif s["route"] != "eager":
+                        ok = False          # gloo stays eager
                 say("dist", f"{where}: one interpolated frame on the band (max_disp "
                             f"{rep['max_disp']}) in {rep['interp_ms']:.1f} ms, equal to "
                             f"interpolate_frame's rows {rep['interp_equal']}")

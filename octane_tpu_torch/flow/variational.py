@@ -36,6 +36,7 @@ decays as lambdac * 0.5^k (oct_variational_optical_flow.cu:487-575).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Tuple
 
@@ -184,6 +185,7 @@ def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
 
 _program_cache: dict = {}
 _graph_pools: dict = {}
+_side_pools: dict = {}
 
 
 def _graph_pool(device):
@@ -193,13 +195,51 @@ def _graph_pool(device):
     return _graph_pools[device]
 
 
+def _side_pool(device):
+    """The memory pool of the programs' allocations on ``device`` where a
+    capture begun on another card reaches it."""
+    if device not in _side_pools:
+        with torch.cuda.device(device):
+            _side_pools[device] = torch.cuda.MemPool()
+    return _side_pools[device]
+
+
+@contextlib.contextmanager
+def _forked(devices):
+    """Pull ``devices`` (cards other than the capturing one) into the
+    capture on the current card: each card's current stream becomes a side
+    stream that waits on the capturing stream and that the capturing stream
+    waits on at the end, and its allocations come from ``_side_pool``."""
+    main = torch.cuda.current_stream()
+    prev, sides = {}, {}
+    with contextlib.ExitStack() as pools:
+        try:
+            for dev in devices:
+                with torch.cuda.device(dev):
+                    prev[dev] = torch.cuda.current_stream(dev)
+                    side = torch.cuda.Stream(dev)
+                    side.wait_stream(main)
+                    torch.cuda.set_stream(side)
+                    sides[dev] = side
+                pools.enter_context(torch.cuda.use_mem_pool(_side_pool(dev), device=dev))
+            yield
+        finally:
+            for dev, side in sides.items():
+                main.wait_stream(side)
+                with torch.cuda.device(dev):
+                    torch.cuda.set_stream(prev[dev])
+
+
 def program_pool_bytes(device) -> int:
-    """Bytes reserved on ``device`` by the programs' graph pool and the
-    IF-node bodies' pool."""
+    """Bytes reserved on ``device`` by the programs' graph pool, their pool
+    on a card that a capture begun elsewhere reaches, and the IF-node
+    bodies' pool."""
     device = _device(device)
     ids = {tuple(body_pool(device).id)}
     if device in _graph_pools:
         ids.add(tuple(_graph_pools[device]))
+    if device in _side_pools:
+        ids.add(tuple(_side_pools[device].id))
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if seg["device"] == device.index
                and tuple(seg.get("segment_pool_id", (0, 0))) in ids)
@@ -216,7 +256,8 @@ class CapturedPair:
     """A pair's solve for one (shape, channels, config, device), captured as
     one CUDA graph: the machinery that ``FlowProgram`` and the banded
     program (parallel.sharded.ShardedFlowProgram) share.  Call it as
-    ``program(geo1, geo2, u0, v0)`` -> (u, v).
+    ``program(geo1, geo2, u0, v0)`` -> (u, v); ``shape`` is the (rows, W)
+    of the flows it is given.
 
     A subclass gives ``_solve(geo1, geo2, u0, v0)`` -> (u, v, count), the
     solve on this device with ``count`` its relaxer's iterations or passes
@@ -231,7 +272,11 @@ class CapturedPair:
     (capture and instantiation take ``capture_seconds``); it and every
     later call copy their inputs in, replay the graph and return copies of
     the outputs, which no later replay touches.  A failed capture raises;
-    nothing falls back to the eager solve.
+    nothing falls back to the eager solve.  A solve that also computes on
+    other cards (``devices``, the first being ``device``) is captured in
+    the same graph: the capture begins on ``device``, and each other card
+    computes on a side stream forked into it, allocating from that card's
+    program pool (``_forked``).
 
     The wrappers count launches in Python, where a replay calls none, so
     the capture records which of them its graph launches outside guarded
@@ -242,9 +287,11 @@ class CapturedPair:
 
     label = "flow program"
 
-    def __init__(self, cfg: OFConfig, shape, nchan: int, device, captures: bool):
+    def __init__(self, cfg: OFConfig, shape, nchan: int, device, captures: bool,
+                 devices=None):
         self.cfg, self.shape, self.nchan = cfg, tuple(shape), nchan
         self.device = device
+        self.devices = tuple(devices or (device,))
         self.captures = captures
         self.warmed = False
         self.graph = None
@@ -302,21 +349,25 @@ class CapturedPair:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
+            # thread_local: the capture refuses this thread's unsafe calls, not
+            # those of other threads, such as NCCL's watchdog polling its events
             with (recording() as bodies, torch.cuda.device(dev),
-                  torch.cuda.graph(graph, pool=_graph_pool(dev))):
+                  torch.cuda.graph(graph, pool=_graph_pool(dev),
+                                   capture_error_mode="thread_local"),
+                  _forked([d for d in self.devices if d != dev])):
                 outputs = self._solve(*inputs)
         finally:                        # a capture launches nothing
             captured = {name: fn.launches - before[name] for name, fn in ops.WRAPPERS.items()}
             for name, fn in ops.WRAPPERS.items():
                 fn.launches = before[name]
         self.capture_seconds = time.perf_counter() - t0
-        kinds = {}                      # id(tally) -> (tally, launches of one body)
-        for tally, body in bodies:
+        kinds = {}      # (id(tally), place in its decision) -> (tally, launches of one body)
+        for tally, index, body in bodies:
             if tally is None:
                 raise RuntimeError(f"{self.label}: a guarded body has no device tally")
-            if kinds.setdefault(id(tally), (tally, body))[1] != body:
-                raise RuntimeError(f"{self.label}: guarded bodies of one tally launch "
-                                   "different kernels")
+            if kinds.setdefault((id(tally), index), (tally, body))[1] != body:
+                raise RuntimeError(f"{self.label}: guarded bodies of one tally and place "
+                                   "launch different kernels")
             for name, n in body.items():
                 captured[name] -= n
         self.nodes = {name: n for name, n in captured.items() if n}
@@ -365,6 +416,7 @@ def clear_program_cache() -> None:
     _program_cache.clear()
     _sharded_program_cache.clear()
     _graph_pools.clear()            # a pool whose graphs are gone is not reused
+    _side_pools.clear()
     clear_flow_zoom_matrices()
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()

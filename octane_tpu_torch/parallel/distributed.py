@@ -10,8 +10,9 @@ their ghost rows and joins their partial sums, so every process computes
 what the single-process mesh path computes for those bands.  Each process
 reads only its row block of every input (``host_row_block``: the union of
 its bands' rows; the readers' ``row_range``), solves it
-(``distributed_variational_flow``, the banded core of
-``parallel.sharded``), navigates and smooths it on its bands
+(``distributed_variational_flow``, through the process's banded program of
+``parallel.sharded``: captured and replayed under NCCL, eager over gloo),
+navigates and smooths it on its bands
 (``parallel.post``) and writes its rows of every product variable to a
 part file; process 0 then streams the parts into the product
 (``io.writers.RowBlockSource``), so no process holds the whole field.
@@ -103,7 +104,22 @@ def initialize_multihost(coordinator: Optional[str] = None,
 
 
 def shutdown_multihost() -> None:
+    """Leave the group; the exchanges and programs over its processes go
+    with it, their graphs first: NCCL does not tear down a communicator
+    while a CUDA graph that captured its work lives (the processes hang
+    on exit)."""
+    from octane_tpu_torch.parallel.sharded import _sharded_program_cache
+
+    _exchanges.clear()
+    for key, program in list(_sharded_program_cache.items()):
+        if program.exchange is not None:
+            if program.graph is not None:
+                program.graph.reset()
+                program.graph = None
+            del _sharded_program_cache[key]
     if dist.is_initialized():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
@@ -133,12 +149,20 @@ def own_device(mesh: Mesh) -> torch.device:
     return next(d for d in mesh.devices if d.type != "meta")
 
 
+_exchanges: dict = {}
+
+
 def distributed_exchange(mesh: Mesh):
-    """The exchange of the mesh's bands: over the processes of the group,
-    or within the process when there is no group."""
+    """The exchange of the mesh's bands: over the processes of the group
+    (one per band layout and device while the group lives, so its programs
+    find the piece shapes it gathered), or within the process when there is
+    no group."""
     if not dist.is_initialized():
         return LocalExchange()
-    return ProcessExchange(band_ranks(mesh.n, process_count()), own_device(mesh))
+    key = (band_ranks(mesh.n, process_count()), own_device(mesh))
+    if key not in _exchanges:
+        _exchanges[key] = ProcessExchange(*key)
+    return _exchanges[key]
 
 
 def host_row_block(h: int, mesh: Mesh):
@@ -181,7 +205,13 @@ def distributed_variational_flow(geo1_local, geo2_local, global_shape, cfg: OFCo
     (n, W) rows [r0, r1) of ``host_row_block``, ``first_guess`` optionally
     (u0, v0) on those rows (tensors on the device stay there: the sequence's
     device-resident warm start).  Returns this process's rows of (u, v) on
-    its device; every process must call it."""
+    its device; every process must call it.  It goes through the
+    process's banded program (``parallel.sharded.sharded_flow_program``
+    with the exchange, as octane_tpu's goes through
+    ``sharded_variational_flow``): under NCCL a key's second call captures
+    the solve and later calls replay it, reading nothing on the host; over
+    gloo, on the CPU, and within one process without a group, see the
+    program's ``last_program_info``."""
     mesh = mesh or distributed_mesh(cfg, device)
     exchange = exchange or distributed_exchange(mesh)
     dev = own_device(mesh)
@@ -194,13 +224,10 @@ def distributed_variational_flow(geo1_local, geo2_local, global_shape, cfg: OFCo
         u0 = v0 = torch.zeros((r1 - r0, w), dtype=torch.float32, device=dev)
     else:
         u0, v0 = (_tensor(t, dev) for t in first_guess)
-    block = torch.cat([geo1, geo2, u0[None], v0[None]])
-    from octane_tpu_torch.parallel.sharded import banded_flow
+    from octane_tpu_torch.parallel.sharded import sharded_flow_program
 
-    prev, _ = banded_flow(local_parts(block, r0, mesh, h), (h, w), geo1.shape[0], cfg, mesh,
-                          exchange)
-    uv = local_rows(prev, block[:2])
-    return uv[0], uv[1]
+    program = sharded_flow_program(cfg, (h, w), geo1.shape[0], mesh, exchange=exchange)
+    return program(geo1.contiguous(), geo2.contiguous(), u0.contiguous(), v0.contiguous())
 
 
 def _write_part(path: str, fields: dict, r0: int, r1: int) -> None:
@@ -397,7 +424,7 @@ def _interpolate_sequence_distributed(scene1, scene2, u, v, hw, row_range, cfg: 
     field = local_parts(torch.cat([u[None], v[None], scene1.data, scene2.data]), r0, mesh, h)
     peaks = [None if t.is_meta else torch.maximum(t[0].abs().amax(), t[1].abs().amax())
              for _, t in field]
-    max_disp = max(8, int(-(-max(exchange.band_values(peaks)) // 8) * 8))
+    max_disp = max(8, int(-(-max(exchange.band_values(peaks).tolist()) // 8) * 8))
     nchan = scene1.data.shape[0]
     names = ["Rad", "Rad2", "Rad3"]
     rad_dtype = np.int16 if cfg.grid == "goes" else np.float32

@@ -27,12 +27,20 @@ from values that all of them hold, so each knows what it sends and what it
 receives without a request round; one step's transfers go out as one
 batch (``dist.batch_isend_irecv``).  Both exchanges also provide the
 collectives the banded solvers need: ``join`` (the bands' pieces of a
-partial vector joined in band order on every process, so a sum of it is
-one device's), ``band_values`` (one scalar per band, every band's on
-every process), ``band_max`` (their maximum as a 0-dim tensor: on the
-device, with no host read, within a process; on the host, the same on
-every process, across processes) and ``barrier``.  ``LocalExchange``
-implements them within the process.
+partial vector joined in band order on a device, every band's on every
+process, so a sum of it is one device's), ``band_values`` (one scalar per
+band, every band's on every process, as a device vector), ``band_max``
+(their maximum, NaN read as +inf, as a 0-dim tensor on each device asked
+for: the same bits on every device and every process, with no host read)
+and ``barrier``.  ``LocalExchange`` implements them within the process.
+
+Under a CUDA graph capture (the banded programs, parallel.sharded) every
+step is captured: ``LocalExchange``'s copies between cards, and under
+NCCL ``ProcessExchange``'s batched sends and receives and its collectives
+(``work.wait()`` only orders streams).  ``join`` gathers the processes'
+piece shapes on the host once per key, in the warm-up; a key first seen
+during a capture raises.  Gloo moves a card's rows through pinned host
+memory (``staged``), which no graph captures: its programs stay eager.
 """
 
 from __future__ import annotations
@@ -58,8 +66,15 @@ def field_rows(parts) -> int:
     return r0 + t.shape[-2]
 
 
+def _nan_high(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with NaN read as +inf (NCCL's max does not promise to carry NaN)."""
+    return t.nan_to_num(nan=math.inf, posinf=math.inf, neginf=-math.inf)
+
+
 class LocalExchange:
     """Rows of banded fields within one process, by ``copy_``."""
+
+    staged = False
 
     @staticmethod
     def _copy(parts, a: int, b: int, out, at: int) -> None:
@@ -113,16 +128,17 @@ class LocalExchange:
         return torch.cat([p.to(device) for p in pieces], dim=dim)
 
     @staticmethod
-    def band_values(values) -> list:
-        """One host read of a 0-d tensor per band."""
+    def band_values(values) -> torch.Tensor:
+        """A 0-d tensor per band, joined on the first one's device."""
         dev = values[0].device
-        return torch.stack([v.to(dev) for v in values]).tolist()
+        return torch.stack([v.to(dev) for v in values])
 
     @staticmethod
-    def band_max(values, device) -> torch.Tensor:
-        """The largest of a 0-d tensor per band (NaN if any is), on
-        ``device``: no host read."""
-        return torch.stack([v.to(device) for v in values]).amax()
+    def band_max(values, devices) -> dict:
+        """{device: the largest of a 0-d tensor per band, NaN read as +inf}
+        for each of ``devices``, each computed there from the same values:
+        the same bits on every device, no host read."""
+        return {d: _nan_high(torch.stack([v.to(d) for v in values])).amax() for d in devices}
 
     @staticmethod
     def barrier() -> None:
@@ -158,8 +174,9 @@ class ProcessExchange:
         self.ranks = tuple(int(r) for r in ranks)
         self.rank, self.world = dist.get_rank(), dist.get_world_size()
         self.device = torch.device(device)
-        self.staged = dist.get_backend() == "gloo" and self.device.type == "cuda"
-        self.wire = torch.device("cpu") if dist.get_backend() == "gloo" else self.device
+        self.backend = dist.get_backend()
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.wire = torch.device("cpu") if self.backend == "gloo" else self.device
         self._shapes = {}
         self.sent = {"messages": 0, "bytes": 0, "collectives": 0, "gathered": 0}
 
@@ -228,6 +245,9 @@ class ProcessExchange:
         local = torch.cat(list(pieces), dim=dim) if pieces else None
         shapes = self._shapes.get(key) if key is not None else None
         if shapes is None:
+            if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"join: the piece shapes of key {key!r} were not gathered "
+                                   "before the capture (the warm-up runs every join)")
             shapes = [None] * self.world
             dist.all_gather_object(shapes, None if local is None else tuple(local.shape))
             self.sent["collectives"] += 1
@@ -247,11 +267,11 @@ class ProcessExchange:
                             if sh is not None], dim=dim)
         return joined.to(device)
 
-    def band_values(self, values) -> list:
+    def band_values(self, values) -> torch.Tensor:
         """``values`` one 0-d tensor per band, None for another process's
-        bands; returns every band's value, on every process (one all-reduce
-        of a vector that is zero outside each process's bands: the sum is
-        exact)."""
+        bands; returns every band's value, on every process, as a vector on
+        this process's device (one all-reduce of a vector that is zero
+        outside each process's bands: the sum is exact)."""
         dtype = next((v.dtype for v in values if v is not None), torch.float32)
         vec = torch.zeros(len(values), dtype=dtype, device=self.device)
         for i, v in enumerate(values):
@@ -260,12 +280,21 @@ class ProcessExchange:
         vec = vec.to(self.wire)
         dist.all_reduce(vec)
         self.sent["collectives"] += 1
-        return vec.tolist()
+        return vec.to(self.device)
 
-    def band_max(self, values, device=None) -> torch.Tensor:
-        """The largest of every band's value (``band_values``; NaN if any
-        is) as a 0-d tensor on the host, the same on every process."""
-        return torch.tensor(self.band_values(values)).amax()
+    def band_max(self, values, devices=None) -> dict:
+        """{device: the largest of every band's 0-d value, NaN read as +inf}
+        for this process's device (``devices`` may name only it): one MAX
+        all-reduce of this process's largest, the same bits on every
+        process, no host read under NCCL."""
+        local = [v.reshape(()).to(torch.float32) for v in values if v is not None]
+        m = (_nan_high(torch.stack(local)).amax() if local
+             else torch.full((), -math.inf, device=self.device))
+        m = m.reshape(1).to(self.wire)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        self.sent["collectives"] += 1
+        m = m.to(self.device).reshape(())
+        return {torch.device(d): m for d in (devices or [self.device])}
 
     def barrier(self) -> None:
         dist.barrier()

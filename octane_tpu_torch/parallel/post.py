@@ -160,8 +160,8 @@ def _fill_bands(uv, parts, exchange, max_iters: int = 10000):
     the rows beside each cut per step, and the steps run while any band of
     any process holds a hole."""
     def holes():
-        return sum(exchange.band_values([(uv[i][0] < -998.0).sum() if i in uv else None
-                                         for i in range(len(parts))]))
+        return int(exchange.band_values([(uv[i][0] < -998.0).sum() if i in uv else None
+                                         for i in range(len(parts))]).sum())
 
     done, left = 0, holes()
     while done < max_iters and left > 0:

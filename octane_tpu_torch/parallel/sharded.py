@@ -28,27 +28,36 @@ with it to float round-off.
 sharded.py:203-211 of octane_tpu): every round each band warps from its
 level slab of ``halo_warp`` rows beside the assembly's rows.  The slab
 holds every sample row while max |v| <= halo_warp - 2 on every band (whole
-rows, so only v matters); the test of that, the max over the bands, runs
-on the device, and where it fails (NaN included) a body guarded by it
-(``ops.guard.when``: a graph IF node when the program captures the pair,
-else one host read) fetches the whole level's sample stack from the
-bands' slabs, one per device (per process under a ProcessExchange), and
-warps every band again from it into the same buffers.  A sample is never
-clamped by the slab (the reference has no reach bound), and the band warp
-samples in global coordinates, so the flow is the same bit for bit
-whichever slab served a round.  ``guard_reads`` counts the host reads: one
-per round, 36 per default pair, none in a replay.
+rows, so only v matters); the test of that, the max over the bands (NaN
+read as +inf), runs on every device of the process's bands (and is one
+MAX all-reduce over processes), and where it fails a body guarded by it
+(``ops.guard.decide``: a graph IF node on each card when the program
+captures the pair, else one host read) warps every band again, into the
+same buffers, from the whole level's sample stack, which each device
+fetched from the bands' slabs once per level, ahead of the rounds, at the
+top level (where the bands lie on one card of one process, or a staged
+exchange, gloo on a card, which stays eager, moves them, the body fetches
+it itself instead).  A sample is never clamped by the slab (the
+reference has no reach bound), and the band warp samples in global
+coordinates, so the flow is the same bit for bit whichever slab served a
+round.  ``guard_reads`` counts the host reads: one per round, 36 per
+default pair, none in a replay.
 
 ``sharded_flow_program(cfg, shape, nchan, mesh)`` is the counterpart of
-JAX's one program per (mesh, shape, channels, config): where every band of
-the mesh lies on one CUDA device (``-mesh`` on one card) a key's first
-call runs the banded solve eagerly, its second captures the whole
-coarse-to-fine solve into one CUDA graph (flow.variational.CapturedPair),
-and it and every later call replay it: the banded solvers' stopping tests
-and the reach test are IF nodes, so a replay reads nothing on the host.
-Bands on the CPU or on several cards run the eager loop
-(``last_program_info["route"]`` says so and why); capturing bands on
-several cards is left for the multi-process program.
+JAX's one program per (mesh, shape, channels, config): where the bands lie
+on CUDA devices, on one card (``-mesh`` on one card) or one band per card
+(``-mesh`` over several cards, one capture begun on the first band's card
+that every other card's streams join), a key's first call runs the banded
+solve eagerly, its second captures the whole coarse-to-fine solve into one
+CUDA graph (flow.variational.CapturedPair), and it and every later call
+replay it: the banded solvers' stopping tests and the reach test are IF
+nodes on every card, with every cross-card copy between them, so a replay
+reads nothing on the host.  With a ``halo.ProcessExchange``
+(``exchange=``) it is one process's program of the multi-process solve
+(parallel.distributed): under NCCL each process captures its part, the
+exchange's sends, receives and collectives included; over gloo it stays
+eager.  Bands on the CPU run the eager loop too
+(``last_program_info["route"]`` says which and why).
 
 Left behind from the TPU layout: the 2-D (dy, dx) block grid (a (ry, rx)
 mesh runs as ry * rx row bands, the same function: the kernels work on
@@ -62,11 +71,11 @@ coordinates and is bit-exact); the 8-row ghost strips of the TPU's tiling.
 The loop itself is ``banded_flow``, over a banded field's parts: with a
 ``halo.LocalExchange`` every band is the process's own, and with a
 ``halo.ProcessExchange`` (the multi-process path,
-``parallel.distributed``, eager) the process holds tensors for its own
-bands only, but knows every band's rows and halos, so each exchange step
+``parallel.distributed``) the process holds tensors for its own bands
+only, but knows every band's rows and halos, so each exchange step
 (``fetch_bands``), each join of the solvers' sums and the reach test's
 maximum is one collective that every process enters with the same
-requests.
+requests, whatever its stopping tests decide.
 
 ``plain=True`` (internal, as flow.variational's) calls the band forms'
 plain versions, each call counted as a plain call.  The inputs and the
@@ -90,7 +99,7 @@ from octane_tpu_torch.flow.stencil import assemble_samples
 from octane_tpu_torch.flow.variational import (CapturedPair, _counted_plain, _device, _f32,
                                                gnc_rounds, level_schedule)
 from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
-from octane_tpu_torch.ops.guard import when
+from octane_tpu_torch.ops.guard import decide, when
 from octane_tpu_torch.ops.pcg import (pcg_pass_a_band, pcg_pass_a_band_plain, pcg_pass_b,
                                       pcg_pass_b_plain)
 from octane_tpu_torch.ops.sor import sor_pass_band, sor_pass_band_plain
@@ -110,12 +119,13 @@ _PLAIN_PASSES = (_counted_plain(pcg_pass_a_band, pcg_pass_a_band_plain),
 guard_reads = types.SimpleNamespace(reads=0)     # host reads of the warp reach test
 
 
-def _beyond_reach(vs, exchange, halo: int, device) -> torch.Tensor:
-    """The reach test: a 0-dim bool, true unless every band's max |v| is at
-    most ``halo`` - 2 (``vs``: one (rows, W) plane per band, None for
-    another process's band)."""
-    m = exchange.band_max([None if v is None else v.abs().amax() for v in vs], device)
-    return torch.logical_not(m <= halo - 2)
+def _beyond_reach(vs, exchange, halo: int, devices) -> dict:
+    """The reach test on each of ``devices``: {device: a 0-dim bool}, true
+    unless every band's max |v| is at most ``halo`` - 2, NaN included
+    (``vs``: one (rows, W) plane per band, None for another process's
+    band); the joined maximum, the same bits on every device."""
+    m = exchange.band_max([None if v is None else v.abs().amax() for v in vs], devices)
+    return {d: torch.logical_not(t <= halo - 2) for d, t in m.items()}
 
 
 def _warp_buffers(k: int, hb: int, w: int, device):
@@ -156,7 +166,7 @@ def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int, true_hw=None)
 
         dev0 = bands[0][0]
         guard_reads.reads += when(_beyond_reach([vb for _, _, _, vb, _ in out], exchange,
-                                                halo, dev0), wide)
+                                                halo, [dev0])[dev0], wide)
         return tuple(exchange.rows([(r0, bufs[j]) for _, r0, _, _, bufs in out], 0, h, dev0)
                      for j in range(3))
 
@@ -175,6 +185,7 @@ class _Band:
         self.local = dev.type != "meta"
         self.a0, self.a1 = max(0, r0 - 1), min(h, r1 + 1)
         self.uv = None
+        self.level = None           # the whole level's sample stack, where fetched ahead
 
     def interior(self, t):
         return t[..., self.r0 - self.a0:self.r1 - self.a0, :]
@@ -232,11 +243,10 @@ def _build(bands, halo: int, exchange, full, wfull: int, c: int, factor: float, 
             b.build(rows, f0, c, factor, hfull, top)
 
 
-def _warp_wide(bands, exchange, h: int, warp_fn, tally) -> None:
-    """The reach test's body: the whole level's sample stack fetched from the
-    bands' rows of their slabs, once per device (the first band of each
-    device or process requests it), and every local band warped again from
-    it into its buffers."""
+def _fetch_level(bands, exchange, h: int) -> dict:
+    """{device: the whole level's sample stack} fetched from the bands' rows
+    of their slabs, once per device (the first band of each device or
+    process requests it)."""
     field = [(b.r0, b.stack[:, b.r0 - b.s0:b.r1 - b.s0] if b.local else stub(b.r1 - b.r0))
              for b in bands]
     first = {}
@@ -249,10 +259,22 @@ def _warp_wide(bands, exchange, h: int, warp_fn, tally) -> None:
                                        dtype=torch.float32, device=b.dev)
         reqs.append((b.i, 0, h, level.get(b.dev) if b.local else None))
     exchange.fetch_bands(field, reqs)
-    for b in bands:
-        if b.local:
-            warp_fn(level[b.dev], b.uv[0], b.uv[1], 0, b.a0, h, out=b.warped)
-    tally.add_(1)
+    return level
+
+
+def _warp_wide(bands, exchange, h: int, warp_fn, tally) -> None:
+    """The reach test's body on one device: every local band of ``bands``
+    warped again from the whole level's sample stack into its buffers.
+    The stack is the one fetched ahead at the top level (``_Band.level``),
+    where it was; else the body fetches it from every band of ``bands``.
+    ``tally`` (None on the devices that do not keep it) gains one."""
+    local = [b for b in bands if b.local]
+    level = ({b.dev: b.level for b in local} if all(b.level is not None for b in local)
+             else _fetch_level(bands, exchange, h))
+    for b in local:
+        warp_fn(level[b.dev], b.uv[0], b.uv[1], 0, b.a0, h, out=b.warped)
+    if tally is not None:
+        tally.add_(1)
 
 
 def _home(mesh, exchange) -> torch.device:
@@ -277,6 +299,13 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
     Each level's guarded bodies have device tallies of their own, one for
     the solver's and one for the reach test's, since the bands that run
     them differ between levels (a band may be empty at a coarse level).
+    Each decision is taken on every device of the level's local bands
+    (ops.guard.Gate), with every transfer at the top level: the whole
+    level's sample stack that the reach test's body warps from is fetched
+    once per level, ahead of the rounds.  Where the exchange stages rows
+    through host memory (gloo on a card, which stays eager) or the bands
+    lie on one card of one process (parallel.sor.one_body), the body
+    fetches it itself, only where the test fails.
     """
     h, w = hw
     warp_fn = _PLAIN_WARP if plain else warp_band
@@ -292,6 +321,15 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
         bands = [_Band(i, dev, r0, r1, hw[0])
                  for i, (dev, r0, r1) in enumerate(mesh_bands(mesh, hw[0]))]
         _build(bands, cfg.halo_warp, exchange, full, w, c, factor, hw, top)
+        # where the level's decisions are taken: dev0 first
+        devs = band_sor.homes([(b.r0, b.stack if b.local else stub(b.r1 - b.r0))
+                               for b in bands], exchange)
+        in_body = exchange.staged or band_sor.one_body(devs, exchange)
+        if not in_body:
+            level = _fetch_level(bands, exchange, hw[0])
+            for b in bands:
+                if b.local:
+                    b.level = level[b.dev]
         if first:
             for b in bands:
                 if b.local:
@@ -313,16 +351,20 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
         solved = torch.zeros((), dtype=torch.int32, device=dev0)
         widened = torch.zeros((), dtype=torch.int32, device=dev0)
 
-        def wide(bands=bands, h_level=hw[0], widened=widened):
-            _warp_wide(bands, exchange, h_level, warp_fn, widened)
+        def wide(d, bands=bands, h_level=hw[0], widened=widened, in_body=in_body):
+            if not in_body:
+                bands = [b for b in bands if b.local and b.dev == d]
+            _warp_wide(bands, exchange, h_level, warp_fn, widened if d == dev0 else None)
 
         for al1 in gnc_rounds(cfg.gnc_steps, cfg.liters):
             for b in bands:
                 if b.local:
                     warp_fn(b.stack, b.uv[0], b.uv[1], b.s0, b.a0, hw[0], out=b.warped)
-            beyond = _beyond_reach([b.uv[1] if b.local else None for b in bands], exchange,
-                                   cfg.halo_warp, dev0)
-            guard_reads.reads += when(beyond, wide, widened)
+            gate = decide(_beyond_reach([b.uv[1] if b.local else None for b in bands],
+                                        exchange, cfg.halo_warp, devs), widened)
+            for d in devs:
+                gate(d, lambda d=d: wide(d))
+            guard_reads.reads += gate.read
             du = round_fn(bands, hw[0], al1, lambdac_k, alpha, lam_a, cfg, exchange, plain,
                           solved)
             for b, d in zip(bands, du):
@@ -398,67 +440,138 @@ _sharded_program_cache: dict = {}
 last_program_info = None         # the info of the last program sharded_flow_program gave
 
 
-def sharded_program_key(cfg: OFConfig, shape, nchan: int, mesh) -> tuple:
+def sharded_program_key(cfg: OFConfig, shape, nchan: int, mesh, exchange=None) -> tuple:
     """The fields a banded program is keyed on: octane_tpu's
     (sharded.py:231-234) with the mesh's shape and devices in place of its
     identity, and without its TPU option or its true shape (the bands are
-    not padded)."""
-    return (tuple(mesh.shape), tuple(_device(d) for d in mesh.devices), tuple(shape), nchan,
-            cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor, cfg.kiters, cfg.liters,
-            cfg.cgiters, cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega, cfg.cg_tol,
-            cfg.halo_warp)
+    not padded); a program over processes (a ``ProcessExchange``) adds the
+    bands' processes, the backend, the group's size and this process's
+    rank."""
+    key = (tuple(mesh.shape), tuple(_device(d) for d in mesh.devices), tuple(shape), nchan,
+           cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor, cfg.kiters, cfg.liters,
+           cfg.cgiters, cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega, cfg.cg_tol,
+           cfg.halo_warp)
+    if exchange is not None and not isinstance(exchange, LocalExchange):
+        key += (exchange.ranks, exchange.backend, exchange.world, exchange.rank)
+    return key
 
 
 class ShardedFlowProgram(CapturedPair):
     """The banded coarse-to-fine solve of one mesh, shape, channel count and
     config (see the module docstring and CapturedPair); ``info`` is what
-    ``last_program_info`` reports for it."""
+    ``last_program_info`` reports for it.
+
+    Within one process (``exchange`` None) it takes whole tensors and
+    returns the flow on the mesh's first device; bands on several cards are
+    captured in one graph begun on the first band's card.  Over processes
+    (a ``halo.ProcessExchange``) it takes and returns this process's row
+    block (``parallel.distributed.host_row_block``): under NCCL each process
+    captures its graph with the exchange's collectives in it; gloo stays
+    eager.  A replay adds to the exchange's ``sent`` what the capture's
+    transfers sent, as its launches are added from the capture."""
 
     label = "sharded flow program"
 
-    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key):
-        devices = {_device(d) for d in mesh.devices}
-        first = _device(mesh.devices[0])
-        if first.type != "cuda":
-            route, reason = "eager", f"the bands lie on the {first.type}"
-        elif len(devices) > 1:
-            route, reason = "eager", (f"the bands lie on {len(devices)} devices; only bands "
-                                      "on one card are captured")
+    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key, exchange=None):
+        h, w = self.hw = tuple(shape)
+        self.row0, rows = 0, h
+        if exchange is None:
+            devices = list(dict.fromkeys(_device(d) for d in mesh.devices))
+            first = devices[0]
+            if any(d.type != "cuda" for d in devices):
+                route, reason = "eager", f"the bands lie on the {first.type}"
+            elif len(devices) > 1:
+                route, reason = "graph", (f"the bands lie on {len(devices)} cards "
+                                          f"({', '.join(map(str, devices))}), one capture")
+            else:
+                route, reason = "graph", f"every band lies on {first}"
         else:
-            route, reason = "graph", f"every band lies on {first}"
-        super().__init__(cfg, shape, nchan, first, route == "graph")
-        self.mesh = mesh
-        h, w = self.shape
+            from octane_tpu_torch.parallel.distributed import host_row_block
+
+            first = _device(exchange.device)
+            devices = [first]
+            self.row0, r1 = host_row_block(h, mesh)
+            rows = r1 - self.row0
+            if first.type != "cuda":
+                route, reason = "eager", f"the bands lie on the {first.type}"
+            elif exchange.staged:
+                route, reason = "eager", ("gloo stages a card's rows through pinned host "
+                                          "memory, which no CUDA graph captures")
+            else:
+                route, reason = "graph", (f"{exchange.backend}, process {exchange.rank} of "
+                                          f"{exchange.world} on {first}")
+        super().__init__(cfg, (rows, w), nchan, first, route == "graph", devices)
+        self.mesh, self.exchange = mesh, exchange
+        self.sent: dict = {}            # what one replay's transfers send
         warp_levels = [k for k, _, hw, _ in level_schedule(cfg, h, w)
                        if len(mesh_bands(mesh, hw[0])) > 1]
         self.info = {"warp_levels": frozenset(warp_levels),
                      "cg_levels": frozenset(range(cfg.kiters)), "kiters": cfg.kiters,
                      "key": key, "route": route, "reason": reason}
 
+    def __call__(self, geo1, geo2, u0, v0):
+        replays = self.captures and self.warmed
+        out = super().__call__(geo1, geo2, u0, v0)
+        if replays and self.exchange is not None:
+            for k, n in self.sent.items():
+                self.exchange.sent[k] += n
+        return out
+
+    def _capture(self, geo1, geo2, u0, v0):
+        before = dict(self.exchange.sent) if self.exchange is not None else {}
+        try:
+            super()._capture(geo1, geo2, u0, v0)
+        finally:                        # the capture sent nothing
+            if self.exchange is not None:
+                self.sent = {k: self.exchange.sent[k] - n for k, n in before.items()}
+                self.exchange.sent.update(before)
+
+    def _pair(self, geo1, geo2, u0, v0, plain=False):
+        if self.exchange is None:
+            return _banded_pair(geo1, geo2, u0, v0, self.cfg, self.mesh, LocalExchange(),
+                                plain)
+        from octane_tpu_torch.parallel.distributed import local_parts, local_rows
+
+        block = torch.cat([geo1, geo2, u0[None], v0[None]])
+        prev, count = banded_flow(local_parts(block, self.row0, self.mesh, self.hw[0]),
+                                  self.hw, self.nchan, self.cfg, self.mesh, self.exchange,
+                                  plain)
+        uv = local_rows(prev, block[:2])
+        return uv[0], uv[1], count
+
     def _solve(self, geo1, geo2, u0, v0):
-        return _banded_pair(geo1, geo2, u0, v0, self.cfg, self.mesh, LocalExchange())
+        return self._pair(geo1, geo2, u0, v0)
 
     def _eager(self, geo1, geo2, u0, v0):
-        return _coarse_to_fine_banded(geo1, geo2, u0, v0, self.cfg, self.mesh,
-                                      LocalExchange())
+        u, v, count = self._pair(geo1, geo2, u0, v0)
+        ops.record_pair(self.cfg.solver, count)
+        return u, v
 
 
-def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh,
-                         true_shape=None) -> ShardedFlowProgram:
+def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh, true_shape=None,
+                         exchange=None) -> ShardedFlowProgram:
     """The cached program of the whole banded coarse-to-fine solve over the
     mesh (octane_tpu's sharded_flow_program); sets ``last_program_info``:
     ``warp_levels`` (the levels with more than one non-empty band, which
     the band warp serves), ``cg_levels`` (the levels whose solve runs
-    banded: all), ``kiters``, the ``key``, and the ``route`` ("graph" where
-    every band lies on one card, else "eager") with its ``reason``.  The
-    bands are not padded, so ``true_shape`` must be ``shape`` or None."""
+    banded: all), ``kiters``, the ``key``, and the ``route`` with its
+    ``reason``: "graph" where every band lies on a card, on one or on
+    several, and over processes under NCCL; "eager" on the CPU and over
+    gloo.  With a ``halo.ProcessExchange`` it is this process's program of
+    the multi-process solve (parallel.distributed), which takes its row
+    block, and keeps the exchange it was built with (one per group:
+    ``parallel.distributed.distributed_exchange``).  The bands are not
+    padded, so ``true_shape`` must be ``shape`` or None."""
     global last_program_info
     if true_shape is not None and tuple(true_shape) != tuple(shape):
         raise ValueError(f"sharded_flow_program: the bands are not padded, true_shape "
                          f"{tuple(true_shape)} must equal shape {tuple(shape)}")
-    key = sharded_program_key(cfg, shape, nchan, mesh)
+    if isinstance(exchange, LocalExchange):
+        exchange = None
+    key = sharded_program_key(cfg, shape, nchan, mesh, exchange)
     if key not in _sharded_program_cache:
-        _sharded_program_cache[key] = ShardedFlowProgram(cfg, shape, nchan, mesh, key)
+        _sharded_program_cache[key] = ShardedFlowProgram(cfg, shape, nchan, mesh, key,
+                                                         exchange)
     program = _sharded_program_cache[key]
     last_program_info = program.info
     return program

@@ -8,12 +8,13 @@ pass; then every band runs the band form of the pass kernel
 (``ops.sor.sor_pass_band``), which writes the band's rows straight into
 the other slab of the ping-pong pair.  The band's rows equal the
 whole-image pass's bit for bit.  The residual partials of all bands are
-joined in band order and summed once (on the first band's device, or on
-every process under a ``halo.ProcessExchange``): the stopping test is
-deterministic, one device's on bands aligned to the reduction blocks, and
-the same on every process.  It guards each pass as on one device
-(ops.guard.Guard): a graph IF node when the banded program captures the
-pair, else one host read per pass (``ops.sor.sor_solve_cf.host_syncs``
+joined in band order and summed once on every device of the process's
+bands (and on every process under a ``halo.ProcessExchange``): the
+stopping test is deterministic, one device's on bands aligned to the
+reduction blocks, and the same bits on every card.  It guards each pass as
+on one device (ops.guard.Guard): graph IF nodes on every card when the
+banded program captures the pair, with the transfers between them at the
+top level, else one host read per pass (``ops.sor.sor_solve_cf.host_syncs``
 counts them).  ||b||^2 is summed the
 same way from the bands' block partials of the coefficient planes, so no
 process joins a whole plane.
@@ -24,10 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from octane_tpu_torch.ops.guard import Guard
+from octane_tpu_torch.ops.guard import Gate, Guard
 from octane_tpu_torch.ops.sor import (OMEGA, PASS_SWEEPS, build_cf, sor_pass_band,
                                       sor_solve_cf)
-from octane_tpu_torch.ops.pcg import block_partials
+from octane_tpu_torch.ops.pcg import block_partials, num_partials
 from octane_tpu_torch.parallel.halo import LocalExchange, stub
 from octane_tpu_torch.parallel.mesh import mesh_bands
 
@@ -47,6 +48,27 @@ def home(bands, exchange) -> torch.device:
     return next((t.device for _, t in bands if not t.is_meta), None) or exchange.device
 
 
+def homes(bands, exchange) -> list:
+    """Every device that holds a copy of this process's sums and stopping
+    tests: ``home`` first, then the devices of its other bands, in band
+    order."""
+    devs = [home(bands, exchange)]
+    for _, t in bands:
+        if not t.is_meta and t.device not in devs:
+            devs.append(t.device)
+    return devs
+
+
+def one_body(devs, exchange) -> bool:
+    """Whether an iteration's transfers run inside its guarded body, as one
+    body per iteration: where the process's bands lie on one device
+    (``devs``, from ``homes``) and no other process shares the solve, the
+    transfers are copies on that device, which an IF body takes, and one IF
+    node per iteration costs less than one per step.  Otherwise they run
+    between the bodies."""
+    return len(devs) == 1 and isinstance(exchange, LocalExchange)
+
+
 def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float = OMEGA,
                 exchange=None, pass_fn=sor_pass_band, count=None):
     """SOR from x = 0 on a banded coefficient stack; returns the bands'
@@ -56,14 +78,24 @@ def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float
     (nc, hb, W) rows on its device (a view is fine) or a ``halo.stub`` for
     a band of another process; ``resid0`` is ||b||^2 on this process.  The
     loop is ``ops.sor.sor_solve_cf``'s: passes of S = min(8, iters) sweeps,
-    each a body guarded by ||r||^2 > tol (ops.guard.Guard), then a
-    remainder pass under the same guard.  ``count``, an int32 device scalar,
-    gains the passes that ran and tallies the guarded bodies.
+    each guarded by ||r||^2 > tol (ops.guard.Guard), then a remainder pass
+    under the same guard.  ``count``, an int32 device scalar, gains the
+    passes that ran and tallies the guarded bodies.
 
-    Each band's iterate ping-pongs between two slabs fixed before the loop:
-    pass k fetches the ghost rows of slab set k % 2 from the bands' rows in
-    it and writes the band's rows of the other set; the passes that ran,
-    counted on the device, pick each band's final slab by their parity.
+    A pass is one decision (``Guard.gate``) taken on every device of the
+    process's bands (``homes``), each holding its own copy of ||r||^2: the
+    ghost-row exchange of the iterate (top level), each device's band
+    passes (guarded), the join of every band's residual partials onto each
+    device (top level), each device's sum of them (guarded).  So under
+    capture every transfer runs whatever the test decides, and none runs in
+    a guarded body; on the host route a pass whose test was read and failed
+    (``Gate.closed``) makes no transfer either.  Where the bands lie on one
+    card of one process (``one_body``) the whole pass, its copies on the
+    card included, is one guarded body instead.  Each band's iterate ping-pongs between two slabs fixed before
+    the loop: pass k fetches the ghost rows of slab set k % 2 from the
+    bands' rows in it and writes the band's rows of the other set; the
+    passes that ran, counted on the device, pick each band's final slab by
+    their parity.
     """
     exchange = exchange or LocalExchange()
     if iters < 1:
@@ -72,7 +104,8 @@ def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float
     n_main, s_rem = divmod(iters, s_main)
     ghost = 2 * s_main
     tol32 = float(np.float32(tol))
-    dev0 = home(bands, exchange)
+    devs = homes(bands, exchange)
+    dev0 = devs[0]
     w = next((cf.shape[2] for _, cf in bands if not cf.is_meta), 0)
     slabs, reqs = [], []             # (r0, r1, t0, cf slab, [x slab, x slab])
     for i, (r0, cf) in enumerate(bands):
@@ -103,26 +136,52 @@ def solve_bands(bands, true_h: int, resid0, tol: float, iters: int, omega: float
         return cur, reqs
 
     fetches = [ghosts(0), ghosts(1)]
-    resid = resid0.clone()
+    mine = [i for i, slab in enumerate(slabs) if slab[5] is not None]
+    on = {d: [i for i in mine if slabs[i][4].device == d] for d in devs}
+    # each band's residual partials: a body's, read by the join that follows
+    # it (the shapes the kernel gives, for a join before any body ran)
+    parts = {i: torch.zeros(num_partials(slabs[i][1] - slabs[i][0], w), device=slabs[i][4].device)
+             for i in mine}
+    resids = {d: resid0.to(d).clone() for d in devs}
     ran = torch.zeros((), dtype=torch.int32, device=dev0)
+    key = ("sor", true_h, w)
 
-    def body(k, ns):
-        j = k % 2
-        exchange.fetch_bands(*fetches[j])
-        parts = []
-        for r0, r1, t0, _, cfs, xs in slabs:
-            if xs is not None:
-                _, part = pass_fn(xs[j], cfs, ns, omega, t0, true_h, r0 - t0, r1 - t0,
+    def passes(d, j, ns):
+        for i in on[d]:
+            r0, r1, t0, _, cfs, xs = slabs[i]
+            _, parts[i] = pass_fn(xs[j], cfs, ns, omega, t0, true_h, r0 - t0, r1 - t0,
                                   out=interior(r0, r1, t0, xs[1 - j]))
-                parts.append(part)
-        torch.sum(exchange.join(parts, dev0, 0, ("sor", true_h, w)), 0, out=resid)
-        ran.add_(1)
+
+    def total(d, joined):
+        torch.sum(joined, 0, out=resids[d])
+        if d == dev0:
+            ran.add_(1)
+
+    def iteration(k, ns, gate):
+        exchange.fetch_bands(*fetches[k % 2])
+        for d in devs:
+            gate(d, lambda d=d: passes(d, k % 2, ns))
+        local = [parts[i] for i in mine]
+        joined = {d: exchange.join(local, d, 0, key) for d in devs}
+        for d in devs:
+            gate(d, lambda d=d: total(d, joined[d]))
 
     guard = Guard(sor_solve_cf, count)
+    whole = one_body(devs, exchange)
+
+    def step(k, ns):
+        gate = guard.gate(resids, tol32)
+        if gate.closed:
+            return
+        if whole:
+            gate(dev0, lambda: iteration(k, ns, Gate(open_=True)))
+        else:
+            iteration(k, ns, gate)
+
     for k in range(n_main):
-        guard(resid, tol32, lambda k=k: body(k, s_main))
+        step(k, s_main)
     if s_rem:
-        guard(resid, tol32, lambda: body(n_main, s_rem))
+        step(n_main, s_rem)
     if count is not None:
         count.add_(ran)
     out = []

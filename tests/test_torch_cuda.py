@@ -24,7 +24,10 @@ count of relaxer iterations, at a tolerance that stops the relaxer early
 too, for a second replay on other inputs as well, and raises nothing
 under ``torch.cuda.set_sync_debug_mode("error")``; so does the banded
 program's replay on a (1, 4) mesh of cuda:0, against the eager and plain
-banded routes, with and without the reach test's wide body.
+banded routes, with and without the reach test's wide body, and, where the
+machine has 2 cards or more, the banded program captured across the cards
+(band i on cuda:i) and each process's program over NCCL (skipped below 2
+cards).
 """
 
 import numpy as np
@@ -508,3 +511,97 @@ def test_banded_program_replay_equals_the_eager_route(dev, solver, reach):
         assert (c["warp_band"][0] > slabs) == (reach == "beyond")
     finally:
         fv.clear_program_cache()
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+@pytest.mark.parametrize("reach", ["in", "beyond"])
+def test_several_card_program_replay_equals_the_eager_route(dev, solver, reach):
+    """The banded program with band i on cuda:i (``-mesh`` over every card,
+    one capture begun on cuda:0): at 1024^2 its first call runs the banded
+    solve eagerly and equals the eager and plain banded routes, its second
+    captures; the replay is torch.equal to them with the same device count,
+    the same launches and no host read (sync-debug "error").  ``beyond``:
+    the reach test's wide body runs at every level, on every card."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.parallel import LocalExchange, make_mesh, sharded
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 CUDA devices")
+    h = w = 1024
+    key = "pcg_iterations" if solver == "pcg" else "sor_passes"
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in bench_pair(h, w))
+    z = torch.zeros((h, w), device=dev)
+    v0 = torch.full((h, w), 20.0, device=dev) if reach == "beyond" else z
+    cfg = OFConfig(kiters=4, solver=solver, halo_warp=4 if reach == "beyond" else 8,
+                   lambdac=5.0 if reach == "beyond" else OFConfig().lambdac)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    mesh = make_mesh((1, n), cards)
+    args = (im1, im2, z, v0)
+    try:
+        prog = sharded.sharded_flow_program(cfg, (h, w), 1, mesh)
+        assert sharded.last_program_info["route"] == "graph" and list(prog.devices) == cards
+        ops.reset_counters()
+        eu, ev = sharded._coarse_to_fine_banded(*args, cfg, mesh, LocalExchange())
+        e = ops.counters()
+        pu, pv = sharded._coarse_to_fine_banded(*args, cfg, mesh, LocalExchange(), plain=True)
+        assert torch.equal(eu, pu) and torch.equal(ev, pv)
+        while prog.graph is None:               # the eager call, then the capture
+            wu, wv = prog(*args)
+            assert torch.equal(wu, eu) and torch.equal(wv, ev)
+        ops.reset_counters()
+        sharded.guard_reads.reads = 0
+        for c in cards:
+            torch.cuda.synchronize(c)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gu, gv = prog(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        c = ops.counters()
+        assert torch.equal(gu, eu) and torch.equal(gv, ev)
+        assert c[key] == e[key] and c[f"{solver}_host_syncs"] == 0
+        assert sharded.guard_reads.reads == 0
+        assert all(c[name][0] == e[name][0] for name in ops.WRAPPERS)
+        slabs = n * cfg.kiters * cfg.gnc_steps * cfg.liters   # every band's warp per round
+        assert (c["warp_band"][0] > slabs) == (reach == "beyond")
+    finally:
+        fv.clear_program_cache()
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+def test_nccl_program_replay_equals_the_eager_route(dev, tmp_path, solver):
+    """Two processes over NCCL, one card each (``-nprocs 2``): each
+    process's program captures on its second call; the replay (0 host
+    reads under sync-debug "error") is torch.equal to the first call, to
+    the program's eager route with the same launches and count, and to the
+    single-process banded flow's rows."""
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.io.readers import scene_from_goes_arrays
+    from octane_tpu_torch.parallel import make_mesh, sharded_variational_flow
+    from torch_dist_worker import card_program, spawn
+    from torch_fixtures import FIXTURE_T0, fixture_counts, goes_arrays
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    out = str(tmp_path / "prog")
+    spawn(card_program, [(r, f"file://{tmp_path / 'store'}", out, solver) for r in range(2)],
+          300)
+    cfg = OFConfig(kiters=3, solver=solver)
+    s1, s2 = (scene_from_goes_arrays(*goes_arrays(fixture_counts(*shift), t)[:4], cfg, dev,
+                                     donav=False, t=t)
+              for shift, t in (((0, 0), FIXTURE_T0), ((3.0, -1.5), FIXTURE_T0 + 60.0)))
+    z = torch.zeros((512, 512), device=dev)
+    u, v = sharded_variational_flow(s1.data, s2.data, z, z, cfg, make_mesh((1, 2), [dev] * 2))
+    for r in range(2):
+        got = np.load(f"{out}.{r}.npz")
+        r0, r1 = got["rows"]
+        assert str(got["route"]) == "graph"
+        for a, b in (("u", "eu"), ("v", "ev"), ("u", "fu"), ("v", "fv")):
+            np.testing.assert_array_equal(got[a], got[b])
+        np.testing.assert_array_equal(got["u"], u[r0:r1].cpu().numpy())
+        np.testing.assert_array_equal(got["v"], v[r0:r1].cpu().numpy())
+        replay, eager = got["replay"], got["eager"]
+        assert replay[-1] == 0 and (replay[:-1] == eager[:-1]).all() and replay[-2] > 0

@@ -34,6 +34,8 @@ depends on it.  The slow tests mirror tests/test_distributed.py's
 full-featured and sequence runs at its sizes.
 """
 
+import dataclasses
+import json
 import os
 
 import h5py
@@ -83,8 +85,9 @@ def test_process_exchange_equals_local_exchange(tmp_path):
             np.testing.assert_array_equal(got[r][f"join/{dim}"], want.numpy())
             assert got[r][f"sum/{dim}"] == torch.sum(want).item()
     want = local.band_values([t.abs().amax() for _, t in bands])
+    assert torch.is_tensor(want)
     for r in range(2):
-        assert got[r]["values"].tolist() == want
+        assert got[r]["values"].tolist() == want.tolist()
 
 
 def test_process_solvers_join_block_partials(tmp_path):
@@ -205,6 +208,148 @@ def test_process_reach_test_enters_the_wide_body_together(tmp_path, solver):
         np.testing.assert_array_equal(got[r]["v"], v[r0:r1].numpy())
         assert list(got[r]["bodies"]) == [h // 2] * (rounds // 2) + [h] * (rounds // 2)
     assert got[0]["sent"] > 0 and got[1]["sent"] > 0
+
+
+# ----------------------------------------------------------------------------
+# what a capture over processes needs
+# ----------------------------------------------------------------------------
+
+def test_process_collectives_do_not_follow_the_stopping_test(tmp_path):
+    """Each of 2 processes records the (op, shapes) sequence of the
+    collectives its banded SOR and PCG enter: as a capture walks them, the
+    same on both processes, and the same for a solve that stops early (SOR
+    before its third pass, PCG after 3 iterations) and one that runs all 30
+    iterations, since every transfer runs between the guarded bodies
+    whatever the test decides: the property that lets each process capture
+    the same collectives.  On the host route the full solve enters the same
+    sequence, and the one that stops early enters a shorter prefix of it,
+    the same on both processes: no transfer follows the stop."""
+    from octane_tpu_torch.ops.sor import build_cf
+    from octane_tpu_torch.parallel import cg as band_cg
+    from octane_tpu_torch.parallel import sor as band_sor
+    from test_torch_sharded_program import pcg_bands_before, sor_bands_before
+
+    s = worker.solve_system()
+    h = worker.SOLVE_SPLIT[-1]
+    spans = list(zip(worker.SOLVE_SPLIT[:-1], worker.SOLVE_SPLIT[1:]))
+    parts = [(r0, build_cf(s)[:, r0:r1].contiguous()) for r0, r1 in spans]
+    *_, sor_hist = sor_bands_before(parts, h, band_sor.resid0_of(parts, torch.device("cpu")),
+                                    0.0, 30)
+    cf, b = band_cg.system_bands(s, slice(None))
+    *_, pcg_hist = pcg_bands_before([(r0, cf[:, r0:r1].contiguous(), b[:, r0:r1].clone())
+                                     for r0, r1 in spans], h, 0.0, 30)
+    out = str(tmp_path / "seq")
+    worker.spawn(worker.in_group, [
+        ("tests.torch_dist_worker:collective_probe", r, 2, _url(tmp_path), THREADS, out, r,
+         sor_hist[2], pcg_hist[3]) for r in range(2)], LIMIT)
+    got = []
+    for r in range(2):
+        with open(f"{out}.{r}.json") as f:
+            got.append(json.load(f))
+    for solver, early, hist in (("sor", 2, sor_hist), ("pcg", 3, pcg_hist)):
+        for mode in ("capture", "host"):
+            stop, full = f"{mode}/{solver}/{hist[early]}", f"{mode}/{solver}/0.0"
+            for r in range(2):
+                assert got[r][stop][1] == early
+                assert got[r][full][1] == (4 if solver == "sor" else 30)
+                assert any(op[0] == "p2p" for op in got[r][full][0])
+                if mode == "capture":
+                    assert got[r][stop][0] == got[r][full][0]
+                else:
+                    n = len(got[r][stop][0])
+                    assert n < len(got[r][full][0])
+                    assert got[r][stop][0] == got[r][full][0][:n]
+                    assert got[r][full][0] == got[r][f"capture/{solver}/0.0"][0]
+            assert got[0][full][0] == got[1][full][0]
+            assert got[0][stop][0] == got[1][stop][0]
+
+
+def test_process_reach_max_reads_nan_as_beyond(tmp_path):
+    """The reach test's maximum over 2 processes is one MAX all-reduce, the
+    same on both: a NaN on one band of one process reads as +inf, so every
+    process finds the flow beyond reach; within the reach neither does."""
+    out = str(tmp_path / "reach")
+    worker.spawn(worker.in_group, [
+        ("tests.torch_dist_worker:reach_max_probe", r, 2, _url(tmp_path), THREADS, out, r)
+        for r in range(2)], LIMIT)
+    got = [dict(np.load(f"{out}.{r}.npz")) for r in range(2)]
+    for r in range(2):
+        assert got[r]["within/max"][0] == 2.0 and not got[r]["within/beyond"][0]
+        for case in ("nan", "inf"):
+            assert got[r][f"{case}/max"][0] == np.inf and got[r][f"{case}/beyond"][0]
+
+
+@pytest.mark.parametrize("solver", ["sor", "pcg"])
+def test_distributed_flow_matches_jax_sharded_flow(tmp_path, solver):
+    """``distributed_variational_flow`` on a (2, 4) mesh over 2 processes
+    (through each process's program: eager on the CPU, with its reason)
+    against octane_tpu's ``sharded_variational_flow`` on the same mesh of
+    the XLA host devices, on the same numpy pair, within 1e-3 px
+    (test_torch_mesh_flow.py's budget)."""
+    from octane_tpu.config import OFConfig as JaxOFConfig
+    from octane_tpu.parallel import sharded as jax_sharded
+    from octane_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    out = str(tmp_path / "pair")
+    worker.spawn(worker.in_group, [
+        ("tests.torch_dist_worker:pair_probe", r, 2, _url(tmp_path), THREADS, out, r, solver)
+        for r in range(2)], LIMIT)
+    im1, im2 = worker.smooth_pair(64, 64)
+    z = np.zeros((64, 64), np.float32)
+    cfg = OFConfig(kiters=2, cgiters=10, solver=solver, halo_warp=8, mesh_shape=(2, 4))
+    jax_sharded._sharded_program_cache.clear()
+    ju, jv = (np.asarray(a) for a in jax_sharded.sharded_variational_flow(
+        im1, im2, z, z, JaxOFConfig(**dataclasses.asdict(cfg)), jax_make_mesh((2, 4))))
+    for r in range(2):
+        got = np.load(f"{out}.{r}.npz")
+        r0, r1 = got["rows"]
+        assert (r0, r1) == ((0, 32) if r == 0 else (32, 64))
+        assert str(got["route"]) == "eager" and "cpu" in str(got["reason"])
+        np.testing.assert_allclose(got["u"], ju[r0:r1], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got["v"], jv[r0:r1], rtol=0, atol=1e-3)
+
+
+def test_process_program_routes_and_keys(monkeypatch):
+    """The program over processes: "graph" under NCCL on a card, "eager"
+    with its reason on the CPU and over gloo (rows staged through host
+    memory); keyed on the bands' processes, the backend, the group's size
+    and the rank beside the single-process key (whose fields are
+    octane_tpu's); it takes this process's row block.  No card is touched,
+    no group formed: the exchanges are stand-ins."""
+    import types
+
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.parallel import sharded
+
+    def exchange(backend, device, rank=1):
+        device = torch.device(device)
+        return types.SimpleNamespace(ranks=(0, 0, 1, 1), backend=backend, world=2, rank=rank,
+                                     device=device, staged=backend == "gloo" and
+                                     device.type == "cuda", sent={})
+
+    _as_process(monkeypatch, 1, 2)
+    cfg = OFConfig(kiters=2, mesh_shape=(4, 1))
+    for backend, device, route, reason in (
+            ("nccl", "cuda:1", "graph", "nccl, process 1 of 2 on cuda:1"),
+            ("gloo", "cuda:0", "eager", "gloo stages"),
+            ("gloo", "cpu", "eager", "cpu")):
+        mesh = distributed.distributed_mesh(cfg, device)
+        ex = exchange(backend, device)
+        prog = sharded.sharded_flow_program(cfg, (40, 24), 1, mesh, exchange=ex)
+        info = sharded.last_program_info
+        assert info["route"] == route and reason in info["reason"]
+        assert prog.captures == (route == "graph") and prog.exchange is ex
+        assert prog.shape == (8, 24) and prog.row0 == 32   # bands of 16, 16, 8, 0 rows
+        assert info["key"] == sharded.sharded_program_key(cfg, (40, 24), 1, mesh, ex)
+        assert info["key"][:-4] == sharded.sharded_program_key(cfg, (40, 24), 1, mesh)
+        assert info["key"][-4:] == ((0, 0, 1, 1), backend, 2, 1)
+        assert sharded.sharded_flow_program(cfg, (40, 24), 1, mesh,
+                                            exchange=exchange(backend, device)) is prog
+    assert sharded.sharded_flow_program(cfg, (40, 24), 1, mesh,
+                                        exchange=exchange("gloo", "cpu", 0)) is not prog
+    assert sharded.sharded_flow_program(cfg, (40, 24), 1, mesh, exchange=LocalExchange()) \
+        is sharded.sharded_flow_program(cfg, (40, 24), 1, mesh)
+    fv.clear_program_cache()
 
 
 # ----------------------------------------------------------------------------

@@ -47,7 +47,7 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow import variational as fv
 from octane_tpu_torch.ops import pcg as pcgmod
 from octane_tpu_torch.ops import sor as sormod
-from octane_tpu_torch.ops.guard import when
+from octane_tpu_torch.ops.guard import Guard, when
 from octane_tpu_torch.ops.pcg import initial_partials
 from octane_tpu_torch.parallel import cg as band_cg
 from octane_tpu_torch.parallel import make_mesh
@@ -184,6 +184,117 @@ def pcg_bands_before(bands, true_h, tol, iters):
     return [xi + alpha * pi for xi, pi in zip(x, p)], n, reads, history
 
 
+def sor_bands_in_bodies(bands, true_h, resid0, tol, iters, count):
+    """parallel.sor.solve_bands as it was before its transfers left the
+    guarded bodies: one body per pass holds the ghost-row exchange, the
+    band passes, the join of the residual partials and their sum; its
+    state in slabs fixed before the loop (a copy kept as a reference)."""
+    exchange = LocalExchange()
+    s_main = min(sormod.PASS_SWEEPS, iters)
+    n_main, s_rem = divmod(iters, s_main)
+    ghost = 2 * s_main
+    w = bands[0][1].shape[2]
+    slabs, reqs = [], []
+    for i, (r0, cf) in enumerate(bands):
+        r1 = r0 + cf.shape[-2]
+        t0, t1 = max(0, r0 - ghost), min(true_h, r1 + ghost)
+        cfs = torch.empty((cf.shape[0], t1 - t0, w))
+        slabs.append((r0, r1, t0, cfs, [torch.zeros((2, t1 - t0, w)),
+                                        torch.empty((2, t1 - t0, w))]))
+        reqs.append((i, t0, t1, cfs))
+    exchange.fetch_bands(bands, reqs)
+
+    def fetch(j):
+        cur, reqs = [], []
+        for i, (r0, r1, t0, _, xs) in enumerate(slabs):
+            cur.append((r0, xs[j][:, r0 - t0:r1 - t0]))
+            reqs += [(i, t0, r0, xs[j][:, :r0 - t0]), (i, r1, r1 + ghost,
+                                                        xs[j][:, r1 - t0:])]
+        return cur, [(i, a, min(b, true_h), o) for i, a, b, o in reqs]
+
+    resid = resid0.clone()
+    ran = torch.zeros((), dtype=torch.int32)
+
+    def body(k, ns):
+        j = k % 2
+        exchange.fetch_bands(*fetch(j))
+        parts = []
+        for r0, r1, t0, cfs, xs in slabs:
+            _, part = sormod.sor_pass_band(xs[j], cfs, ns, sormod.OMEGA, t0, true_h, r0 - t0,
+                                           r1 - t0, out=xs[1 - j][:, r0 - t0:r1 - t0])
+            parts.append(part)
+        torch.sum(torch.cat(parts), 0, out=resid)
+        ran.add_(1)
+
+    guard = Guard(sormod.sor_solve_cf, count)
+    tol32 = float(np.float32(tol))
+    for k in range(n_main):
+        guard(resid, tol32, lambda k=k: body(k, s_main))
+    if s_rem:
+        guard(resid, tol32, lambda: body(n_main, s_rem))
+    count.add_(ran)
+    odd = bool(ran % 2 == 1)
+    return [xs[int(odd)][:, r0 - t0:r1 - t0] for r0, r1, t0, _, xs in slabs]
+
+
+def pcg_bands_in_bodies(bands, true_h, tol, iters, count):
+    """parallel.cg.solve_bands as it was before its transfers left the
+    guarded bodies: one body per iteration holds the ghost-row fetches,
+    passes A, the <p, Ap> join, alpha, passes B, the rr join and the
+    scalars; x, p and r ping-pong (a copy kept as a reference)."""
+    exchange = LocalExchange()
+    layout = [(r0, cf) for r0, cf, _ in bands]
+    cfs = [cf for _, cf, _ in bands]
+    w = cfs[0].shape[2]
+
+    def ghosts():
+        return [torch.empty((2, 2, w)) for _ in cfs]
+
+    gd, gr, gp = ghosts(), ghosts(), ghosts()
+    exchange.fetch_bands([(r0, cf[0:2]) for r0, cf in layout],
+                         band_cg._ghost_reqs(layout, gd))
+    b = [bb for _, _, bb in bands]
+    part = torch.cat([initial_partials(cf, bb) for cf, bb in zip(cfs, b)])
+    gammas = [torch.sum(part[:, 0]) + torch.sum(part[:, 1]), torch.empty(())]
+    resid = torch.sum(part[:, 2])
+    xs = [[torch.zeros_like(bb), torch.empty_like(bb)] for bb in b]
+    ps = [[torch.zeros_like(bb), torch.empty_like(bb)] for bb in b]
+    rs = [[bb, torch.empty_like(bb)] for bb in b]
+    ap = [torch.empty_like(bb) for bb in b]
+    ab = torch.zeros(2)
+    ran = torch.zeros((), dtype=torch.int32)
+
+    def body(k):
+        i0, j = k % 2, 1 - k % 2
+        for planes, g in ((rs, gr), (ps, gp)):
+            exchange.fetch_bands([(r0, t[i0]) for (r0, _), t in zip(layout, planes)],
+                                 band_cg._ghost_reqs(layout, g))
+        paps = []
+        for i, (r0, cf) in enumerate(layout):
+            *_, pap = pcgmod.pcg_pass_a_band(xs[i][i0], rs[i][i0], ps[i][i0], cf, ab, gr[i],
+                                             gp[i], gd[i], r0, true_h,
+                                             out=(xs[i][j], ps[i][j], ap[i]))
+            paps.append(pap)
+        torch.div(gammas[i0], torch.sum(torch.cat(paps)), out=ab[0])
+        parts = []
+        for i in range(len(layout)):
+            _, part = pcgmod.pcg_pass_b(rs[i][i0], ap[i], cfs[i], ab[0:1], out=rs[i][j])
+            parts.append(part)
+        part = torch.cat(parts)
+        torch.sum(part[:, 0], 0, out=gammas[j])
+        torch.sum(part[:, 1], 0, out=resid)
+        torch.div(gammas[j], gammas[i0], out=ab[1])
+        ran.add_(1)
+
+    guard = Guard(pcgmod.pcg_solve_fused, count)
+    tol32 = float(np.float32(tol))
+    for k in range(iters):
+        guard(resid, tol32, lambda k=k: body(k))
+    count.add_(ran)
+    odd = int(ran % 2 == 1)
+    return [xs[i][odd] + ab[0] * ps[i][odd] for i in range(len(b))]
+
+
 def _banded_cf(split, quad, seed):
     """The coefficient stack of a system split over a CPU mesh's bands."""
     (h, w), nb = SPLITS[split]
@@ -237,6 +348,73 @@ def test_banded_pcg_driver_equals_the_loop_it_replaced(split, quad, stop):
     got = band_cg.solve_bands(bands(), h, tol, ITERS, count=count)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert int(count) == n and pcgmod.pcg_solve_fused.host_syncs == reads
+
+
+@pytest.mark.parametrize("layout", ["one body", "split"])
+@pytest.mark.parametrize("stop", [0, 2, "remainder", "never"])
+@pytest.mark.parametrize("quad", [True, False])
+@pytest.mark.parametrize("split", list(SPLITS))
+def test_banded_sor_driver_equals_the_loop_in_bodies(split, quad, stop, layout, monkeypatch):
+    """The SOR driver against the loop that held each pass in one body:
+    iterates torch.equal, the device counts and the host reads equal, with
+    its transfers between the guarded bodies (``split``, the layout of
+    bands on several cards or processes, forced here) and in one body per
+    pass (the layout of bands on one card, as here)."""
+    if layout == "split":
+        monkeypatch.setattr(band_sor, "one_body", lambda devs, exchange: False)
+    bands, h = _banded_cf(split, quad, seed=13)
+    resid0 = band_sor.resid0_of(bands, CPU)
+    *_, history = sor_bands_before(bands, h, resid0, 0.0, ITERS)
+    n_main = ITERS // sormod.PASS_SWEEPS
+    want_n = {"remainder": n_main, "never": n_main + 1}.get(stop, stop)
+    tol = 0.0 if stop == "never" else history[want_n]
+    runs = []
+    for solve in (sor_bands_in_bodies, band_sor.solve_bands):
+        sormod.sor_solve_cf.host_syncs = 0
+        count = torch.zeros((), dtype=torch.int32)
+        if solve is sor_bands_in_bodies:
+            got = solve(bands, h, resid0, tol, ITERS, count)
+        else:
+            got = solve(bands, h, resid0, tol, ITERS, count=count)
+        runs.append((got, int(count), sormod.sor_solve_cf.host_syncs))
+    (ref, n_ref, reads_ref), (got, n, reads) = runs
+    assert n_ref == want_n
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert n == n_ref and reads == reads_ref
+
+
+@pytest.mark.parametrize("layout", ["one body", "split"])
+@pytest.mark.parametrize("stop", ["0", "1", "mid", "never"])
+@pytest.mark.parametrize("quad", [True, False])
+@pytest.mark.parametrize("split", list(SPLITS))
+def test_banded_pcg_driver_equals_the_loop_in_bodies(split, quad, stop, layout, monkeypatch):
+    if layout == "split":
+        monkeypatch.setattr(band_cg, "one_body", lambda devs, exchange: False)
+    (h, w), nb = SPLITS[split]
+    s = _torch_sys(_system_np(h, w, quad, seed=14))
+    cf, b = band_cg.system_bands(s, slice(None))
+    mesh = _mesh(1, nb)
+
+    def bands():                 # the drivers overwrite their right-hand sides
+        return [(r0, c, bb.clone()) for (r0, c), (_, bb)
+                in zip(band_sor.split_rows(cf, mesh), band_sor.split_rows(b, mesh))]
+
+    *_, history = pcg_bands_before(bands(), h, 0.0, ITERS)
+    tol = _stop_tol(history, stop)
+    runs = []
+    for solve in (pcg_bands_in_bodies, band_cg.solve_bands):
+        pcgmod.pcg_solve_fused.host_syncs = 0
+        count = torch.zeros((), dtype=torch.int32)
+        if solve is pcg_bands_in_bodies:
+            got = solve(bands(), h, tol, ITERS, count)
+        else:
+            got = solve(bands(), h, tol, ITERS, count=count)
+        runs.append((got, int(count), pcgmod.pcg_solve_fused.host_syncs))
+    (ref, n_ref, reads_ref), (got, n, reads) = runs
+    want_n = {"0": 0, "1": 1, "never": ITERS}.get(stop)
+    assert n_ref == want_n if want_n is not None else 1 < n_ref < ITERS
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert n == n_ref and reads == reads_ref
 
 
 # ----------------------------------------------------------------------------
@@ -408,18 +586,23 @@ def test_program_keys():
 
 
 def test_program_route():
-    """A graph where every band lies on one card ("cuda" names the current
-    card); the eager loop, with its reason, on the CPU or on several cards.
-    Building a program touches no card."""
+    """A graph where every band lies on a card, one ("cuda" names the
+    current card) or several, captured as one graph begun on the first
+    band's card; the eager loop, with its reason, on the CPU.  Building a
+    program touches no card."""
     cfg = OFConfig(kiters=2)
-    for devices, route, reason in (
-            ([torch.device("cuda", 0)] * 4, "graph", "cuda:0"),
-            ([torch.device("cuda", 0), torch.device("cuda", 1)] * 2, "eager", "2 devices"),
-            ([CPU] * 4, "eager", "cpu")):
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for devices, route, reason, on in (
+            ([torch.device("cuda", 0)] * 4, "graph", "cuda:0", cards[:1]),
+            ([torch.device("cuda", 0), torch.device("cuda", 1)] * 2, "graph", "2 cards",
+             cards[:2]),
+            (cards, "graph", "4 cards", cards),
+            ([CPU] * 4, "eager", "cpu", [CPU])):
         program = sharded.sharded_flow_program(cfg, (32, 48), 1, make_mesh((1, 4), devices))
         info = sharded.last_program_info
         assert info["route"] == route and reason in info["reason"]
         assert program.captures == (route == "graph")
+        assert list(program.devices) == on and program.device == on[0]
     fv.clear_program_cache()
 
 
