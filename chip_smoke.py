@@ -3,10 +3,29 @@
     python3 chip_smoke.py
 
 Phases, one line each (any failure exits non-zero):
-  1. environment: torch, CUDA, nvcc, which of triton/h5py/jax are installed,
-     the card's name and power limit;
+  1. environment: torch, CUDA, nvcc, which of triton/h5py/jax are installed
+     (the port needs neither h5py nor jax: its files go through its own HDF5
+     codec, octane_tpu_torch/io/hdf5.py), the card's name and power limit;
   2. build the CUDA kernels from octane_tpu_torch/csrc (one nvcc per source,
      in parallel);
+ 2b. io: (a) the codec reads the h5py-made files committed under
+     tests/hdf5_fixtures equal to their .npz (tests/torch_fixtures.
+     check_hdf5_fixture), timed; (b) the main path through files at full
+     disk: the 5424^2 bench pair (truth (2.4, 0) px) as int16 counts,
+     written by the codec as two L1b files with Rad chunked 226 x 226,
+     shuffled and deflated; per relaxer cli.main(-i1, -i2, -o, --device
+     cuda, -solver) (a key's first call: the pair runs eagerly), the
+     product read back through the codec and U, V, U_raw, V_raw and Rad
+     bit-identical to the in-memory route in this process (the same arrays
+     through scene_from_goes_arrays -> compute_flow -> pix2uv, the key's
+     second call: its capture and replay), the flow's median within 0.1 px
+     of the truth; each stage's wall (read + navcal per image, the flow,
+     pix2uv, the write; a device sync at each stage's end), the wall per
+     product, the product's bytes, the read and write rates; (c) the 512^2
+     fixture pair with codec-written CTH and first-guess files through
+     cli.main -i1cth -firstguess -srsal -pd per relaxer, the bilateral
+     kernel launched, U, V, Upix, Vpix and CTP bit-identical to the
+     in-memory route;
   3. warp kernel vs its plain version: bit-exact samples and flags, exact
      tile statistics, smooth flow, a +-40 px jet and +-40 px noise;
   4. Jacobi-PCG passes vs their plain versions (bit-exact, block partials
@@ -21,8 +40,8 @@ Phases, one line each (any failure exits non-zero):
      (bit-identical) and vs the reference loop flow.cg.sor_solve (rel <=
      2e-5), quad and robust;
   7. the main path on the 512^2 product fixture pair (tests/golden/
-     product_512.npz): through the CLI where h5py is installed, else through
-     scene_from_goes_arrays -> compute_flow; with the default PCG solver the
+     product_512.npz): codec-written L1b files through the CLI, the product
+     read back through the codec; with the default PCG solver the
      shorts within 1 count and mostly exact (EXACT_SHARE), with the SOR
      solver the pixel-short medians within 5 counts of the true shift (300,
      -150); each path launched its kernels and called no plain version;
@@ -104,10 +123,10 @@ Phases, one line each (any failure exits non-zero):
  15. sequence: bench.py config 5 (12 frames of 500^2, kiters 3, lambdac
      0.05), per relaxer, the pairs chained through compute_flow(...,
      first_guess=previous flow) over in-memory scenes, as run_sequence's
-     loop chains them (run_sequence itself reads files, which needs h5py):
-     each pair torch.equal to the plain route's chain, ms per pair; where
-     h5py is installed, also run_sequence with a checkpoint, stopped after
-     2 pairs and resumed, its products equal to an uninterrupted run's.
+     loop chains them: each pair torch.equal to the plain route's chain, ms
+     per pair; then run_sequence over the frames as codec-written L1b files
+     with a checkpoint, stopped after 2 pairs and resumed, its products
+     equal (read through the codec) to an uninterrupted run's.
  16. mesh: (a) the band forms of the mesh path (warp_band, sor_pass_band at
      8 and 6 sweeps quad and robust, pcg_pass_a_band quad and robust,
      bilateral_band) at 5424^2 on 4 bands of 1356 rows and on an uneven
@@ -165,9 +184,10 @@ Phases, one line each (any failure exits non-zero):
      A process that fails or hangs fails the phase.  (b) At 5424^2 on a
      (1, 4) mesh of cuda:0, patch_match_flow_sharded equal to
      patch_match_flow and sharded_interpolate_frame equal to
-     interpolate_frame.  (c) Where h5py is installed, -nprocs 2 through
-     the CLI on the 512^2 fixture equal to the single-process -mesh
-     product.
+     interpolate_frame.  (c) -nprocs 2 through the CLI over gloo on one
+     card (part files, process 0's merge) on the codec-written 512^2
+     fixture, its product equal (read through the codec) to the
+     single-process -mesh 2x1 product.
  18. program: the captured pair (flow.variational.flow_program; every
      variational_flow call on the card above goes through it: a key's
      first call runs the pair eagerly, its second captures the program,
@@ -196,7 +216,8 @@ and what bounds it, library ms; the warp and the assembly also at C = 3;
 the band forms with their launches on the banded pairs and banded SRSAL,
 the assembly and pass B also ``mesh_launches``, and with the dist phase
 ``dist_launches``, per process); the last line is
-{"ok": true, "device": {...}}.  ``--only`` runs a subset,
+{"ok": true, "device": {...}}.  A phase that fails, a codec error
+included, fails the run.  ``--only`` runs a subset,
 e.g. ``--only build,warp,pcg,assemble,sor`` or ``--only
 env,build,multichannel,flatgrid,sequence``.
 """
@@ -204,12 +225,15 @@ env,build,multichannel,flatgrid,sequence``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -217,7 +241,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
-PHASES = ("env", "build", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
+PHASES = ("env", "build", "io", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
           "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh", "dist",
           "program")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
@@ -346,7 +370,9 @@ def phase_env():
     ver = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True)
     say("env", "nvcc " + ver.stdout.strip().splitlines()[-1])
     have = {m: importlib.util.find_spec(m) is not None for m in ("triton", "h5py", "jax")}
-    say("env", "installed: " + ", ".join(f"{m}={'yes' if v else 'no'}" for m, v in have.items()))
+    say("env", "installed: " + ", ".join(f"{m}={'yes' if v else 'no'}" for m, v in have.items())
+        + "; the port needs no h5py (its files go through octane_tpu_torch.io.hdf5) "
+          "and no jax")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
@@ -363,7 +389,6 @@ def phase_env():
                "IF nodes from csrc/graph.cu (torch's own conditional-node helper "
                f"{'present' if importlib.util.find_spec('torch._higher_order_ops.cudagraph_conditional_nodes') else 'absent'}"
                ", not used)")
-    return have
 
 
 def phase_build():
@@ -376,6 +401,218 @@ def phase_build():
     for line in info.get("ptxas", "").splitlines():
         if any(key in line for key in ("registers", "Compiling entry", "spill")):
             say("build", line.strip())
+
+
+HDF5_FIXTURES = ("earliest", "latest_tracked", "netcdf_l1b")   # tests/hdf5_fixtures
+L1B_CHUNKS = (226, 226)  # the NOAA L1b files' Rad tiling at 5424^2
+
+
+@contextlib.contextmanager
+def stage_clock(targets):
+    """While the block runs, every call of the functions ``targets``
+    [(module, attribute, label)] is timed on the host's clock after a
+    device sync at its start and end; yields the list of (label, seconds)
+    that the calls append to."""
+    times, saved = [], []
+
+    def timed(fn, label):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.append((label, time.perf_counter() - t0))
+            return out
+        return call
+
+    for mod, attr, label in targets:
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, timed(getattr(mod, attr), label))
+    try:
+        yield times
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def phase_io(dev):
+    """(a) the committed h5py-made fixtures through the codec; (b) the main
+    path through codec-written L1b files at full disk, per relaxer."""
+    from octane_tpu_torch import cli, ops, pipeline
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import dispatcher
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.io import hdf5
+    from octane_tpu_torch.io.readers import read_scene, scene_from_goes_arrays
+
+    fx = load_tests_module("torch_fixtures")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    n = sum(fx.check_hdf5_fixture(name) for name in HDF5_FIXTURES)
+    ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(os.path.getsize(os.path.join(fx.HDF5_FIXTURES, f"{name}.h5"))
+                 for name in HDF5_FIXTURES)
+    l1b = read_scene(os.path.join(fx.HDF5_FIXTURES, "netcdf_l1b.h5"), OFConfig(), device=dev)
+    say("io", f"(a) {len(HDF5_FIXTURES)} h5py-made fixtures ({nbytes} bytes: superblocks 0, "
+              f"2 and 3, object headers 1 and 2, symbol-table and dense groups, compact and "
+              f"dense attributes, contiguous, compact and chunked storage with deflate, "
+              f"shuffle, fletcher32, unwritten chunks) read by the codec equal to their .npz: "
+              f"{n} datasets, row slices and attributes in {ms:.1f} ms; the netCDF-4 L1b "
+              f"fixture through read_scene on the card: {tuple(l1b.data.shape)}, finite "
+              f"{bool(torch.isfinite(l1b.data).all())}")
+    if not torch.isfinite(l1b.data).all():
+        raise AssertionError("io: the L1b fixture's scene is not finite")
+
+    h = w = FULLDISK
+    tmp = tempfile.mkdtemp(prefix="octane_io_")
+    try:
+        g1, g2 = bench_images(h, w, dev)
+        _, x, y, nav, _, t_units, _ = fx.goes_arrays(np.zeros((h, w), np.int16),
+                                                     fx.FIXTURE_T0)
+        counts = [counts_for(g[0], 13, nav.rad_scale[0], nav.rad_offset[0]) for g in (g1, g2)]
+        del g1, g2
+        files, times = [], []
+        for i, c in enumerate(counts):
+            t0 = time.perf_counter()
+            files.append(fx.make_goes_file(os.path.join(tmp, f"l1b_{i}.nc"), c, band=13,
+                                           t=fx.FIXTURE_T0 + 60.0 * i, chunks=L1B_CHUNKS))
+            times.append(time.perf_counter() - t0)
+        sizes = [os.path.getsize(f) for f in files]
+        say("io", f"(b) {h}x{w} bench pair as int16 counts written by the codec as L1b files "
+                  f"(Rad chunked {L1B_CHUNKS[0]}x{L1B_CHUNKS[1]}, shuffle + deflate 1): "
+                  f"{sizes[0]} and {sizes[1]} bytes in {times[0]:.2f} and {times[1]:.2f} s "
+                  f"({h * w * 2 / 1e6 / times[0]:.1f} MB/s of counts)")
+        t0 = time.perf_counter()
+        with hdf5.File(files[0]) as f:
+            back = f["Rad"][()]
+        t_read = time.perf_counter() - t0
+        say("io", f"Rad of {files[0].rsplit('/', 1)[1]} read back by the codec alone: "
+                  f"{t_read:.3f} s, {h * w * 2 / 1e6 / t_read:.1f} MB/s of counts "
+                  f"({sizes[0] / 1e6 / t_read:.1f} MB/s from the file), equal "
+                  f"{bool(np.array_equal(back, counts[0]))}")
+        if not np.array_equal(back, counts[0]):
+            raise AssertionError("io: the codec's Rad differs from the counts written")
+        del back
+        stages = [(pipeline, "read_scene", "read + navcal"),
+                  (dispatcher, "_variational", "flow"),
+                  (dispatcher, "pix2uv", "pix2uv"),
+                  (pipeline, "write_product", "write")]
+        for solver in ("pcg", "sor"):
+            out = os.path.join(tmp, f"out_{solver}")
+            argv = ["-i1", files[0], "-i2", files[1], "-o", out, "--device", "cuda",
+                    "-solver", solver]
+            cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+            ops.reset_counters()
+            torch.cuda.synchronize()
+            with stage_clock(stages) as spent:
+                t0 = time.perf_counter()
+                if cli.main(argv):
+                    raise AssertionError(f"io: cli.main failed ({solver})")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            _check_counters("io", solver)
+            product = os.path.join(out, "outfile.nc")
+            pbytes = os.path.getsize(product)
+            t0 = time.perf_counter()
+            with hdf5.File(product) as f:
+                got = {k: f[k][()] for k in ("U", "V", "U_raw", "V_raw", "Rad")}
+            t_back = time.perf_counter() - t0
+            # the in-memory route: the files' arrays, the key's second call
+            s1 = scene_from_goes_arrays(counts[0], x, y, dataclasses.replace(nav), cfg, dev,
+                                        donav=True, t=fx.FIXTURE_T0, t_units=t_units, band=13)
+            s2 = scene_from_goes_arrays(counts[1], x, y, dataclasses.replace(nav), cfg, dev,
+                                        donav=False, t=fx.FIXTURE_T0 + 60.0, t_units=t_units,
+                                        band=13)
+            s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
+            compute_flow(s1, s2, cfg.replace(nchannels=1))
+            want = {"U": s1.u_wind, "V": s1.v_wind, "U_raw": s1.u_raw, "V_raw": s1.v_raw,
+                    "Rad": s1.raw_counts[0]}
+            same = {k: bool(np.array_equal(got[k], t.cpu().numpy())
+                            and got[k].dtype == np.int16) for k, t in want.items()}
+            m = min(512, h // 4)
+            med = (float(s1.u_pix[m:-m, m:-m].median()), float(s1.v_pix[m:-m, m:-m].median()))
+            by = {}
+            for label, sec in spent:
+                by.setdefault(label, []).append(sec)
+                nth = f" (image {len(by[label])})" if label == "read + navcal" else ""
+                say("io", f"{solver} stage {label}{nth}: {sec * 1e3:.1f} ms"
+                          + (" (the CLI's single pair runs eagerly: a key captures on its "
+                             "second call)" if label == "flow" else ""))
+            t_w = sum(by["write"])
+            t_r = by["read + navcal"]
+            say("io", f"{solver}: wall per product (cli.main, files to product) "
+                      f"{wall * 1e3:.1f} ms; product {pbytes} bytes, written at "
+                      f"{pbytes / 1e6 / t_w:.1f} MB/s, read back by the codec in "
+                      f"{t_back * 1e3:.1f} ms ({pbytes / 1e6 / t_back:.1f} MB/s); inputs read "
+                      f"+ navcal at {sizes[0] / 1e6 / t_r[0]:.1f} and "
+                      f"{sizes[1] / 1e6 / t_r[1]:.1f} MB/s of file; U, V, U_raw, V_raw, Rad "
+                      f"bit-identical to the in-memory route {same}; median flow "
+                      f"({med[0]:.4f}, {med[1]:.4f}) px, truth (2.4, 0)")
+            if not (all(same.values()) and abs(med[0] - 2.4) < 0.1 and abs(med[1]) < 0.1):
+                raise AssertionError(f"io: the {solver} product through files is off")
+            del s1, s2, want, got
+            shutil.rmtree(out, ignore_errors=True)
+        io_cth_firstguess(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("io", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def io_cth_firstguess(dev, tmp):
+    """(c) The 512^2 fixture pair with codec-written CTH and first-guess
+    files through cli.main -i1cth -firstguess -srsal -pd per relaxer (CTH
+    read and regridded, the first guess through uv2pix, the bilateral
+    kernel): U, V, Upix, Vpix and CTP bit-identical to the same arrays
+    through scene_from_goes_arrays -> cth_onto_scene ->
+    first_guess_onto_scene -> compute_flow."""
+    from octane_tpu_torch import cli, ops
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.io import hdf5
+    from octane_tpu_torch.io.readers import (cth_onto_scene, first_guess_onto_scene,
+                                             scene_from_goes_arrays)
+
+    fx = load_tests_module("torch_fixtures")
+    c1, c2 = fx.fixture_counts(0, 0), fx.fixture_counts(3.0, -1.5)
+    cth = fx.cth_steps(512, 512)
+    frng = np.random.default_rng(9)
+    ufg = (100.0 + frng.normal(0, 5, (512, 512))).astype(np.float32)
+    vfg = (50.0 + frng.normal(0, 5, (512, 512))).astype(np.float32)
+    files = [fx.make_goes_file(os.path.join(tmp, "c1.nc"), c1, chunks=L1B_CHUNKS),
+             fx.make_goes_file(os.path.join(tmp, "c2.nc"), c2, t=fx.FIXTURE_T0 + 60.0,
+                               chunks=L1B_CHUNKS),
+             fx.make_cth_file(os.path.join(tmp, "cth.nc"), cth),
+             fx.make_firstguess_file(os.path.join(tmp, "fg.nc"), ufg, vfg)]
+    for solver in ("pcg", "sor"):
+        out = os.path.join(tmp, f"srsal_{solver}")
+        argv = ["-i1", files[0], "-i2", files[1], "-i1cth", files[2], "-firstguess", files[3],
+                "-srsal", "-pd", "-o", out, "--device", "cuda", "-solver", solver]
+        cfg = cli.args_to_config(cli.build_parser().parse_args(argv)).replace(nchannels=1)
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        if cli.main(argv):
+            raise AssertionError(f"io: cli.main -srsal failed ({solver})")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_counters("io", solver, "srsal")
+        with hdf5.File(os.path.join(out, "outfile.nc")) as f:
+            got = {k: f[k][()] for k in ("U", "V", "Upix", "Vpix", "CTP")}
+        s1 = scene_from_goes_arrays(*fx.goes_arrays(c1, fx.FIXTURE_T0)[:4], cfg, dev,
+                                    donav=True, t=fx.FIXTURE_T0)
+        s2 = scene_from_goes_arrays(*fx.goes_arrays(c2, fx.FIXTURE_T0 + 60.0)[:4], cfg, dev,
+                                    donav=False, t=fx.FIXTURE_T0 + 60.0)
+        # as run_pipeline: uv2pix of the first guess reads image 2's offsets
+        s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
+        cth_onto_scene(cth, s1, cfg, dev)
+        first_guess_onto_scene(ufg, vfg, s1, dev)
+        compute_flow(s1, s2, cfg)
+        want = {"U": s1.u_wind, "V": s1.v_wind, "Upix": s1.u_pix, "Vpix": s1.v_pix,
+                "CTP": s1.ctp}
+        same = {k: bool(np.array_equal(got[k], t.cpu().numpy())) for k, t in want.items()}
+        say("io", f"(c) {solver}: 512x512 fixture pair + codec-written CTH and first-guess "
+                  f"files through cli.main -i1cth -firstguess -srsal -pd in {wall * 1e3:.1f} "
+                  f"ms; U, V, Upix, Vpix, CTP bit-identical to the in-memory route {same}")
+        if not all(same.values()):
+            raise AssertionError(f"io: the {solver} CTH + first-guess + SRSAL product is off")
 
 
 def phase_warp(dev, report):
@@ -581,49 +818,35 @@ def _check_counters(phase, *paths):
     return c
 
 
-def run_fixture(dev, have_h5py, solver):
-    """The 512^2 product fixture pair through the main path: (products as
-    numpy arrays, the route taken)."""
-    from octane_tpu_torch.config import OFConfig
-    from octane_tpu_torch.flow.dispatcher import compute_flow
-    from octane_tpu_torch.io.readers import scene_from_goes_arrays
+def run_fixture(solver, tmp):
+    """The 512^2 product fixture pair through the main path: codec-written
+    L1b files through cli.main, the product read back through the codec:
+    (products as numpy arrays, the route taken)."""
+    from octane_tpu_torch.cli import main as cli_main
+    from octane_tpu_torch.io import hdf5
 
     fx = load_tests_module("torch_fixtures")
-    c1, c2 = fx.fixture_counts(0, 0), fx.fixture_counts(3.0, -1.5)
-    if have_h5py:
-        import h5py
-        make_goes_file = load_tests_module("synth").make_goes_file
-        from octane_tpu_torch.cli import main as cli_main
-
-        out = os.path.join(ROOT, "chiprun_out", f"chip_smoke_{solver}")
-        os.makedirs(out, exist_ok=True)
-        f1 = make_goes_file(os.path.join(out, "g1.nc"), c1, band=13)
-        f2 = make_goes_file(os.path.join(out, "g2.nc"), c2, band=13,
-                            t=fx.FIXTURE_T0 + 60.0)
-        cli_main(["-i1", f1, "-i2", f2, "-o", out, "--device", "cuda", "-solver", solver])
-        with h5py.File(os.path.join(out, "outfile.nc")) as f:
-            return {k: np.asarray(f[k][()]) for k in ("U", "V", "U_raw", "V_raw")}, "cli.main"
-    cfg = OFConfig(solver=solver)
-    s1 = scene_from_goes_arrays(*fx.goes_arrays(c1, fx.FIXTURE_T0)[:4], cfg, dev,
-                                donav=True, t=fx.FIXTURE_T0)
-    s2 = scene_from_goes_arrays(*fx.goes_arrays(c2, fx.FIXTURE_T0 + 60.0)[:4], cfg,
-                                dev, donav=False, t=fx.FIXTURE_T0 + 60.0)
-    s1.nav.g2x_offset, s1.nav.g2y_offset = s2.nav.x_offset, s2.nav.y_offset
-    compute_flow(s1, s2, cfg)
-    got = {"U": s1.u_wind, "V": s1.v_wind, "U_raw": s1.u_raw, "V_raw": s1.v_raw}
-    return ({k: t.cpu().numpy() for k, t in got.items()},
-            "scene_from_goes_arrays -> compute_flow -> pix2uv (no h5py)")
+    out = os.path.join(tmp, f"main_{solver}")
+    f1 = fx.make_goes_file(os.path.join(tmp, "g1.nc"), fx.fixture_counts(0, 0), band=13)
+    f2 = fx.make_goes_file(os.path.join(tmp, "g2.nc"), fx.fixture_counts(3.0, -1.5), band=13,
+                           t=fx.FIXTURE_T0 + 60.0)
+    if cli_main(["-i1", f1, "-i2", f2, "-o", out, "--device", "cuda", "-solver", solver]):
+        raise AssertionError(f"main: cli.main failed ({solver})")
+    with hdf5.File(os.path.join(out, "outfile.nc")) as f:
+        return ({k: f[k][()] for k in ("U", "V", "U_raw", "V_raw")},
+                "codec-written L1b files -> cli.main -> product read through the codec")
 
 
-def phase_main(dev, have_h5py):
+def phase_main(dev):
     from octane_tpu_torch import ops
 
     fx = load_tests_module("torch_fixtures")
     want = np.load(os.path.join(ROOT, "tests", "golden", "product_512.npz"))
+    tmp = tempfile.mkdtemp(prefix="octane_main_")
     for solver in ("pcg", "sor"):
         ops.reset_counters()
         t0 = time.perf_counter()
-        got, how = run_fixture(dev, have_h5py, solver)
+        got, how = run_fixture(solver, tmp)
         torch.cuda.synchronize()
         say("main", f"{solver}: 512x512 fixture pair via {how} in "
                     f"{time.perf_counter() - t0:.2f} s")
@@ -641,6 +864,7 @@ def phase_main(dev, have_h5py):
                         f"truth (300, -150)")
             if abs(med[0] - 300) > 5 or abs(med[1] + 150) > 5:
                 raise AssertionError("main: the SOR flow misses the fixture's shift")
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_golden(dev):
@@ -1583,14 +1807,12 @@ def run_chain(frames, nav, cfg, t0, plain=False, eager=False):
 def sequence_files_resume(frames, nav, cfg, dev, outdir):
     """run_sequence over the frames written as GOES files: uninterrupted,
     and stopped after 2 pairs then resumed from its checkpoint.  Returns
-    whether every product of the two runs is equal."""
-    import h5py
-
+    whether every product of the two runs is equal, as the codec reads them."""
+    from octane_tpu_torch.io import hdf5
     from octane_tpu_torch.sequence import run_sequence
 
     fx = load_tests_module("torch_fixtures")
-    make_goes_file = load_tests_module("synth").make_goes_file
-    files = [make_goes_file(os.path.join(outdir, f"f{i:02d}.nc"),
+    files = [fx.make_goes_file(os.path.join(outdir, f"f{i:02d}.nc"),
                             counts_for(f[0], 13, nav.rad_scale[0], nav.rad_offset[0]),
                             band=13, t=fx.FIXTURE_T0 + 60.0 * i) for i, f in enumerate(frames)]
     whole = run_sequence(files, cfg, outdir=os.path.join(outdir, "whole"), device=dev)
@@ -1601,13 +1823,14 @@ def sequence_files_resume(frames, nav, cfg, dev, outdir):
     if len(resumed) != len(files) - 3:
         return False
     for pw in whole:
-        with h5py.File(pw) as fw, h5py.File(pw.replace("whole", "part")) as fp:
-            if any(not np.array_equal(fw[k][()], fp[k][()]) for k in fw.keys()):
+        with hdf5.File(pw) as fw, hdf5.File(pw.replace("whole", "part")) as fp:
+            if fw.keys() != fp.keys() or any(not np.array_equal(fw[k][()], fp[k][()])
+                                             for k in fw.keys()):
                 return False
     return True
 
 
-def phase_sequence(dev, have_h5py):
+def phase_sequence(dev):
     from octane_tpu_torch import ops
     from octane_tpu_torch.config import OFConfig
 
@@ -1634,23 +1857,22 @@ def phase_sequence(dev, have_h5py):
         say("sequence", f"config 5 ({len(frames)} frames of 500x500, kiters 3, lambdac 0.05) "
                         f"{solver}: {npairs} warm-started pairs through compute_flow(..., "
                         f"first_guess=previous flow) over in-memory scenes (run_sequence's "
-                        f"loop; run_sequence itself reads files, which needs h5py) "
+                        f"loop) "
                         f"{ms:.2f} ms per pair; every pair torch.equal to the plain chain "
                         f"{same}; last median ({float(flows[-1][0].median()):.4f}, "
                         f"{float(flows[-1][1].median()):.4f}) px, truth (0, 0)")
         if not same:
             raise AssertionError(f"sequence: the {solver} chain differs from the plain chain")
-        if have_h5py:
-            out = os.path.join(ROOT, "chiprun_out", f"chip_smoke_sequence_{solver}")
-            os.makedirs(out, exist_ok=True)
-            ok = sequence_files_resume(frames, nav, cfg, dev, out)
-            say("sequence", f"{solver}: run_sequence stopped after 2 pairs and resumed from "
-                            f"its checkpoint equals an uninterrupted run: {ok}")
-            if not ok:
-                raise AssertionError("sequence: the resumed run differs")
-    if not have_h5py:
-        say("sequence", "h5py is not installed: run_sequence's checkpoint/resume is not run "
-                        "here (tests/test_torch_sequence.py runs it on the CPU)")
+        out = tempfile.mkdtemp(prefix=f"octane_sequence_{solver}_")
+        t0 = time.perf_counter()
+        ok = sequence_files_resume(frames, nav, cfg, dev, out)
+        shutil.rmtree(out, ignore_errors=True)
+        say("sequence", f"{solver}: run_sequence over {len(frames)} codec-written L1b files "
+                        f"({time.perf_counter() - t0:.1f} s, an uninterrupted run and one "
+                        f"stopped after 2 pairs and resumed from its checkpoint): every "
+                        f"product of the resumed run equals the uninterrupted run's {ok}")
+        if not ok:
+            raise AssertionError("sequence: the resumed run differs")
     say("sequence", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2479,14 +2701,11 @@ def _spawn(target, argss, timeout):
     load_tests_module("torch_dist_worker").spawn(target, argss, timeout)
 
 
-def phase_dist(dev, report, have_h5py):
+def phase_dist(dev, report):
     """The multi-process path at full disk: 2 processes on cuda:0 over gloo
     (and one per card over NCCL where there are two), then the banded
     patch-match and interpolation at 5424^2 against the whole field, then
-    the CLI's -nprocs 2 where h5py exists."""
-    import shutil
-    import tempfile
-
+    the CLI's -nprocs 2 over gloo."""
     from octane_tpu_torch import ops
     from octane_tpu_torch.flow.patch_match import patch_match_flow, patch_match_flow_sharded
     from octane_tpu_torch.parallel import make_mesh
@@ -2592,11 +2811,7 @@ def phase_dist(dev, report, have_h5py):
             raise AssertionError("dist: the banded patch-match or frame differs")
         del got, want, u, v, g1, g2
 
-        if have_h5py:
-            dist_cli(tmp)
-        else:
-            say("dist", "h5py is not installed: the CLI's -nprocs 2 on the 512^2 fixture is "
-                        "not run")
+        dist_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say("dist", f"phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -2620,27 +2835,33 @@ def dist_cli_worker(argv):
 
 
 def dist_cli(tmp):
-    """-nprocs 2 through the CLI on the 512^2 product fixture files, equal to
-    the single-process -mesh 1x2 product."""
-    import h5py
+    """-nprocs 2 through the CLI over gloo on one card on the codec-written
+    512^2 product fixture files: each process writes its part file, process
+    0 merges them; the product equal, as the codec reads it, to the
+    single-process -mesh 2x1 product."""
+    from octane_tpu_torch.io import hdf5
 
-    synth = load_tests_module("synth")
     fx = load_tests_module("torch_fixtures")
-    f1 = synth.make_goes_file(os.path.join(tmp, "g1.nc"), fx.fixture_counts(0, 0), band=13)
-    f2 = synth.make_goes_file(os.path.join(tmp, "g2.nc"), fx.fixture_counts(3.0, -1.5),
-                              band=13, t=fx.FIXTURE_T0 + 60.0)
+    f1 = fx.make_goes_file(os.path.join(tmp, "g1.nc"), fx.fixture_counts(0, 0), band=13)
+    f2 = fx.make_goes_file(os.path.join(tmp, "g2.nc"), fx.fixture_counts(3.0, -1.5),
+                           band=13, t=fx.FIXTURE_T0 + 60.0)
     argv = ["-i1", f1, "-i2", f2, "-mesh", "2x1", "-solver", "sor", "-pd", "--device", "cuda:0",
             "--dist-backend", "gloo"]
     multi, single = os.path.join(tmp, "multi"), os.path.join(tmp, "single")
+    t0 = time.perf_counter()
     _spawn(dist_cli_worker, [(argv + ["-o", multi, "-nprocs", "2", "-procid", str(r),
                                       "-coordinator", f"file://{tmp}/cli.store"],)
                              for r in range(2)], 300)
+    t1 = time.perf_counter()
     _spawn(dist_cli_worker, [(argv + ["-o", single],)], 300)
-    with h5py.File(os.path.join(multi, "outfile.nc")) as a, \
-            h5py.File(os.path.join(single, "outfile.nc")) as b:
-        same = sorted(a) == sorted(b) and all(np.array_equal(a[k][()], b[k][()]) for k in b)
-    say("dist", f"-nprocs 2 through the CLI on the 512^2 fixture: product equal to the "
-                f"single-process -mesh 2x1 product {same}")
+    parts = sorted(os.listdir(os.path.join(multi, ".parts")))
+    with hdf5.File(os.path.join(multi, "outfile.nc")) as a, \
+            hdf5.File(os.path.join(single, "outfile.nc")) as b:
+        same = a.keys() == b.keys() and all(np.array_equal(a[k][()], b[k][()])
+                                            for k in b.keys())
+    say("dist", f"-nprocs 2 over gloo on cuda:0 through the CLI on the codec-written 512^2 "
+                f"fixture ({t1 - t0:.1f} s, part files {parts}): product equal to the "
+                f"single-process -mesh 2x1 product ({time.perf_counter() - t1:.1f} s) {same}")
     if not same:
         raise AssertionError("dist: the -nprocs product differs")
 
@@ -2658,25 +2879,26 @@ def main(argv=None):
         return 1
     dev = torch.device("cuda", 0)
     report = {}
-    have = phase_env()
+    phase_env()
     from octane_tpu_torch.flow.variational import clear_program_cache
 
     if "build" in only:
         phase_build()
-    phases = [("warp", lambda: phase_warp(dev, report)),
+    phases = [("io", lambda: phase_io(dev)),
+              ("warp", lambda: phase_warp(dev, report)),
               ("pcg", lambda: phase_pcg(dev, report)),
               ("assemble", lambda: phase_assemble(dev, report)),
               ("sor", lambda: phase_sor(dev, report)),
-              ("main", lambda: phase_main(dev, have["h5py"])),
+              ("main", lambda: phase_main(dev)),
               ("golden", lambda: phase_golden(dev)),
               ("srsal", lambda: phase_srsal(dev, report)),
               ("fulldisk", lambda: phase_fulldisk(dev, report)),
               ("hybrid", lambda: phase_hybrid_interp(dev, report, "interp" in only)),
               ("multichannel", lambda: phase_multichannel(dev, report)),
               ("flatgrid", lambda: phase_flatgrid(dev)),
-              ("sequence", lambda: phase_sequence(dev, have["h5py"])),
+              ("sequence", lambda: phase_sequence(dev)),
               ("mesh", lambda: phase_mesh(dev, report)),
-              ("dist", lambda: phase_dist(dev, report, have["h5py"])),
+              ("dist", lambda: phase_dist(dev, report)),
               ("program", lambda: phase_program(dev, report))]
     for name, phase in phases:
         if name in only:

@@ -1,5 +1,5 @@
-"""Data model and file IO (counterpart of octane_tpu.io).  h5py is imported
-only when a file is read or written."""
+"""Data model and file IO (counterpart of octane_tpu.io).  Files are read
+and written through the port's own HDF5 / netCDF-4 codec, ``io.hdf5``."""
 
 from octane_tpu_torch.io.datamodel import NavConstants, Scene, scene_from_numpy
 from octane_tpu_torch.io.readers import (channel_onto_scene, read_cth, read_first_guess,

@@ -6,20 +6,20 @@ read_first_guess; oct_fileread.cc:43-868).
 Each reader is split in two halves:
 
 * the file half (``read_scene``, ``read_cth``, ``read_first_guess``) reads
-  the arrays and attributes with h5py (imported on use) by the names the
-  reference reads and fills ``NavConstants``;
+  the arrays and attributes through the port's HDF5 codec (``io.hdf5``) by
+  the names the reference reads and fills ``NavConstants``;
 * the array half (``scene_from_goes_arrays``, ``channel_onto_scene``,
   ``scene_from_flat_arrays``, ``cth_onto_scene``,
   ``first_guess_onto_scene``) does the rest on tensors: navigation,
   calibration and normalisation (``nav.goes.navcal_goes``), the regrid of
   channels 2/3 and of the CTH onto the channel-1 grid, flat-grid
   navigation (``nav.polar``, ``nav.mercator``), so the product path also
-  runs where h5py is missing.
+  runs on arrays that never were in a file.
 
 ``row_range`` (r0, r1) restricts ingest to a row block (the multi-process
 path, ``parallel.distributed``): the scene's arrays cover rows [r0, r1)
 while its NavConstants keep the whole grid's dims.  An array half takes its
-inputs as the file holds them (a numpy array or an h5py dataset) and reads
+inputs as the file holds them (a numpy array or an ``io.hdf5.Dataset``) and reads
 only the rows it needs: the block for channel 1, the flat grids and the
 first guess, and for channels 2/3 and the CTH the source rows that the
 block's regrid reads (``core.zoom.zoom_*_image_rows``).  The rows equal
@@ -36,6 +36,7 @@ import torch
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.normalize import band_min_max
 from octane_tpu_torch.core.zoom import zoom_in_image_rows, zoom_out_image_rows
+from octane_tpu_torch.io import hdf5
 from octane_tpu_torch.io.datamodel import NavConstants, Scene
 from octane_tpu_torch.io.native import requantize
 from octane_tpu_torch.nav.goes import F64, navcal_goes
@@ -71,14 +72,6 @@ def _tuple_set(tup, idx, val):
 _CAL_FIELDS = ("rad_scale", "rad_offset", "fk1", "fk2", "bc1", "bc2", "kap1")
 
 
-def _h5py():
-    try:
-        import h5py
-    except ImportError as exc:
-        raise RuntimeError("h5py is required for file ingest") from exc
-    return h5py
-
-
 def read_scene(path: str, cfg: OFConfig, donav: bool = True, channel: int = 1,
                scene: Scene = None, device="cuda", row_range=None) -> Scene:
     """Read one GOES-R L1b file into a Scene on ``device`` (the card unless
@@ -96,7 +89,7 @@ def read_scene(path: str, cfg: OFConfig, donav: bool = True, channel: int = 1,
         return _read_flat_grid(path, cfg, donav, device, row_range)
     if channel != 1 and scene is None:
         raise ValueError("channel 1 must be read first")
-    with _h5py().File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         rad = f["Rad"]
         x = np.asarray(f["x"][()], np.int16)
         y = np.asarray(f["y"][()], np.int16)
@@ -256,7 +249,7 @@ def _read_flat_grid(path: str, cfg: OFConfig, donav: bool, device, row_range=Non
     attributes (projected metres), a "grid_mapping" variable with lat1,
     lon0 and R (polar, degrees) or lon1 and R (mercator, degrees, turned
     into radians here), and "t" with its units."""
-    with _h5py().File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         ds = f["Rad"]
         h, w = ds.shape
         x = np.asarray(f["x"][()], np.int16)
@@ -317,7 +310,7 @@ def read_cth(path: str, scene: Scene, cfg: OFConfig, row_range=None) -> Scene:
     756-816): reads Cloud_Top_Height_Effective as float32, as it is in the
     file (fill values included), and regrids it onto ``scene`` (rows
     [r0, r1) of its grid with ``row_range``)."""
-    with _h5py().File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         return cth_onto_scene(f["Cloud_Top_Height_Effective"], scene, cfg,
                               scene.data.device, row_range)
 
@@ -355,7 +348,7 @@ def read_first_guess(path: str, scene: Scene, row_range=None) -> Scene:
     """First-guess winds ingest (oct_fgread, oct_fileread.cc:817-868): UFG
     and VFG, navigated winds in m/s on the image grid (rows [r0, r1) with
     ``row_range``)."""
-    with _h5py().File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         return first_guess_onto_scene(f["UFG"], f["VFG"], scene, scene.data.device, row_range)
 
 

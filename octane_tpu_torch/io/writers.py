@@ -3,10 +3,12 @@ oct_goeswrite, oct_filewrite.cc:17-349; oct_polarwrite, :353-563;
 oct_mercwrite, :565-704).
 
 Writes the same variables and attributes as the JAX package's writer, as
-HDF5 with netCDF-style dimension scales.  GOES grid: x, y (int16 +
-scale/offset), t, U/V (int16, 100*m/s), U_raw/V_raw (int16, 100*pixels),
-Upix/Vpix (-pd), CTP, Rad[2, 3] + planck/kappa scalars per channel,
-goes_imager_projection and optical_flow_settings.  Polar and mercator
+HDF5 with netCDF-style dimension scales, through the port's HDF5 codec
+(``io.hdf5``): contiguous and uncompressed, as the JAX package writes
+them.  GOES grid: x, y (int16 + scale/offset), t, U/V (int16, 100*m/s),
+U_raw/V_raw (int16, 100*pixels), Upix/Vpix (-pd), CTP, Rad[2, 3] +
+planck/kappa scalars per channel, goes_imager_projection and
+optical_flow_settings.  Polar and mercator
 grids (``_write_flat_product``): U/V as float64 m/s, Upix/Vpix when -pd is
 set or there are no m/s winds, Rad as float32, the grid's projection
 variable and the flat-grid settings.  An interpolated frame's product
@@ -24,13 +26,16 @@ import numpy as np
 import torch
 
 from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.io import hdf5
 from octane_tpu_torch.io.datamodel import Scene
 
 
 class RowBlockSource:
     """A 2-D product variable held as row blocks in part files: ``parts`` is
     [(path, row0, row1), ...] and each file holds the variable ``name`` for
-    its rows (parallel.distributed writes one part per process)."""
+    its rows (parallel.distributed writes one part per process).  The
+    writer copies each block into the product's contiguous dataset at its
+    rows, so the whole plane is never held."""
 
     def __init__(self, parts, name: str, shape, dtype):
         self.parts = list(parts)
@@ -40,9 +45,8 @@ class RowBlockSource:
 
     def blocks(self):
         """(row slice, block) per part, in the parts' order."""
-        h5py = _h5py()
         for path, r0, r1 in self.parts:
-            with h5py.File(path, "r") as f:
+            with hdf5.File(path, "r") as f:
                 yield slice(r0, r1), np.asarray(f[self.name][()], self.dtype)
 
 
@@ -64,14 +68,6 @@ def _np(data, dtype):
     if torch.is_tensor(data):
         data = data.detach().cpu().numpy()
     return np.asarray(data, dtype)
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as exc:
-        raise RuntimeError("h5py is required for product output") from exc
-    return h5py
 
 
 def _dimvar(f, name, data, scale, offset):
@@ -98,12 +94,11 @@ def _var2d(f, name, data, xdim, ydim, **attrs):
 
 def write_product(path: str, scene: Scene, cfg: OFConfig, interp: bool = False) -> str:
     """Write the flow product for ``scene``; returns the path."""
-    h5py = _h5py()
     if cfg.grid != "goes":
         return _write_flat_product(path, scene, cfg, interp)
     nav = scene.nav
     h, w = nav.ny, nav.nx
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         x = scene.x if scene.x is not None else np.arange(w, dtype=np.int16)
         y = scene.y if scene.y is not None else np.arange(h, dtype=np.int16)
         xd = _dimvar(f, "x", _np(x, np.int16), nav.x_scale, nav.x_offset)
@@ -214,7 +209,7 @@ def _write_flat_product(path: str, scene: Scene, cfg: OFConfig, interp: bool) ->
     nav = scene.nav
     polar = cfg.grid == "polar"
     gmap = "polar_orthonormal" if polar else "Mercator Sphere"
-    with _h5py().File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         xd = _dimvar(f, "x", _np(scene.x, np.int16), nav.x_scale, nav.x_offset)
         yd = _dimvar(f, "y", _np(scene.y, np.int16), nav.y_scale, nav.y_offset)
         t = f.create_dataset("t", data=np.float64(scene.t_interp if interp else scene.t))

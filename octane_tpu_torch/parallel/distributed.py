@@ -36,18 +36,11 @@ import torch
 import torch.distributed as dist
 
 from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.io import hdf5
 from octane_tpu_torch.parallel.halo import LocalExchange, ProcessExchange, stub
 from octane_tpu_torch.parallel.mesh import Mesh, band_rows, mesh_bands
 
 ELSEWHERE = torch.device("meta")     # the device of a band another process holds
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as exc:
-        raise RuntimeError("h5py is required for file ingest and part files") from exc
-    return h5py
 
 
 def process_index() -> int:
@@ -231,7 +224,7 @@ def distributed_variational_flow(geo1_local, geo2_local, global_shape, cfg: OFCo
 
 
 def _write_part(path: str, fields: dict, r0: int, r1: int) -> None:
-    with _h5py().File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         f.attrs["row0"] = r0
         f.attrs["row1"] = r1
         for name, arr in fields.items():
@@ -291,7 +284,7 @@ def run_pipeline_distributed(file1: str, file2: str, cfg: OFConfig, outdir: str 
     dev = own_device(mesh)
     rank = process_index()
 
-    with _h5py().File(file1, "r") as f:
+    with hdf5.File(file1, "r") as f:
         h, w = f["Rad"].shape
         x_full = np.asarray(f["x"][()], np.int16)
         y_full = np.asarray(f["y"][()], np.int16)
@@ -476,7 +469,7 @@ def _save_seq_checkpoint(checkpoint: str, index: int, u_blk, v_blk, r0: int, r1:
     one)."""
     path = _seq_ckpt_path(checkpoint)
     tmp = path + ".tmp"
-    with _h5py().File(tmp, "w") as f:
+    with hdf5.File(tmp, "w") as f:
         f.create_dataset("pair_index", data=np.int64(index))
         f.create_dataset("u_pix", data=_host(u_blk, np.float32))
         f.create_dataset("v_pix", data=_host(v_blk, np.float32))
@@ -495,7 +488,7 @@ def _load_seq_checkpoint(checkpoint: str, key: str, files, r0: int, r1: int):
     path = _seq_ckpt_path(checkpoint)
     if not os.path.exists(path):
         return None
-    with _h5py().File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         def _s(a):
             return a.decode() if isinstance(a, bytes) else str(a)
 
@@ -530,7 +523,7 @@ def run_sequence_distributed(files, cfg: OFConfig, outdir: str = "./",
 
     if len(files) < 2:
         raise ValueError("a sequence needs at least two frames")
-    with _h5py().File(files[0], "r") as f:
+    with hdf5.File(files[0], "r") as f:
         h, w = f["Rad"].shape
     mesh = distributed_mesh(cfg, device)
     exchange = distributed_exchange(mesh)

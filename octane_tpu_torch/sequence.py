@@ -9,7 +9,7 @@ oct_optical_flow.cc:52).  ``run_sequence`` makes it a mode of its own:
   pair's pixel flow through ``compute_flow(..., first_guess=...)`` (the
   flow after SRSAL when SRSAL is on; weighted into the energy by lambdac,
   the reference's hinting term);
-* after each pair the flow is checkpointed to HDF5 (h5py, imported on use),
+* after each pair the flow is checkpointed to HDF5 (the port's codec, ``io.hdf5``),
   so a long job resumes mid-sequence; the checkpoint holds a fingerprint of
   the settings and the frames done, and a resume with other settings or a
   reordered frame list is refused;
@@ -31,17 +31,10 @@ import numpy as np
 
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow.dispatcher import compute_flow
+from octane_tpu_torch.io import hdf5
 from octane_tpu_torch.io.readers import read_scene
 from octane_tpu_torch.io.writers import write_product
 from octane_tpu_torch.pipeline import SUFFIX, interpolate_sequence
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as exc:
-        raise RuntimeError("h5py is required for sequence checkpoints") from exc
-    return h5py
 
 
 def _cfg_key(cfg: OFConfig) -> str:
@@ -54,7 +47,7 @@ def _save_checkpoint(path: str, index: int, u, v, key: str, files_done: List[str
     ``path + ".tmp"`` and then moved over ``path``: a kill mid-save keeps
     the previous checkpoint."""
     tmp = path + ".tmp"
-    with _h5py().File(tmp, "w") as f:
+    with hdf5.File(tmp, "w") as f:
         f.create_dataset("pair_index", data=np.int64(index))
         f.create_dataset("u_pix", data=_host(u))
         f.create_dataset("v_pix", data=_host(v))
@@ -75,7 +68,7 @@ def _load_checkpoint(path: str, key: str = None, files: List[str] = None):
     wrote it; with ``files``, its frames must be a prefix of them."""
     if not os.path.exists(path):
         return None
-    with _h5py().File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         def _s(a):
             return a.decode() if isinstance(a, bytes) else str(a)
 

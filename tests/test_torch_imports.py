@@ -3,6 +3,9 @@
 * importing the port (every module, and the CLI) loads no jax and nothing
   of octane_tpu; chip_smoke.py, the profile tool, the NCCL probe and the
   test modules chip_smoke.py loads name neither anywhere in their imports;
+* the port reads and writes its files with its own HDF5 codec: no module
+  of it names h5py, and neither chip_smoke.py nor the test modules it
+  loads import it;
 * ``ops.build.load_kernels`` raises where nvcc is missing instead of
   handing back the plain path;
 * chip_smoke.py exits non-zero and prints no result without a CUDA device.
@@ -66,6 +69,40 @@ def test_smoke_imports_neither_jax_nor_octane_tpu(path):
             names.append(node.module)
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "octane_tpu")]
     assert not bad, f"{path} imports {bad}"
+
+
+def _imported(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return tree, names
+
+
+def test_port_source_names_no_h5py():
+    """No file of octane_tpu_torch imports h5py, defines an ``_h5py`` helper
+    or names h5py at all: every file goes through io/hdf5.py."""
+    pkg = os.path.join(ROOT, "octane_tpu_torch")
+    files = [os.path.join(d, n) for d, _, ns in os.walk(pkg) for n in ns if n.endswith(".py")]
+    assert os.path.join(pkg, "io", "hdf5.py") in files
+    for path in files:
+        tree, names = _imported(path)
+        assert not [n for n in names if n.split(".")[0] == "h5py"], path
+        assert not [node.name for node in ast.walk(tree)
+                    if isinstance(node, ast.FunctionDef) and node.name == "_h5py"], path
+        with open(path) as f:
+            assert "h5py" not in f.read(), f"{path} names h5py"
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/torch_fixtures.py",
+                                  "tests/torch_dist_worker.py"])
+def test_smoke_does_not_import_h5py(path):
+    _, names = _imported(os.path.join(ROOT, path))
+    assert not [n for n in names if n.split(".")[0] == "h5py"], f"{path} imports h5py"
 
 
 def test_load_kernels_raises_without_nvcc():
