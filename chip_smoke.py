@@ -33,7 +33,12 @@ Phases, one line each (any failure exits non-zero):
      solves vs the reference loop flow.cg.pcg_solve (rel <= 5e-4), quad and
      robust;
   5. the fused assembly vs its plain version (bit-exact, ||b||^2 partials
-     included) at 512^2 and 500x372, GNC steps al1 = 1, 0.5, 0;
+     included) at 512^2 and 500x372, GNC steps al1 = 1, 0.5, 0, in both
+     layouts: the SOR stack (assemble_cf) and the PCG form (assemble_pcg:
+     cf, b and the first-sum partials) on the whole image and on row
+     ranges (three bands from their slabs, an unaligned range); torch's
+     CUDA division probed (t / 5.0 as a product with the float reciprocal,
+     tensor / tensor IEEE-rounded as on the CPU);
   6. the SOR pass kernel (8 sweeps, the 6-sweep remainder, 1 sweep) vs its
      plain version, iterate and residual partials bit-exact, and 30-sweep
      solves of sor_solve_fused with the kernel vs with the plain pass
@@ -70,7 +75,9 @@ Phases, one line each (any failure exits non-zero):
      with its bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s);
      the warp (with F.grid_sample's time as its yardstick) and the SOR pass
      (8 sweeps and the 6-sweep remainder, quad and robust) are timed with
-     their bounds at every level's shape; each solver's 5424^2 flow is
+     their bounds at every level's shape, and so is the PCG form of the
+     assembly (quad and robust, its plain version at 5424^2); each
+     solver's 5424^2 flow is
      smoothed by SRSAL with a synthetic 5424^2 CTH (band 13: no regrid),
      kernel vs plain within rel 1e-5, timed beside its bound and the floor
      of one ex2 per tap at the SFU's rate;
@@ -98,7 +105,8 @@ Phases, one line each (any failure exits non-zero):
      and the occlusion mask equal, the image within 1e-4.
  13. multichannel: (a) at C = 2 and 3 channels (the bench pair plus
      channels of other seeds) the warp (K = 6C planes) and the fused
-     assembly bit-exact against their plain versions at every pyramid
+     assembly (both layouts) bit-exact against their plain versions at
+     every pyramid
      level's shape, 5424^2 .. 678^2, and at 1024^2 variational_flow's
      replay torch.equal to its first call and to the plain route, per
      relaxer; (b) a
@@ -109,8 +117,8 @@ Phases, one line each (any failure exits non-zero):
      relaxer compute_flow, kernels only, timed with CUDA events after a
      warm-up: each kernel of the relaxer launched, no plain version called,
      the interior median within 0.1 px of (2.4, 0), the pair's ms and peak
-     memory; the warp (K = 18) and the assembly (C = 3) timed at 5424^2
-     beside their bounds; (c) channel_onto_scene's zoom-in branch at a
+     memory; the warp (K = 18) and the assembly (C = 3, both layouts)
+     timed at 5424^2 beside their bounds; (c) channel_onto_scene's zoom-in branch at a
      2000^2 mesoscale shape (a 500^2 channel onto a band-2-like channel 1)
      and the zoom-out branch of (b) against the same calls on the CPU: rel
      <= 1e-5, the pseudo-counts equal;
@@ -129,11 +137,13 @@ Phases, one line each (any failure exits non-zero):
      equal (read through the codec) to an uninterrupted run's.
  16. mesh: (a) the band forms of the mesh path (warp_band, sor_pass_band at
      8 and 6 sweeps quad and robust, pcg_pass_a_band quad and robust,
-     bilateral_band) at 5424^2 on 4 bands of 1356 rows and on an uneven
+     bilateral_band; the PCG form of the assembly on each band's slab,
+     quad and robust) at 5424^2 on 4 bands of 1356 rows and on an uneven
      split (MESH_SPLIT), each against its plain version (bit-exact; the
      bilateral within rel 1e-5) and against the whole-image kernel's rows
      (bit-exact), timed on the 4 bands beside the bound of every band's
-     slab, ghost rows included; (b) the full-disk pair per relaxer through
+     slab, ghost rows included (the band warp also beside F.grid_sample
+     on each band's slab); (b) the full-disk pair per relaxer through
      the banded program (parallel.sharded.sharded_flow_program: a key's
      first call eager, its second the capture) on a (1, 4) mesh of cuda:0
      and sharded_pix2uv, kernels only, the replay in turns with the eager
@@ -214,7 +224,7 @@ The line before the last is the kernels' JSON record (launches on the
 pair and on the three-channel 5424^2 pair, max |d|, ms, plain ms, bound ms
 and what bounds it, library ms; the warp and the assembly also at C = 3;
 the band forms with their launches on the banded pairs and banded SRSAL,
-the assembly and pass B also ``mesh_launches``, and with the dist phase
+both assemblies and pass B also ``mesh_launches``, and with the dist phase
 ``dist_launches``, per process); the last line is
 {"ok": true, "device": {...}}.  A phase that fails, a codec error
 included, fails the run.  ``--only`` runs a subset,
@@ -256,6 +266,9 @@ KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
      "octane_tpu/ops/pallas/cg.py:141 _pass_b", "pcg_pass_b_robust"),
     ("assemble_cf", "assemble_cf", "octane_tpu_torch/csrc/assemble.cu",
      "octane_tpu/ops/pallas/assemble.py:52 _kernel", "assemble_cf_robust"),
+    ("assemble_pcg", "assemble_pcg", "octane_tpu_torch/csrc/assemble.cu",
+     "octane_tpu/ops/pallas/assemble.py:52 _kernel (PCG layout: the XLA-fused assembly of "
+     "octane_tpu/flow/variational.py:78-103)", "assemble_pcg_robust"),
     ("sor_pass", "sor_pass", "octane_tpu_torch/csrc/sor.cu",
      "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_pass_robust"),
     ("bilateral", "bilateral", "octane_tpu_torch/csrc/bilateral.cu",
@@ -727,6 +740,25 @@ def compare_assembly(inputs, al1):
             float((kcf - pcf).abs().max()))
 
 
+def compare_assembly_pcg(inputs, al1, rows=None):
+    """The PCG form of the assembly, kernel vs plain version, on ``rows``:
+    ((cf, b, partials) bit-equal, max |d| of cf and b)."""
+    from octane_tpu_torch.ops.assemble import assemble_pcg, assemble_pcg_plain
+
+    args = (*inputs, al1, *ASM_SCALARS, True, rows)
+    k, q = assemble_pcg(*args), assemble_pcg_plain(*args)
+    torch.cuda.synchronize()
+    return (all(torch.equal(a, b) for a, b in zip(k, q)),
+            max(float((a - b).abs().max()) for a, b in zip(k[:2], q[:2])))
+
+
+def pcg_assembly_bound(nplanes_in, quad, h, w):
+    """The PCG form's bound at (h, w): ``nplanes_in`` float planes (9C + 4)
+    and the two flag bytes read, 5 (quad) or 9 planes written, ~150
+    operations per pixel with the first sums; as the SOR layout's count."""
+    return bound(((nplanes_in + (5 if quad else 9)) * 4 + 2) * h * w, 150 * h * w)
+
+
 def compare_pass(x, cf, sweeps=(8, 6)):
     """The SOR pass kernel vs its plain version for each count of sweeps:
     (iterate and residual partials bit-equal, max |d|)."""
@@ -760,7 +792,16 @@ def phase_assemble(dev, report):
     t = torch.linspace(-4.0, 4.0, 4097, device=dev)
     probe = torch.equal(t / 5.0, t * float(np.float32(1.0) / np.float32(5.0)))
     say("assemble", f"torch CUDA t / 5.0 equals t * float32(1 / 5.0): {probe}")
-    worst = 0.0
+    # the PCG form's bu / a1: a tensor-by-tensor division, IEEE-rounded on
+    # the card as on the CPU
+    rng = np.random.default_rng(7)
+    num = torch.from_numpy((rng.normal(0, 1, 1 << 20) * 10.0 ** rng.uniform(-6, 6, 1 << 20))
+                           .astype(np.float32))
+    den = torch.from_numpy(rng.uniform(0.5, 4e3, 1 << 20).astype(np.float32))
+    div = torch.equal((num.to(dev) / den.to(dev)).cpu(), num / den)
+    say("assemble", f"torch CUDA tensor / tensor equals the CPU's IEEE division on 2^20 "
+                    f"pairs: {div}")
+    worst = worst_pcg = 0.0
     for (h, w) in ((512, 512), (500, 372)):
         g1, g2 = bench_images(h, w, dev)
         inputs = assembly_inputs(g1, sample_stack(g2), *noisy_flow(h, w, dev, 5))
@@ -771,7 +812,26 @@ def phase_assemble(dev, report):
                             f"{equal} (max|d| {err:.3e})")
             if not equal:
                 raise AssertionError(f"assemble {h}x{w} al1={al1}: kernel differs from plain")
+            # the PCG form: the whole image, three bands aligned to the 8-row
+            # blocks from their slabs (a ghost row beside each cut) and an
+            # unaligned range
+            cuts = sorted({0, 8 * -(-h // 24), 8 * -(-2 * h // 24), h})
+            ok, err = compare_assembly_pcg(inputs, al1)
+            for r0, r1 in list(zip(cuts[:-1], cuts[1:])) + [(3, h - 2)]:
+                a0, a1 = max(0, r0 - 1), min(h, r1 + 1)
+                slab = tuple(t[..., a0:a1, :].contiguous() for t in inputs)
+                for part, rows in ((slab, (r0 - a0, r1 - a0)), (inputs, (r0, r1))):
+                    eq, e = compare_assembly_pcg(part, al1, rows)
+                    ok, err = ok and eq, max(err, e)
+            worst_pcg = max(worst_pcg, err)
+            say("assemble", f"{h}x{w} al1={al1}: assemble_pcg (cf, b, first-sum partials) "
+                            f"bit-exact {ok} on the image and on rows {cuts} + [3, {h - 2}) "
+                            f"(max|d| {err:.3e})")
+            if not ok:
+                raise AssertionError(f"assemble {h}x{w} al1={al1}: assemble_pcg differs "
+                                     "from plain")
     report["assemble_cf"] = {"max_abs_err": worst}
+    report["assemble_pcg"] = {"max_abs_err": worst_pcg}
 
 
 def phase_sor(dev, report):
@@ -986,13 +1046,16 @@ def phase_srsal(dev, report):
             raise AssertionError("srsal: the CTH regrid differs from the CPU's")
 
 
-def grid_sample_fn(stack, u, v):
+def grid_sample_fn(stack, u, v, row0=0):
     """F.grid_sample on the warp's inputs (bilinear, border padding, corners
     aligned), the warp's yardstick: not the same function (no conditional
-    clamp past n - 1, no flags), and the port never calls it."""
+    clamp past n - 1, no flags), and the port never calls it.  With
+    ``row0``, (u, v) are the rows [row0, row0 + rows) of ``stack`` (a
+    band's rows in its slab, the band warp's yardstick)."""
     _, h, w = stack.shape
     cols = torch.arange(w, device=u.device, dtype=torch.float32)[None, :]
-    rows = torch.arange(h, device=u.device, dtype=torch.float32)[:, None]
+    rows = torch.arange(row0, row0 + u.shape[0], device=u.device,
+                        dtype=torch.float32)[:, None]
     grid = torch.stack([(cols + u) * (2.0 / (w - 1)) - 1.0,
                         (rows + v) * (2.0 / (h - 1)) - 1.0], dim=-1)[None]
     return lambda: torch.nn.functional.grid_sample(
@@ -1040,7 +1103,8 @@ def phase_fulldisk(dev, report):
     from octane_tpu_torch.flow.variational import (_coarse_to_fine, program_pool_bytes,
                                                    variational_flow)
     from octane_tpu_torch.nav.winds import pix2uv
-    from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+    from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
+                                               assemble_pcg_plain)
     from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                           pcg_pass_b_plain)
     from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain
@@ -1226,6 +1290,25 @@ def phase_fulldisk(dev, report):
                 bounds[f"sor_pass_{mode}"] = pb[8]
                 line += (f"; plain 8 sweeps {times[f'sor_pass_{mode}'][1]:.3f} ms; "
                          f"assemble_cf {ta[0]:.3f} ms (plain {ta[1]:.3f} ms)")
+            say("fulldisk", line)
+            # the PCG form of the assembly at the same inputs, timed beside
+            # its bound at every level (its plain version at 5424^2)
+            p_equal, ep = compare_assembly_pcg(inputs, al1)
+            report["assemble_pcg"]["max_abs_err"] = max(report["assemble_pcg"]["max_abs_err"],
+                                                        ep)
+            if not p_equal:
+                raise AssertionError(f"fulldisk: assemble_pcg at {lh}x{lw} {mode} differs "
+                                     "from its plain version")
+            pargs = (*inputs, al1, *ASM_SCALARS, True)
+            tp = cuda_ms(lambda: assemble_pcg(*pargs))
+            bp = pcg_assembly_bound(13, al1 == 1.0, lh, lw)
+            line = (f"{lh}x{lw} {mode}: assemble_pcg bit-exact True, {tp:.3f} ms (bound "
+                    f"{bp[0]:.3f} ms by {bp[1]}, {100 * bp[0] / tp:.1f} %)")
+            if top:
+                times[f"assemble_pcg_{mode}"] = (
+                    tp, cuda_ms(lambda: assemble_pcg_plain(*pargs), n=3))
+                bounds[f"assemble_pcg_{mode}"] = bp
+                line += f", plain {times[f'assemble_pcg_{mode}'][1]:.3f} ms"
             say("fulldisk", line)
 
     # SRSAL on each solver's 5424^2 flow with a synthetic full-disk CTH (band
@@ -1544,7 +1627,8 @@ def phase_multichannel(dev, report):
     from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
     from octane_tpu_torch.io.readers import (channel_onto_scene, scene_from_goes_arrays,
                                              set_goes_grid)
-    from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+    from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
+                                               assemble_pcg_plain)
     from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 
     fx = load_tests_module("torch_fixtures")
@@ -1580,11 +1664,14 @@ def phase_multichannel(dev, report):
                 equal, ea = compare_assembly(inputs, al1)
                 report["assemble_cf"]["max_abs_err"] = max(
                     report["assemble_cf"]["max_abs_err"], ea)
-                if not equal:
-                    raise AssertionError(f"multichannel: assemble_cf C={c} {lh}x{lw} "
+                p_equal, ep = compare_assembly_pcg(inputs, al1)
+                report["assemble_pcg"]["max_abs_err"] = max(
+                    report["assemble_pcg"]["max_abs_err"], ep)
+                if not (equal and p_equal):
+                    raise AssertionError(f"multichannel: the assembly C={c} {lh}x{lw} "
                                          f"al1={al1} differs from its plain version")
-            say("multichannel", f"C={c} {lh}x{lw}: warp (K={6 * c}) and assemble_cf "
-                                f"(al1 1, 0.5, 0) bit-exact True")
+            say("multichannel", f"C={c} {lh}x{lw}: warp (K={6 * c}), assemble_cf and "
+                                f"assemble_pcg (al1 1, 0.5, 0) bit-exact True")
             del kw, pw, inputs, stack
         del g1, g2
         s1, s2 = multichannel_pair(c, SECTOR, SECTOR, dev)
@@ -1668,11 +1755,15 @@ def phase_multichannel(dev, report):
     # 9C + 4 planes and the two flag bytes in, 10 planes out; ~100
     # operations per pixel and ~50 per channel
     ba = bound((9 * 3 + 4 + 10) * plane + 2 * h * w, (100 + 50 * 3) * h * w)
+    tp = (cuda_ms(lambda: assemble_pcg(*args)), cuda_ms(lambda: assemble_pcg_plain(*args), n=3))
+    bp = pcg_assembly_bound(9 * 3 + 4, False, h, w)
     say("multichannel", f"{h}x{w} C=3: warp_bilinear x18 {tw[0]:.3f} ms (bound {bw[0]:.3f} ms, "
                         f"{bw[1]}; plain {tw[1]:.3f} ms; F.grid_sample {tg:.3f} ms); "
                         f"assemble_cf robust {ta[0]:.3f} ms (bound {ba[0]:.3f} ms, {ba[1]}; "
-                        f"plain {ta[1]:.3f} ms)")
-    report["_c3"] = {"warp_bilinear": (tw, bw, tg), "assemble_cf": (ta, ba, None)}
+                        f"plain {ta[1]:.3f} ms); assemble_pcg robust {tp[0]:.3f} ms (bound "
+                        f"{bp[0]:.3f} ms, {bp[1]}; plain {tp[1]:.3f} ms)")
+    report["_c3"] = {"warp_bilinear": (tw, bw, tg), "assemble_cf": (ta, ba, None),
+                     "assemble_pcg": (tp, bp, None)}
     del stack, inputs, args, flows
     torch.cuda.empty_cache()
 
@@ -2087,7 +2178,7 @@ def phase_mesh(dev, report):
     from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
     from octane_tpu_torch.flow.variational import variational_flow
     from octane_tpu_torch.nav.winds import pix2uv
-    from octane_tpu_torch.ops.assemble import assemble_cf
+    from octane_tpu_torch.ops.assemble import assemble_cf, assemble_pcg
     from octane_tpu_torch.ops.bilateral import (band_slab, bilateral, bilateral_band,
                                                 bilateral_band_plain)
     from octane_tpu_torch.ops.pcg import pcg_pass_a, pcg_pass_a_band, pcg_pass_a_band_plain
@@ -2135,6 +2226,9 @@ def phase_mesh(dev, report):
         wargs.append((stack[:, s0:s1].contiguous(), u[r0:r1], v[r0:r1], s0, r0, h))
     times["warp_band"] = (cuda_ms(lambda: [warp_band(*a) for a in wargs]),
                           cuda_ms(lambda: [warp_band_plain(*a) for a in wargs], n=3))
+    fns = [grid_sample_fn(sl, ub, vb, r0 - s0) for sl, ub, vb, s0, r0, _ in wargs]
+    library = {"warp_band": cuda_ms(lambda: [f() for f in fns])}     # the yardstick
+    del fns
     rows_in = sum(a[0].shape[1] for a in wargs)
     # u, v and 6 planes of each slab in, 6 samples and 2 flag bytes out
     bounds["warp_band"] = bound((2 * h * w + 6 * rows_in * w) * 4 + 6 * plane + 2 * h * w,
@@ -2144,6 +2238,25 @@ def phase_mesh(dev, report):
     inputs = assembly_inputs(g1, stack, u, v)
     for al1 in (1.0, 0.5):
         mode = "quad" if al1 == 1.0 else "robust"
+        # the PCG form on each band's slab (its rows and a ghost row beside
+        # each cut), as the banded PCG round calls it
+        whole = assemble_pcg(*inputs, al1, *ASM_SCALARS, True)
+        for name, bands in splits.items():
+            ok = True
+            for r0, r1 in bands:
+                a0, a1 = max(0, r0 - 1), min(h, r1 + 1)
+                part = tuple(t[..., a0:a1, :].contiguous() for t in inputs)
+                rows = (r0 - a0, r1 - a0)
+                eq, _ = compare_assembly_pcg(part, al1, rows)
+                k = assemble_pcg(*part, al1, *ASM_SCALARS, True, rows)
+                ok = ok and eq and all(torch.equal(a, c[:, r0:r1])
+                                       for a, c in zip(k[:2], whole[:2]))
+                del part, k
+            say("mesh", f"assemble_pcg {mode} {name}: bit-exact vs plain (partials included) "
+                        f"and vs the whole image's rows {ok}")
+            if not ok:
+                raise AssertionError(f"mesh: assemble_pcg ({mode}, {name}) differs")
+        del whole
         cf, _ = assemble_cf(*inputs, al1, *ASM_SCALARS, True)
         x = 0.1 * torch.stack([u, v])
         for sweeps in (8, 6):
@@ -2246,9 +2359,10 @@ def phase_mesh(dev, report):
     bounds["bilateral_band"] = bound(3 * rows_in * w * 4 + 2 * plane, 10 * h * w * 37 * 37)
     del bargs, ref
     for k, (ms, plain_ms) in times.items():
+        lib = f", F.grid_sample {library[k]:.3f} ms" if k in library else ""
         say("mesh", f"{k} x{MESH_BANDS} bands at {h}x{w}: {ms:.3f} ms (bound "
                     f"{bounds[k][0]:.3f} ms by {bounds[k][1]}, {100 * bounds[k][0] / ms:.1f} %), "
-                    f"plain {plain_ms:.3f} ms")
+                    f"plain {plain_ms:.3f} ms{lib}")
     torch.cuda.empty_cache()
 
     # (b) the GOES full-disk pair on a (1, 4) mesh of cuda:0 per relaxer,
@@ -2426,7 +2540,8 @@ def phase_mesh(dev, report):
     else:
         say("mesh", "one card: the pair with one band per card (the banded program captured "
                     "across cards) is not run")
-    report["_mesh"] = {"launches": launches, "times": times, "bounds": bounds, "errs": errs}
+    report["_mesh"] = {"launches": launches, "times": times, "bounds": bounds, "errs": errs,
+                       "library": library}
     say("mesh", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2934,8 +3049,8 @@ def main(argv=None):
                 (ms, plain_ms), (b_ms, b_by), lib = report["_c3"][name]
                 entry.update(c3_ms=ms, c3_plain_ms=plain_ms, c3_bound_ms=b_ms,
                              c3_bound_by=b_by, c3_library_ms=lib)
-            if "_mesh" in report and wrapper in ("assemble_cf", "pcg_pass_b"):
-                # unchanged kernels that the banded pair launches on each band
+            if "_mesh" in report and wrapper in ("assemble_cf", "assemble_pcg", "pcg_pass_b"):
+                # kernels that the banded pair launches on each band as they are
                 solver = "sor" if wrapper == "assemble_cf" else "pcg"
                 entry["mesh_launches"] = report["_mesh"]["launches"][solver][wrapper][0]
                 if "_dist" in report:
@@ -2949,7 +3064,8 @@ def main(argv=None):
                 entry = {"name": name, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": mesh["launches"][path][name][0],
                          "max_abs_err": mesh["errs"][name], "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": mesh["library"].get(name)}
                 if "_dist" in report:
                     entry["dist_launches"] = dist_launches(report, name, path)
                 entries.append(entry)

@@ -8,7 +8,8 @@ the data and smoothness terms of the assembly loop (:611-1097) in the
 JAX package's operation order.  In the quadratic GNC step (al1 == 1) the
 four off-diagonals are the Python scalar -1.0.  ``assemble_samples`` is the
 same assembly on given warp outputs; ``ops.assemble`` builds the SOR
-coefficient stack from it and holds its CUDA kernel to it.
+coefficient stack and the PCG system from it and holds its CUDA kernels
+to it.
 """
 
 from __future__ import annotations

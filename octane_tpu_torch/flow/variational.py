@@ -3,9 +3,11 @@ counterpart of octane_tpu.flow.variational.
 
 The pyramid is a Python loop over levels; at each level ``solve_level``
 runs GNC x liters rounds of warp -> assemble -> solve.  With
-``solver="pcg"`` (the default) a round is the warp, the eager assembly
-(flow.stencil) and the Jacobi-PCG passes; with ``solver="sor"`` it is the
-warp, the fused assembly (ops.assemble) and the multi-sweep red-black SOR
+``solver="pcg"`` (the default) a round is the warp, the fused assembly in
+the PCG layout (``ops.assemble.assemble_pcg``: the system and its first
+sums) and the Jacobi-PCG passes (``ops.pcg.pcg_solve_cf``); with
+``solver="sor"`` it is the warp, the fused assembly in the SOR layout
+(``ops.assemble.assemble_cf``) and the multi-sweep red-black SOR
 (ops.sor), as octane_tpu's fused chain on one device.  Every kernel goes
 through its wrapper in ``ops`` at every level: the CUDA kernel on the card,
 the plain version on the CPU.  The internal ``plain`` argument of
@@ -48,11 +50,11 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.core.zoom import (clear_flow_zoom_matrices, pyramid_downsample,
                                         zoom_in_flow, zoom_size)
-from octane_tpu_torch.flow.stencil import assemble
-from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
+                                           assemble_pcg_plain)
 from octane_tpu_torch.ops.guard import body_pool, recording
 from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
-                                      pcg_pass_b_plain, pcg_solve_fused)
+                                      pcg_pass_b_plain, pcg_solve_cf)
 from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain, sor_solve_cf
 from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 
@@ -74,6 +76,7 @@ _PLAIN_WARP = _counted_plain(warp, warp_bilinear_dense)
 _PLAIN_PASSES = (_counted_plain(pcg_pass_a, pcg_pass_a_plain),
                  _counted_plain(pcg_pass_b, pcg_pass_b_plain))
 _PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
+_PLAIN_ASSEMBLE_PCG = _counted_plain(assemble_pcg, assemble_pcg_plain)
 _PLAIN_PASS = _counted_plain(sor_pass, sor_pass_plain)
 
 
@@ -116,10 +119,10 @@ def solve_level(
     warp_fn = _PLAIN_WARP if plain else warp
     alpha, lam_over_alpha, lambdac = _f32(alpha), _f32(lam_over_alpha), _f32(lambdac)
 
+    # the level stack [geo1, gx1, gy1] is loop-invariant
+    g1s = torch.cat([g1, gx1, gy1], dim=0).contiguous()
     if solver == "sor":
-        # octane_tpu's fused chain (variational.py:125-178): the level stack
-        # [geo1, gx1, gy1] is loop-invariant
-        g1s = torch.cat([g1, gx1, gy1], dim=0).contiguous()
+        # octane_tpu's fused chain (variational.py:125-178)
         asm_fn = _PLAIN_ASSEMBLE if plain else assemble_cf
         pass_fn = _PLAIN_PASS if plain else sor_pass
 
@@ -130,13 +133,14 @@ def solve_level(
             return sor_solve_cf(cf, torch.sum(partials), tol, cgiters,
                                 sor_omega, pass_fn, count)
     else:
+        asm_fn = _PLAIN_ASSEMBLE_PCG if plain else assemble_pcg
         passes = _PLAIN_PASSES if plain else (pcg_pass_a, pcg_pass_b)
 
         def round_(u, v, al1):
-            sysm = assemble(g1, g2, gx1, gy1, gx2, gy2, gxx, gxy, gyy,
-                            u, v, uhat, vhat, al1, alpha, lam_over_alpha,
-                            lambdac, dozim, warp_fn=warp_fn, stack=stack)
-            return pcg_solve_fused(sysm, tol, cgiters, *passes, count)
+            samples, bc_x, bc_y = warp_fn(stack, u, v)
+            cf, b, partials = asm_fn(samples, bc_x, bc_y, g1s, u, v, uhat, vhat,
+                                     al1, lambdac, alpha, lam_over_alpha, dozim)
+            return pcg_solve_cf(cf, b, partials, tol, cgiters, *passes, count)
 
     for al1 in gnc_rounds(gnc_steps, liters):
         du, dv = round_(u, v, al1)

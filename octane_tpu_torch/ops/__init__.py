@@ -1,7 +1,7 @@
 """Kernel wrappers: the bilinear warp (``ops.warp``), the two Jacobi-PCG
-passes (``ops.pcg``), the fused assembly (``ops.assemble``), the SOR
-pass (``ops.sor``) and the SRSAL bilateral smoother
-(``ops.bilateral``), built by ``ops.build``.
+passes (``ops.pcg``), the fused assembly in the SOR and the PCG layouts
+(``ops.assemble``), the SOR pass (``ops.sor``) and the SRSAL bilateral
+smoother (``ops.bilateral``), built by ``ops.build``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors, and counts both.  The solver's internal
@@ -10,7 +10,8 @@ the plain versions to the same ``plain_calls`` counters.  ``PATHS`` names
 the wrappers each relaxer's solve goes through, and the one SRSAL
 smoothing goes through, on one device and (``mesh_*``) on the row bands of
 the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
-``pcg_pass_a_band`` and ``bilateral_band``.
+``pcg_pass_a_band`` and ``bilateral_band`` (the assembly takes a band's
+rows itself).
 
 A pair reports its device count of PCG iterations or SOR passes through
 ``record_pair``; a replayed pair (flow.variational.FlowProgram,
@@ -34,13 +35,14 @@ from octane_tpu_torch.ops import warp as _warp
 
 WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "pcg_pass_b": _pcg.pcg_pass_b, "assemble_cf": _assemble.assemble_cf,
+            "assemble_pcg": _assemble.assemble_pcg,
             "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral,
             "warp_band": _warp.warp_band, "pcg_pass_a_band": _pcg.pcg_pass_a_band,
             "sor_pass_band": _sor.sor_pass_band, "bilateral_band": _bilateral.bilateral_band}
-PATHS = {"pcg": ("warp", "pcg_pass_a", "pcg_pass_b"),
+PATHS = {"pcg": ("warp", "assemble_pcg", "pcg_pass_a", "pcg_pass_b"),
          "sor": ("warp", "assemble_cf", "sor_pass"),
          "srsal": ("bilateral",),
-         "mesh_pcg": ("warp_band", "pcg_pass_a_band", "pcg_pass_b"),
+         "mesh_pcg": ("warp_band", "assemble_pcg", "pcg_pass_a_band", "pcg_pass_b"),
          "mesh_sor": ("warp_band", "assemble_cf", "sor_pass_band"),
          "mesh_srsal": ("bilateral_band",)}
 

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "octane_pcg_pass_a_band": (I, [P] * 12 + [I] * 5 + [P]),
     "octane_pcg_pass_b": (I, [P] * 6 + [I] * 2 + [P]),
     "octane_assemble_cf": (I, [P] * 10 + [I] * 5 + [F] * 5 + [P]),
+    "octane_assemble_pcg": (I, [P] * 11 + [I] * 7 + [F] * 5 + [P]),
     "octane_sor_pass": (I, [P] * 4 + [I] * 6 + [F, P]),
     "octane_sor_pass_band": (I, [P] * 4 + [I] * 6 + [L] + [I] * 4 + [F, P]),
     "octane_bilateral": (I, [P] * 5 + [I] * 3 + [F, P]),

@@ -34,12 +34,16 @@ runs unchanged on each band.
 Passes A and B and pass A's band form take ``out=`` buffers for their
 planes, which the drivers fix before their loops.
 
-``pcg_solve_fused`` is the driver (cg.py:271): stop when ||r||^2 <= tol or
-after ``iters`` iterations, then the deferred x += alpha p.  Each iteration
-is a body guarded by ``resid > tol`` (ops.guard.Guard): an IF node of the
-graph while flow.variational's program captures the pair, a host read
-otherwise (``pcg_solve_fused.host_syncs`` counts those).  The loop walks
-all ``iters`` bodies and never breaks.
+``pcg_solve_cf(cf, b, partials, tol, iters)`` is the driver (cg.py:271) on
+a stacked system and its first sums (``initial_partials``, or the PCG form
+of the assembly kernel, ``ops.assemble.assemble_pcg``): stop when ||r||^2
+<= tol or after ``iters`` iterations, then the deferred x += alpha p.  Each
+iteration is a body guarded by ``resid > tol`` (ops.guard.Guard): an IF
+node of the graph while flow.variational's program captures the pair, a
+host read otherwise (``pcg_solve_fused.host_syncs`` counts those).  The
+loop walks all ``iters`` bodies and never breaks.  ``pcg_solve_fused(sysm,
+...)`` is its front for a flow.stencil.StencilSystem: it stacks the system
+(``stack_system``) and takes the first sums.
 """
 
 from __future__ import annotations
@@ -80,6 +84,17 @@ def block_partials(part: torch.Tensor) -> torch.Tensor:
     for k in range(1, BLOCK_Y):
         s = s + x[:, k]
     return s.reshape(-1)
+
+
+def stack_system(sysm, rows=slice(None)):
+    """(cf, b) of a flow.stencil.StencilSystem's ``rows`` (a slice): cf the
+    (3|7, rows, W) coefficient planes [a1, a4, a2(, a5, a6, a7, a8)] (a
+    scalar a5 marks the quadratic GNC step), b the (2, rows, W) [bu, bv]."""
+    planes = [sysm.a1, sysm.a4, sysm.a2]
+    if torch.is_tensor(sysm.a5):
+        planes += [sysm.a5, sysm.a6, sysm.a7, sysm.a8]
+    return (torch.stack([t[rows] for t in planes]),
+            torch.stack([sysm.bu[rows], sysm.bv[rows]]))
 
 
 def initial_partials(cf, b: torch.Tensor) -> torch.Tensor:
@@ -278,14 +293,17 @@ for _fn in (pcg_pass_a, pcg_pass_a_band, pcg_pass_b):
     _fn.plain_calls = 0
 
 
-def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
-                    count=None):
+def pcg_solve_cf(cf, b, partials, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
+                 count=None):
     """Solve A x = b from x = 0 with the two passes; returns (du, dv).
 
-    ``sysm`` is a flow.stencil.StencilSystem; a scalar ``a5`` marks the
-    quadratic GNC step (off-diagonals -1).  ``pass_a``/``pass_b`` default to
-    the wrappers; the solver's plain route passes the plain versions.
-    ``count``, an int32 device scalar, gains the iterations that ran.
+    ``cf`` is the (3|7, h, w) coefficient stack (3 planes: the quadratic
+    GNC step, off-diagonals -1), ``b`` the (2, h, w) right-hand side, which
+    serves as r's first set and is overwritten, and ``partials`` the (n, 3)
+    block partials of the first sums (``initial_partials``).
+    ``pass_a``/``pass_b`` default to the wrappers; the solver's plain route
+    passes the plain versions.  ``count``, an int32 device scalar, gains
+    the iterations that ran.
 
     The state lives in buffers fixed before the loop, so that a skipped
     body leaves nothing stale: x, p and r ping-pong between two sets
@@ -295,15 +313,9 @@ def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
     parity.  Ping-pong rather than a copy back keeps each iteration's
     traffic that of its two passes.
     """
-    quad = not torch.is_tensor(sysm.a5)
-    planes = [sysm.a1, sysm.a4, sysm.a2]
-    if not quad:
-        planes += [sysm.a5, sysm.a6, sysm.a7, sysm.a8]
-    cf = torch.stack(planes)
-    b = torch.stack([sysm.bu, sysm.bv])
-    part = initial_partials(cf, b)
-    gammas = [torch.sum(part[:, 0]) + torch.sum(part[:, 1]), torch.empty_like(part[0, 0])]
-    resid = torch.sum(part[:, 2])
+    gammas = [torch.sum(partials[:, 0]) + torch.sum(partials[:, 1]),
+              torch.empty_like(partials[0, 0])]
+    resid = torch.sum(partials[:, 2])
     xs = [torch.zeros_like(b), torch.empty_like(b)]
     ps = [torch.zeros_like(b), torch.empty_like(b)]
     rs = [b, torch.empty_like(b)]
@@ -331,6 +343,16 @@ def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
     if count is not None:
         count.add_(ran)
     return x[0], x[1]
+
+
+def pcg_solve_fused(sysm, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
+                    count=None):
+    """``pcg_solve_cf`` of a flow.stencil.StencilSystem ``sysm``: its planes
+    stacked (``stack_system``) and the first sums taken
+    (``initial_partials``); returns (du, dv).  Its ``host_syncs`` counts
+    the host reads of every PCG driver's stopping test."""
+    cf, b = stack_system(sysm)
+    return pcg_solve_cf(cf, b, initial_partials(cf, b), tol, iters, pass_a, pass_b, count)
 
 
 pcg_solve_fused.host_syncs = 0

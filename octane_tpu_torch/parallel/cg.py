@@ -26,7 +26,7 @@ import torch
 
 from octane_tpu_torch.ops.guard import Gate, Guard
 from octane_tpu_torch.ops.pcg import (initial_partials, num_partials, pcg_pass_a_band,
-                                      pcg_pass_b, pcg_solve_fused)
+                                      pcg_pass_b, pcg_solve_fused, stack_system)
 from octane_tpu_torch.parallel.halo import LocalExchange, stub
 from octane_tpu_torch.parallel.sor import homes, one_body, split_rows
 
@@ -44,18 +44,21 @@ def _ghost_reqs(bands, outs):
 
 
 def solve_bands(bands, true_h: int, tol: float, iters: int, exchange=None,
-                pass_a=pcg_pass_a_band, pass_b=pcg_pass_b, count=None):
+                pass_a=pcg_pass_a_band, pass_b=pcg_pass_b, count=None, first=None):
     """PCG from x = 0 on banded systems; returns the bands' (2, hb, W)
     (du, dv) rows, None for another process's band.
 
     ``bands`` is [(r0, cf, b), ...] over every band in row order: the band's
     (3|7, hb, W) coefficient rows [a1, a4, a2(, a5, a6, a7, a8)] and its
     (2, hb, W) right-hand side, on its device, or ``halo.stub``s for a band
-    of another process.  The loop is ops.pcg.pcg_solve_fused's, each
-    iteration guarded by ||r||^2 > tol (ops.guard.Guard), and so is
-    its state: each band's x, p and r ping-pong between two sets fixed
-    before the loop (iteration k reads set k % 2 and writes the other), one
-    Ap per band, and on every device of the process's bands
+    of another process.  ``first`` gives each band's (n, 3) block partials
+    of the first sums (ops.pcg.initial_partials of its rows; None for
+    another process's band), as the PCG form of the assembly kernel
+    returns them; without it they are computed here.  The loop is
+    ops.pcg.pcg_solve_cf's, each iteration guarded by ||r||^2 > tol
+    (ops.guard.Guard), and so is its state: each band's x, p and r
+    ping-pong between two sets fixed before the loop (iteration k reads set
+    k % 2 and writes the other), one Ap per band, and on every device of the process's bands
     (parallel.sor.homes) its own [alpha, beta] (``ab``), gamma between two
     scalars and ||r||^2, each computed there from the same joined partials;
     the iterations that ran, counted on the device, pick the final set,
@@ -99,12 +102,11 @@ def solve_bands(bands, true_h: int, tol: float, iters: int, exchange=None,
     gr, gp = new_ghosts(), new_ghosts()
 
     b = [None if cf.is_meta else bb for _, cf, bb in bands]
-    # the single-device solve's first sums (ops.pcg.pcg_solve_fused), on
-    # every device
-    first = [initial_partials(cfs[i], b[i]) for i in mine]
-    gammas, resids = {}, {}
+    if first is None:       # the single-device solve's first sums (ops.pcg.pcg_solve_cf)
+        first = [None if bb is None else initial_partials(cf, bb) for cf, bb in zip(cfs, b)]
+    gammas, resids = {}, {}     # on every device
     for d in devs:
-        part = exchange.join(first, d, 0, ("init", *key))
+        part = exchange.join([first[i] for i in mine], d, 0, ("init", *key))
         gammas[d] = [torch.sum(part[:, 0]) + torch.sum(part[:, 1]), torch.empty((), device=d)]
         resids[d] = torch.sum(part[:, 2])
 
@@ -179,16 +181,6 @@ def solve_bands(bands, true_h: int, tol: float, iters: int, exchange=None,
     return out
 
 
-def system_bands(sysm, rows):
-    """(cf, b) of a flow.stencil.StencilSystem's rows (a slice): the planes
-    pcg_solve_fused stacks."""
-    planes = [sysm.a1, sysm.a4, sysm.a2]
-    if torch.is_tensor(sysm.a5):
-        planes += [sysm.a5, sysm.a6, sysm.a7, sysm.a8]
-    return (torch.stack([t[rows] for t in planes]),
-            torch.stack([sysm.bu[rows], sysm.bv[rows]]))
-
-
 def make_sharded_fused_cg(mesh):
     """cg_fn(sysm, tol, iters) -> (du, dv): the banded PCG of a whole
     flow.stencil.StencilSystem over the mesh's bands (octane_tpu's
@@ -197,7 +189,7 @@ def make_sharded_fused_cg(mesh):
 
     def cg_fn(sysm, tol, iters):
         h = sysm.bu.shape[0]
-        cf, b = system_bands(sysm, slice(None))
+        cf, b = stack_system(sysm)
         bands = [(r0, c, bb.to(c.device))
                  for (r0, c), (_, bb) in zip(split_rows(cf, mesh), split_rows(b, mesh))]
         x = solve_bands(bands, h, tol, iters, exchange)

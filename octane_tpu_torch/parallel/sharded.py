@@ -13,8 +13,9 @@ change: each band holds them on its rows and one ghost row beside each
 cut, the assembly's stencil, and exchanges those once per round.  A round
 on a band is the band form of the warp (``ops.warp.warp_band``), the
 assembly on the band's rows plus the stencil's (the SOR path's
-``ops.assemble.assemble_cf`` kernel, or the eager ``flow.stencil``
-assembly of the PCG path) cropped to the band, and the banded solve
+``ops.assemble.assemble_cf`` kernel, cropped to the band; the PCG path's
+``ops.assemble.assemble_pcg`` kernel, which writes the band's rows and
+their first sums only), and the banded solve
 (``parallel.sor.solve_bands`` / ``parallel.cg.solve_bands``).  Between
 levels each band zooms in the coarse rows its Catmull-Rom taps read
 (``core.zoom.zoom_in_flow_rows``).  Every elementwise step, the warp, the
@@ -95,10 +96,10 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.core.zoom import (flow_rows, pyramid_downsample_rows, pyramid_rows,
                                         zoom_in_flow_rows)
-from octane_tpu_torch.flow.stencil import assemble_samples
 from octane_tpu_torch.flow.variational import (CapturedPair, _counted_plain, _device, _f32,
                                                gnc_rounds, level_schedule)
-from octane_tpu_torch.ops.assemble import assemble_cf, assemble_cf_plain
+from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
+                                           assemble_pcg_plain)
 from octane_tpu_torch.ops.guard import decide, when
 from octane_tpu_torch.ops.pcg import (pcg_pass_a_band, pcg_pass_a_band_plain, pcg_pass_b,
                                       pcg_pass_b_plain)
@@ -111,6 +112,7 @@ from octane_tpu_torch.parallel.mesh import mesh_bands
 
 _PLAIN_WARP = _counted_plain(warp_band, warp_band_plain)
 _PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
+_PLAIN_ASSEMBLE_PCG = _counted_plain(assemble_pcg, assemble_pcg_plain)
 _PLAIN_PASS = _counted_plain(sor_pass_band, sor_pass_band_plain)
 _PLAIN_PASSES = (_counted_plain(pcg_pass_a_band, pcg_pass_a_band_plain),
                  _counted_plain(pcg_pass_b, pcg_pass_b_plain))
@@ -418,22 +420,22 @@ def _sor_round(bands, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain, count
 
 
 def _pcg_round(bands, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain, count):
-    systems = []
+    asm_fn = _PLAIN_ASSEMBLE_PCG if plain else assemble_pcg
+    systems, first = [], []
     for b in bands:
         if not b.local:
             systems.append((b.r0, stub(b.r1 - b.r0), None))
+            first.append(None)
             continue
         samples, bc_x, bc_y = b.warped
-        g1s = b.g1s
-        c = g1s.shape[0] // 3
-        sysm = assemble_samples(samples, bc_x, bc_y, g1s[:c], g1s[c:2 * c], g1s[2 * c:],
-                                b.uv[0], b.uv[1], b.uhat, b.vhat, al1, alpha, lam_a,
-                                lambdac, cfg.dozim)
-        cf, rhs = band_cg.system_bands(sysm, slice(b.r0 - b.a0, b.r1 - b.a0))
+        cf, rhs, partials = asm_fn(samples, bc_x, bc_y, b.g1s, b.uv[0], b.uv[1], b.uhat,
+                                   b.vhat, al1, lambdac, alpha, lam_a, cfg.dozim,
+                                   (b.r0 - b.a0, b.r1 - b.a0))
         systems.append((b.r0, cf, rhs))
+        first.append(partials)
     passes = _PLAIN_PASSES if plain else (pcg_pass_a_band, pcg_pass_b)
     return band_cg.solve_bands(systems, h, cfg.cg_tol, cfg.cgiters, exchange, *passes,
-                               count=count)
+                               count=count, first=first)
 
 
 _sharded_program_cache: dict = {}

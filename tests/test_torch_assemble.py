@@ -3,9 +3,12 @@ against octane_tpu's fused Pallas assembly ``make_fused_assemble`` in
 interpret mode (cropped to the true grid) and against its XLA chain
 ``assemble`` + ``build_cf`` + ``sor_rdet``, on the same warp samples, in
 both GNC modes (tests/test_fused_assemble.py).  Budget: |d| / (|want| + 1)
-<= 2e-6 per coefficient, ||b||^2 rel <= 1e-6 (docs/PARITY.md:93).  The
-CUDA kernel is held against the plain version on the card
-(tests/test_torch_cuda.py).
+<= 2e-6 per coefficient, ||b||^2 rel <= 1e-6 (docs/PARITY.md:93).  The PCG
+form (``assemble_pcg``) equals the eager assembly, stacked, with
+``initial_partials`` bit for bit, on the whole image and on row ranges,
+and octane_tpu's ``assemble`` within 2e-6 of each plane's max (its first
+sums within 1e-6).  The CUDA kernels are held against the plain versions
+on the card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ from octane_tpu.ops.pallas.sor import build_cf as jax_build_cf
 from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.flow.stencil import assemble
 from octane_tpu_torch.ops import assemble as asm
-from octane_tpu_torch.ops.pcg import block_partials
+from octane_tpu_torch.ops.pcg import block_partials, initial_partials, num_partials
 from octane_tpu_torch.ops.sor import build_cf
 from octane_tpu_torch.ops.warp import warp_bilinear_dense
 
@@ -129,3 +132,112 @@ def test_wrapper_counts_and_checks():
     for i, t in bad.items():
         with pytest.raises((ValueError, TypeError)):
             asm.assemble_cf(*args[:i], t, *args[i + 1:], 0.5, LAMBDAC, ALPHA, LAM_A)
+
+
+# ---------------------------------------------------------------------------
+# the PCG form: (cf, b, first-sum partials) of a row range
+# ---------------------------------------------------------------------------
+
+def _pcg(d, al1, dozim=True, rows=None, fields=None):
+    f = d if fields is None else fields
+    return asm.assemble_pcg(f["samples"], f["bc_x"], f["bc_y"], f["g1s"], f["u"], f["v"],
+                            f["uhat"], f["vhat"], al1, LAMBDAC, ALPHA, LAM_A, dozim, rows)
+
+
+def _todays_route(d, al1, dozim=True):
+    """The PCG round's assembly before the kernel: the eager assembly, the
+    planes stacked as the solver stacked them, then initial_partials."""
+    sysm = assemble(*d["grads"], d["u"], d["v"], d["uhat"], d["vhat"], al1, ALPHA, LAM_A,
+                    LAMBDAC, dozim, stack=d["stack"])
+    planes = [sysm.a1, sysm.a4, sysm.a2]
+    if al1 != 1.0:
+        planes += [sysm.a5, sysm.a6, sysm.a7, sysm.a8]
+    cf, b = torch.stack(planes), torch.stack([sysm.bu, sysm.bv])
+    return cf, b, initial_partials(cf, b)
+
+
+@pytest.mark.parametrize("hw", [(37, 45), (19, 40)])
+@pytest.mark.parametrize("dozim", [True, False])
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("c", [1, 3])
+def test_assemble_pcg_is_todays_route(c, al1, dozim, hw):
+    """On the CPU assemble_pcg equals the eager assembly -> stack ->
+    initial_partials bit for bit: 3 planes in the quadratic step, else 7,
+    and (n, 3) partials in the kernels' block order."""
+    d = _inputs(c, *hw, seed=11 + c)
+    got = _pcg(d, al1, dozim)
+    want = _todays_route(d, al1, dozim)
+    assert got[0].shape == (3 if al1 == 1.0 else 7, *hw)
+    assert got[2].shape == (num_partials(*hw), 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _slab(d, a0, a1):
+    return {k: d[k][..., a0:a1, :].contiguous()
+            for k in ("samples", "bc_x", "bc_y", "g1s", "u", "v", "uhat", "vhat")}
+
+
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("split", [(0, 8, 24, 37), (0, 16, 19), (0, 37)])
+def test_assemble_pcg_rows_are_the_whole_images(split, c, al1):
+    """A band's rows, assembled from its slab (its rows and the stencil's
+    ghost row beside each cut) or from the whole image, equal the whole
+    image's rows; on bands aligned to the 8-row blocks its partials are the
+    whole image's block rows."""
+    h, w = split[-1], 45
+    d = _inputs(c, h, w, seed=20 + c)
+    whole = _pcg(d, al1)
+    gw = -(-w // 32)
+    for r0, r1 in zip(split[:-1], split[1:]):
+        a0, a1 = max(0, r0 - 1), min(h, r1 + 1)
+        band = _pcg(d, al1, rows=(r0 - a0, r1 - a0), fields=_slab(d, a0, a1))
+        direct = _pcg(d, al1, rows=(r0, r1))
+        for got in (band, direct):
+            assert torch.equal(got[0], whole[0][:, r0:r1])
+            assert torch.equal(got[1], whole[1][:, r0:r1])
+            assert torch.equal(got[2], whole[2][r0 // 8 * gw:-(-r1 // 8) * gw])
+
+
+@pytest.mark.parametrize("dozim", [True, False])
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("c", [1, 3])
+def test_assemble_pcg_matches_jax_assemble(c, al1, dozim):
+    """The PCG form's planes against octane_tpu.flow.stencil.assemble on the
+    same warp samples, within 2e-6 of each plane's max; the solver's first
+    sums gamma_0 = sum(bu^2 / a1 + bv^2 / a4) and ||b||^2 within 1e-6."""
+    h, w = 40, 56
+    d = _inputs(c, h, w, seed=30 + c)
+    cf, b, partials = _pcg(d, al1, dozim)
+    smp = (jnp.asarray(d["samples"].numpy()), jnp.asarray(d["bc_x"].numpy()),
+           jnp.asarray(d["bc_y"].numpy()))
+    jg = [jnp.asarray(g.numpy()) for g in d["grads"]]
+    js = jax_assemble(*jg, *(jnp.asarray(d[k].numpy()) for k in ("u", "v", "uhat", "vhat")),
+                      jnp.float32(al1), jnp.float32(ALPHA), jnp.float32(LAM_A),
+                      jnp.float32(LAMBDAC), dozim, warp_fn=lambda *_: smp,
+                      al1_static=1.0 if al1 == 1.0 else None)
+    names = ["a1", "a4", "a2"] + ([] if al1 == 1.0 else ["a5", "a6", "a7", "a8"])
+    for got, name in zip(list(cf) + list(b), names + ["bu", "bv"]):
+        want = np.asarray(getattr(js, name))
+        assert float(np.abs(got.numpy() - want).max()) <= 2e-6 * float(np.abs(want).max()), name
+    bu, bv, a1, a4 = (np.asarray(getattr(js, k), np.float64) for k in ("bu", "bv", "a1", "a4"))
+    gamma0, b2 = float((bu * bu / a1 + bv * bv / a4).sum()), float((bu * bu + bv * bv).sum())
+    sums = partials.double().sum(0)
+    assert abs(float(sums[0] + sums[1]) - gamma0) <= 1e-6 * abs(gamma0)
+    assert abs(float(sums[2]) - b2) <= 1e-6 * b2
+
+
+def test_assemble_pcg_counts_and_checks():
+    d = _inputs(1, 12, 20, seed=4)
+    before = (asm.assemble_pcg.launches, asm.assemble_pcg.plain_calls)
+    _pcg(d, 0.5)
+    assert (asm.assemble_pcg.launches,
+            asm.assemble_pcg.plain_calls) == (before[0], before[1] + 1)
+    for rows in ((0, 13), (5, 5), (-1, 4), (6, 2)):
+        with pytest.raises(ValueError, match="rows"):
+            _pcg(d, 0.5, rows=rows)
+    args = [d[k] for k in ("samples", "bc_x", "bc_y", "g1s", "u", "v", "uhat", "vhat")]
+    bad = {0: args[0][:5], 2: args[2].float(), 3: args[3][:2], 7: args[7].double()}
+    for i, t in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            asm.assemble_pcg(*args[:i], t, *args[i + 1:], 0.5, LAMBDAC, ALPHA, LAM_A)

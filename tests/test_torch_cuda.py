@@ -4,7 +4,8 @@ Marked ``cuda``: they skip where no CUDA device is present.  Run them on
 the GPU with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Budgets: the warp is bit-exact (samples, flags and tile statistics), at
 K = 6, 12 and 18 planes (C = 1, 2, 3 channels); so are the PCG passes, the
-fused assembly (C = 1, 2, 3) and the SOR pass kernel, block
+fused assembly (C = 1, 2, 3) in both layouts (the PCG form also on row
+ranges) and the SOR pass kernel, block
 partials included (the plain versions sum in the kernels' order), and the
 PCG and SOR solves; a 30-iteration PCG solve agrees to rel 5e-4 with the
 reference loop flow.cg.pcg_solve, a 30-sweep SOR solve to rel 2e-5 with
@@ -150,6 +151,17 @@ def test_assemble_kernel_bit_exact_multichannel(dev, hw, c, al1):
 
 
 def _check_assembly(dev, hw, al1, c):
+    args = _assembly_args(dev, hw, al1, c)
+    before = assemble.assemble_cf.launches
+    kcf, kpart = assemble.assemble_cf(*args)
+    assert assemble.assemble_cf.launches == before + 1
+    pcf, ppart = assemble.assemble_cf_plain(*args)
+    assert kcf.shape[0] == (6 if al1 == 1.0 else 10)
+    assert torch.equal(kcf, pcf) and torch.equal(kpart, ppart)
+
+
+def _assembly_args(dev, hw, al1, c):
+    """One GNC round's assembly arguments on random images and flow."""
     h, w = hw
     rng = np.random.default_rng(2 + 10 * (c - 1))
 
@@ -165,13 +177,36 @@ def _check_assembly(dev, hw, al1, c):
     stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy]).contiguous()
     samples, bc_x, bc_y = warp.warp_bilinear_dense(stack, u, v)
     g1s = torch.cat([g1, gx1, gy1]).contiguous()
-    args = (samples, bc_x, bc_y, g1s, u, v, 0.5 * u, 0.5 * v, al1, 0.05, 5.0, 0.2, True)
-    before = assemble.assemble_cf.launches
-    kcf, kpart = assemble.assemble_cf(*args)
-    assert assemble.assemble_cf.launches == before + 1
-    pcf, ppart = assemble.assemble_cf_plain(*args)
-    assert kcf.shape[0] == (6 if al1 == 1.0 else 10)
-    assert torch.equal(kcf, pcf) and torch.equal(kpart, ppart)
+    return (samples, bc_x, bc_y, g1s, u, v, 0.5 * u, 0.5 * v, al1, 0.05, 5.0, 0.2, True)
+
+
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("hw", [(512, 512), (500, 372), (19, 40)])
+def test_assemble_pcg_kernel_bit_exact(dev, hw, c, al1):
+    """The PCG form (cf, b and the (n, 3) first-sum partials) against its
+    plain version bit for bit, on the whole image and on row ranges of the
+    image and of a band's slab (its rows and a ghost row beside each cut):
+    three bands aligned to the 8-row blocks and one unaligned range; a
+    band's rows equal the whole image's."""
+    h = hw[0]
+    args = _assembly_args(dev, hw, al1, c)
+    fields, scalars = args[:8], args[8:]
+    before = assemble.assemble_pcg.launches
+    whole = assemble.assemble_pcg(*args)
+    assert assemble.assemble_pcg.launches == before + 1
+    assert whole[0].shape[0] == (3 if al1 == 1.0 else 7)
+    assert all(torch.equal(k, p) for k, p in zip(whole, assemble.assemble_pcg_plain(*args)))
+    cuts = sorted({0, 8 * -(-h // 24), 8 * -(-2 * h // 24), h})
+    ranges = list(zip(cuts[:-1], cuts[1:])) + [(3, h - 2)]
+    for r0, r1 in ranges:
+        a0, a1 = max(0, r0 - 1), min(h, r1 + 1)
+        slab = tuple(t[..., a0:a1, :].contiguous() for t in fields)
+        for inputs, rows in ((slab, (r0 - a0, r1 - a0)), (fields, (r0, r1))):
+            k = assemble.assemble_pcg(*inputs, *scalars, rows)
+            q = assemble.assemble_pcg_plain(*inputs, *scalars, rows)
+            assert all(torch.equal(a, b) for a, b in zip(k, q))
+            assert torch.equal(k[0], whole[0][:, r0:r1]) and torch.equal(k[1], whole[1][:, r0:r1])
 
 
 def _sor_system(h, w, quad, dev, seed=3):

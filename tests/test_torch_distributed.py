@@ -96,7 +96,8 @@ def test_process_solvers_join_block_partials(tmp_path):
     sum (the assembly kernel's, as the single-device flow sums them), and
     each process's rows equal one process's banded solve and the
     single-device solve bit for bit."""
-    from octane_tpu_torch.ops.pcg import block_partials, num_partials, pcg_solve_fused
+    from octane_tpu_torch.ops.pcg import (block_partials, num_partials, pcg_solve_fused,
+                                          stack_system)
     from octane_tpu_torch.ops.sor import build_cf, sor_solve_cf
     from octane_tpu_torch.parallel import cg as band_cg
     from octane_tpu_torch.parallel import sor as band_sor
@@ -115,7 +116,7 @@ def test_process_solvers_join_block_partials(tmp_path):
     local = LocalExchange()
     parts = [(r0, build_cf(s)[:, r0:r1]) for r0, r1 in spans]
     assert torch.equal(band_sor.resid0_of(parts, torch.device("cpu"), local), resid0)
-    cf, b = band_cg.system_bands(s, slice(None))
+    cf, b = stack_system(s)
     one = torch.cat(band_cg.solve_bands([(r0, cf[:, r0:r1].contiguous(),
                                           b[:, r0:r1].contiguous()) for r0, r1 in spans],
                                         h, 1e-8, 4, local), dim=1)
@@ -224,8 +225,8 @@ def test_process_collectives_do_not_follow_the_stopping_test(tmp_path):
     the same collectives.  On the host route the full solve enters the same
     sequence, and the one that stops early enters a shorter prefix of it,
     the same on both processes: no transfer follows the stop."""
+    from octane_tpu_torch.ops.pcg import stack_system
     from octane_tpu_torch.ops.sor import build_cf
-    from octane_tpu_torch.parallel import cg as band_cg
     from octane_tpu_torch.parallel import sor as band_sor
     from test_torch_sharded_program import pcg_bands_before, sor_bands_before
 
@@ -235,7 +236,7 @@ def test_process_collectives_do_not_follow_the_stopping_test(tmp_path):
     parts = [(r0, build_cf(s)[:, r0:r1].contiguous()) for r0, r1 in spans]
     *_, sor_hist = sor_bands_before(parts, h, band_sor.resid0_of(parts, torch.device("cpu")),
                                     0.0, 30)
-    cf, b = band_cg.system_bands(s, slice(None))
+    cf, b = stack_system(s)
     *_, pcg_hist = pcg_bands_before([(r0, cf[:, r0:r1].contiguous(), b[:, r0:r1].clone())
                                      for r0, r1 in spans], h, 0.0, 30)
     out = str(tmp_path / "seq")

@@ -206,3 +206,35 @@ def test_pass_a_band_out_buffers(quad):
                 (out[0].double(), *out[1:])):
         with pytest.raises(ValueError, match="out"):
             pcgmod.pcg_pass_a_band(*args, out=bad)
+
+
+@pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+def test_core_on_the_assembly_kernels_outputs(al1):
+    """pcg_solve_cf fed assemble_pcg's (cf, b, partials) equals
+    pcg_solve_fused of the eager assembly's StencilSystem bit for bit, with
+    the same device count of iterations."""
+    from octane_tpu_torch.core.gradients import gradient_4th
+    from octane_tpu_torch.flow.stencil import assemble_samples
+    from octane_tpu_torch.ops.assemble import assemble_pcg
+    from octane_tpu_torch.ops.warp import warp_bilinear_dense
+
+    h, w = 37, 45
+    rng = np.random.default_rng(12)
+    g1, g2 = (torch.from_numpy(rng.normal(100, 30, (1, h, w)).astype(np.float32))
+              for _ in range(2))
+    u, v = (torch.from_numpy(rng.uniform(-3, 3, (h, w)).astype(np.float32)) for _ in range(2))
+    gx1, gy1 = gradient_4th(g1)
+    gx2, gy2 = gradient_4th(g2)
+    gxx, _ = gradient_4th(gx2)
+    gxy, gyy = gradient_4th(gy2)
+    samples, bc_x, bc_y = warp_bilinear_dense(torch.cat([g2, gx2, gy2, gxx, gxy, gyy]), u, v)
+    scalars = (al1, 0.1, 5.0, 0.2)      # al1, lambdac, alpha, lambda / alpha
+    cf, b, partials = assemble_pcg(samples, bc_x, bc_y, torch.cat([g1, gx1, gy1]), u, v,
+                                   0.5 * u, 0.5 * v, *scalars, True)
+    sysm = assemble_samples(samples, bc_x, bc_y, g1, gx1, gy1, u, v, 0.5 * u, 0.5 * v,
+                            al1, 5.0, 0.2, 0.1, True)
+    counts = [torch.zeros((), dtype=torch.int32) for _ in range(2)]
+    got = pcgmod.pcg_solve_cf(cf, b, partials, 1e-6, ITERS, count=counts[0])
+    want = pcgmod.pcg_solve_fused(sysm, 1e-6, ITERS, count=counts[1])
+    assert all(torch.equal(g, wt) for g, wt in zip(got, want))
+    assert int(counts[0]) == int(counts[1]) > 0

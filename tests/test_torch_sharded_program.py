@@ -48,7 +48,7 @@ from octane_tpu_torch.flow import variational as fv
 from octane_tpu_torch.ops import pcg as pcgmod
 from octane_tpu_torch.ops import sor as sormod
 from octane_tpu_torch.ops.guard import Guard, when
-from octane_tpu_torch.ops.pcg import initial_partials
+from octane_tpu_torch.ops.pcg import initial_partials, stack_system
 from octane_tpu_torch.parallel import cg as band_cg
 from octane_tpu_torch.parallel import make_mesh
 from octane_tpu_torch.parallel import sharded
@@ -331,7 +331,7 @@ def test_banded_sor_driver_equals_the_loop_it_replaced(split, quad, stop):
 def test_banded_pcg_driver_equals_the_loop_it_replaced(split, quad, stop):
     (h, w), nb = SPLITS[split]
     s = _torch_sys(_system_np(h, w, quad, seed=12))
-    cf, b = band_cg.system_bands(s, slice(None))
+    cf, b = stack_system(s)
     mesh = _mesh(1, nb)
 
     def bands():                 # the driver overwrites its right-hand sides
@@ -392,7 +392,7 @@ def test_banded_pcg_driver_equals_the_loop_in_bodies(split, quad, stop, layout, 
         monkeypatch.setattr(band_cg, "one_body", lambda devs, exchange: False)
     (h, w), nb = SPLITS[split]
     s = _torch_sys(_system_np(h, w, quad, seed=14))
-    cf, b = band_cg.system_bands(s, slice(None))
+    cf, b = stack_system(s)
     mesh = _mesh(1, nb)
 
     def bands():                 # the drivers overwrite their right-hand sides

@@ -21,7 +21,7 @@ from octane_tpu_torch import ops
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow import variational
 from octane_tpu_torch.flow.cg import pcg_solve
-from octane_tpu_torch.flow.stencil import apply_stencil
+from octane_tpu_torch.flow.stencil import StencilSystem, apply_stencil
 from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
 from octane_tpu_torch.io.native import epe_stats
 
@@ -73,11 +73,13 @@ def test_plain_reference_path_agrees(monkeypatch):
     g = _load("variational_64.npz")
     u1, v1 = _run(g, OFConfig(kiters=3))
 
-    def reference_loop(sysm, tol, iters, *passes):
+    def reference_loop(cf, b, partials, tol, iters, *passes):
+        off = [-1.0] * 4 if cf.shape[0] == 3 else list(cf[3:])
+        sysm = StencilSystem(cf[0], cf[2], cf[1], *off, b[0], b[1])
         return pcg_solve(lambda a, b: apply_stencil(sysm, a, b), sysm.a1, sysm.a4,
                          sysm.bu, sysm.bv, tol, iters)
 
-    monkeypatch.setattr(variational, "pcg_solve_fused", reference_loop)
+    monkeypatch.setattr(variational, "pcg_solve_cf", reference_loop)
     ops.reset_counters()
     u2, v2 = _run(g, OFConfig(kiters=3))
     assert ops.counters()["pcg_pass_a"] == (0, 0)

@@ -155,6 +155,7 @@ def solver_probe(out: str, rank: int) -> None:
     import numpy as np
     import torch
 
+    from octane_tpu_torch.ops.pcg import stack_system
     from octane_tpu_torch.ops.sor import build_cf
     from octane_tpu_torch.parallel import cg as band_cg
     from octane_tpu_torch.parallel import sor as band_sor
@@ -179,7 +180,7 @@ def solver_probe(out: str, rank: int) -> None:
     res["resid0_bytes"] = torch.tensor(ex.sent["gathered"] - g0)
     res["sor"] = own_rows(band_sor.solve_bands(parts, h, res["resid0"], 1e-8, 13,
                                                exchange=ex))
-    cf, b = band_cg.system_bands(s, slice(None))
+    cf, b = stack_system(s)
     systems = [(r0, c, None if c.is_meta else b[:, r0:r0 + c.shape[-2]].contiguous())
                for r0, c in banded(cf)]
     g0 = ex.sent["gathered"]
@@ -252,6 +253,7 @@ def collective_probe(out: str, rank: int, sor_tol: float, pcg_tol: float) -> Non
     import torch.distributed as dist
 
     from octane_tpu_torch.ops import guard
+    from octane_tpu_torch.ops.pcg import stack_system
     from octane_tpu_torch.ops.sor import build_cf
     from octane_tpu_torch.parallel import cg as band_cg
     from octane_tpu_torch.parallel import sor as band_sor
@@ -300,7 +302,7 @@ def collective_probe(out: str, rank: int, sor_tol: float, pcg_tol: float) -> Non
                                                                   ex),
                                      tol, 30, exchange=ex, count=count)
             else:
-                cf, b = band_cg.system_bands(s, slice(None))
+                cf, b = stack_system(s)
                 systems = [(r0, c, None if c.is_meta else b[:, r0:r0 + c.shape[-2]].contiguous())
                            for r0, c in banded(cf)]
                 band_cg.solve_bands(systems, h, tol, 30, ex, count=count)

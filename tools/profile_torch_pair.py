@@ -20,9 +20,9 @@ it) and once under ``torch.profiler``.  Prints both wall times, the peak device
 memory, the summed device time and the device's idle share, 1 - device
 busy / unprofiled wall (the profiler's own host cost would inflate a wall
 taken under it), and the device time by kernel grouped into the port's
-layers (warp, PCG passes, fused assembly, SOR passes, the scalar glue
-and the eager assembly's elementwise work, shifts/gathers, reductions,
-matmuls, the graph's IF-node conditions).  Writes the summary and (on
+layers (warp, PCG passes, the fused assembly in its SOR and PCG layouts,
+SOR passes, the scalar glue and other elementwise work, shifts/gathers,
+reductions, matmuls, the graph's IF-node conditions).  Writes the summary and (on
 one card) the chrome trace to chiprun_out/profile_pair_<solver>_<route>.{txt,json}.
 With ``--mesh`` the files are named profile_mesh<R>x<C>_<solver>_<route>,
 with ``--cards`` profile_cards<N>_<solver>_<route>.
@@ -53,6 +53,7 @@ from chip_smoke import load_tests_module  # noqa: E402
 GROUPS = (("warp_bilinear", "warp kernel"), ("warp_band", "warp kernel (band form)"),
           ("pcg_pass_a", "PCG pass A"),
           ("pcg_pass_b", "PCG pass B"), ("assemble_cf", "fused assembly kernel"),
+          ("assemble_pcg", "PCG assembly kernel"),
           ("sor_pass", "SOR pass kernel"), ("gemm", "matmul (zoom)"),
           ("index", "index_select (shifts, subsample)"),
           ("reduce", "reductions (sums)"), ("elementwise", "elementwise"),
