@@ -1,0 +1,78 @@
+"""Roofline shares of the relaxers, from the frozen counts of
+``rooflines.json``: the least time the card could take for the algorithm's
+work (the larger of its bytes over the HBM rate and its float32
+operations over the FP32 rate, summed over the rounds) over the device
+time of the kernels that a metric names.  The work is counted from the
+configuration's level shapes and the program's counters, never from the
+kernels' design."""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+
+from octbench.spec import HERE, load_json
+
+
+def counts() -> dict:
+    return load_json(os.path.join(HERE, "rooflines.json"))
+
+
+def level_shapes(settings: dict, rows: int, cols: int):
+    """(rows, cols) of each pyramid level, coarsest first (the program's
+    rule: factor = float32(scale)^(kiters - k - 1), size int(n f + 0.5))."""
+    out = []
+    for k in range(settings["kiters"]):
+        f = float(np.float32(settings["scale_factor"]) ** (settings["kiters"] - k - 1))
+        out.append((int(rows * f + 0.5), int(cols * f + 0.5)))
+    return out
+
+
+def rounds(settings: dict, rows: int, cols: int):
+    """(pixels, quadratic?) of every GNC round of one pair, in order."""
+    return [(h * w, step == 0) for h, w in level_shapes(settings, rows, cols)
+            for step in range(settings["gnc_steps"]) for _ in range(settings["liters"])]
+
+
+def _bound(nbytes: float, flops: float, peaks: dict) -> float:
+    return max(nbytes / peaks["hbm_bytes_per_s"], flops / peaks["fp32_flops_per_s"])
+
+
+def pcg_bound_s(settings, rows, cols, pairs: int, iterations: int, c=None) -> float:
+    """Least seconds for ``iterations`` PCG iterations over ``pairs`` pairs."""
+    c = c or counts()
+    spec, rs = c["pcg"], rounds(settings, rows, cols)
+    per_round = iterations / (pairs * len(rs))      # = cgiters where every round ran all
+    kind = {True: "quadratic", False: "robust"}
+    return pairs * sum(per_round * _bound(px * spec["bytes_per_pixel"][kind[q]],
+                                          px * spec["flops_per_pixel"][kind[q]], c["peaks"])
+                       for px, q in rs)
+
+
+def sor_bound_s(settings, rows, cols, pairs: int, passes: int, c=None) -> float:
+    """Least seconds for ``passes`` SOR passes over ``pairs`` pairs."""
+    c = c or counts()
+    spec, rs = c["sor"], rounds(settings, rows, cols)
+    full = math.ceil(settings["cgiters"] / spec["pass_sweeps"])   # passes of a full round
+    sweeps = settings["cgiters"] * (passes / (pairs * len(rs) * full))
+    kind = {True: "quadratic", False: "robust"}
+    return pairs * sum(_bound(px * spec["bytes_per_pixel"][kind[q]],
+                              px * (sweeps * spec["flops_per_pixel_per_sweep"][kind[q]]
+                                    + spec["flops_per_pixel_per_round"]), c["peaks"])
+                       for px, q in rs)
+
+
+def share(run, layer: str, kernels) -> float:
+    """Percent of the bound that the named kernels reach over the profiled
+    slice, or None where they did not run."""
+    from octbench import trace
+
+    kernel_s = trace.kernel_us(run.trace, kernels) / 1e6
+    work = run.slice_counters.get(counts()[layer]["counter"], 0)
+    if kernel_s <= 0 or work <= 0:
+        return None
+    s = run.config["settings"]
+    fn = pcg_bound_s if layer == "pcg" else sor_bound_s
+    return 100.0 * fn(s, run.config["rows"], run.config["cols"], run.slice_pairs, work) / kernel_s

@@ -1,0 +1,91 @@
+"""The metric arithmetic on hand-worked inputs: the union of device
+intervals, the idle share, the idle gaps by host range, p95 over every
+sample, and the roofline counts."""
+
+import types
+
+import numpy as np
+import pytest
+
+from octbench import roofline, spec, trace
+
+
+def _trace():
+    # slice [0, 100) us; kernels overlap at 10-30 and 25-40, one at 60-70;
+    # a user-annotation-free device list, host ranges around the gaps
+    dev = [(10.0, 30.0, "pcg_pass_a<true>"), (25.0, 40.0, "pcg_pass_b"),
+           (60.0, 70.0, "Memcpy DtoH (Device -> Pageable)")]
+    host = [(0.0, 100.0, trace.SLICE), (38.0, 62.0, "octbench.output"),
+            (39.0, 61.0, "cudaMemcpyAsync"), (65.0, 99.0, "cudaDeviceSynchronize")]
+    return trace.Trace(dev, host, 0.0, 100.0)
+
+
+def test_union_busy_and_idle_share():
+    tr = _trace()
+    assert trace.union([(5, 6), (1, 3), (2, 4)]) == [(1, 4), (5, 6)]
+    assert trace.busy_us(tr) == pytest.approx(40.0)          # 10-40 and 60-70
+    assert trace.kernel_us(tr, ("pcg_pass_a", "pcg_pass_b")) == pytest.approx(35.0)
+    idle = spec.metric_reader("device_idle_share")
+    assert idle(types.SimpleNamespace(trace=tr)) == pytest.approx(0.6)
+    assert idle(types.SimpleNamespace(trace=None)) is None
+
+
+def test_idle_gaps_by_host_range_and_device_ops():
+    gaps = dict(trace.idle_gaps(_trace()))
+    # 0-10 (no range but the slice), 40-60 (the output's copy), 70-100 (a sync)
+    assert gaps == pytest.approx({"no host range open": 10e-6,
+                                  "octbench.output: cudaMemcpyAsync": 20e-6,
+                                  "cudaDeviceSynchronize": 30e-6})
+    ops = dict(trace.device_ops(_trace()))
+    assert ops["PCG pass A"] == pytest.approx(20e-6)
+    assert ops["copies / cat / stack"] == pytest.approx(10e-6)
+
+
+def test_p95_over_every_sample_and_pair_ms():
+    lat = [0.010] * 95 + [0.020] * 5
+    run = types.SimpleNamespace(latencies=lat, window_s=1.5, pairs=100)
+    p95 = spec.metric_reader("pair_ms_p95")(run)
+    assert p95 == pytest.approx(float(np.percentile(np.asarray(lat) * 1e3, 95)))
+    assert 10.0 < p95 < 20.0
+    assert spec.metric_reader("pair_ms")(run) == pytest.approx(15.0)
+    assert spec.metric_reader("pair_ms_p95")(types.SimpleNamespace(latencies=lat[:10])) is None
+
+
+SETTINGS = {"kiters": 2, "scale_factor": 0.5, "gnc_steps": 3, "liters": 1, "cgiters": 30}
+
+
+def test_level_shapes_and_rounds():
+    assert roofline.level_shapes(SETTINGS, 100, 64) == [(50, 32), (100, 64)]
+    assert roofline.level_shapes({"kiters": 4, "scale_factor": 0.5}, 5424, 5424)[0] == (678, 678)
+    assert roofline.rounds(SETTINGS, 100, 64) == [(1600, True), (1600, False), (1600, False),
+                                                  (6400, True), (6400, False), (6400, False)]
+
+
+def test_pcg_bound_by_hand():
+    # one pair, every round at cgiters = 30 iterations: bytes-bound,
+    # (1600 + 6400) px x 30 x (60 + 2 x 76) bytes over 3.35e12 B/s
+    want = (1600 + 6400) * 30 * (60 + 76 + 76) / 3.35e12
+    assert roofline.pcg_bound_s(SETTINGS, 100, 64, 1, 6 * 30) == pytest.approx(want)
+    # fewer iterations are spread evenly over the rounds
+    assert roofline.pcg_bound_s(SETTINGS, 100, 64, 1, 6 * 15) == pytest.approx(want / 2)
+
+
+def test_sor_bound_by_hand():
+    # cgiters 30 = passes of 8, 8, 8, 6: four passes a full round; a robust
+    # round at 30 sweeps is (36 x 30 + 4) operations against 52 bytes a pixel
+    def rnd(px, b, f):
+        return max(px * b / 3.35e12, px * f / 6.7e13)
+    want = sum(rnd(px, 36, 30 * 30 + 4) + 2 * rnd(px, 52, 36 * 30 + 4) for px in (1600, 6400))
+    assert roofline.sor_bound_s(SETTINGS, 100, 64, 1, 6 * 4) == pytest.approx(want)
+
+
+def test_share_is_none_without_the_kernels():
+    run = types.SimpleNamespace(trace=trace.Trace([], [], 0.0, 1.0), slice_counters={},
+                                config={"settings": SETTINGS, "rows": 100, "cols": 64},
+                                slice_pairs=1)
+    assert roofline.share(run, "pcg", ("pcg_pass_a",)) is None
+    run.trace = trace.Trace([(0.0, 1000.0, "pcg_pass_a"), (1000.0, 1500.0, "pcg_pass_b")],
+                            [], 0.0, 2000.0)
+    run.slice_counters = {"pcg_pass_a": 180}
+    want = 100 * roofline.pcg_bound_s(SETTINGS, 100, 64, 1, 180) / 1.5e-3
+    assert roofline.share(run, "pcg", ("pcg_pass_a", "pcg_pass_b")) == pytest.approx(want)
