@@ -218,6 +218,12 @@ Phases, one line each (any failure exits non-zero):
      and the bytes the programs' pools reserve, the flows equal to each
      other and to the plain route.  (c) Config 5's sequence per relaxer through the program
      against the eager chain: every pair torch.equal, ms per pair.
+ 19. tracer (utils.profiling; csrc/stamp.cu is instrumentation, not a
+     ported kernel): per relaxer, a 512^2 program (kiters 3) captured with
+     the tracer on and replayed once: its stamps in order, each on the
+     host clock at or after the replay's enqueue less 20 us, the round
+     counts summing to the pair's, the flow torch.equal to the untraced
+     program's, whose replay launches no stamp.
 Every phase's programs are dropped after it (clear_program_cache).
 The line before the last is the kernels' JSON record (launches on the
 5424^2 pairs and the SRSAL product path, launches on the 5424^2 hybrid
@@ -253,7 +259,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
 PHASES = ("env", "build", "io", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
           "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh", "dist",
-          "program")
+          "program", "tracer")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
 MESO = 2000             # a mesoscale-sector shape for the first-guess gather path
 FLAT = 2048             # the flat-grid phase's correctness shape
@@ -2165,6 +2171,60 @@ MESH_SPLIT = (0, 1000, 2500, 4700, FULLDISK)   # its uneven split of 5424 rows
 MESH_HALO = 16                      # rows beside a band in the band-form checks (halo_warp)
 
 
+def phase_tracer(dev):
+    """The tracer's device stamps inside a replayed program (phase 19)."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.utils import profiling
+
+    fx = load_tests_module("torch_fixtures")
+    h = w = 512
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in fx.bench_pair(h, w))
+    z = torch.zeros((h, w), device=dev)
+    for solver, key in (("pcg", "pcg_iterations"), ("sor", "sor_passes")):
+        cfg = OFConfig(kiters=3, solver=solver)
+        rounds = cfg.kiters * cfg.gnc_steps * cfg.liters
+        flows, stamps = {}, {}
+        try:
+            for on in (False, True):
+                if on:
+                    profiling.enable()
+                prog = fv.flow_program(cfg, (h, w), 1, dev)
+                while prog.graph is None:
+                    prog(im1, im2, z, z)
+                torch.cuda.synchronize()
+                ops.reset_counters()
+                profiling.reset()
+                t_enq = time.perf_counter_ns()
+                flows[on] = prog(im1, im2, z, z)
+                torch.cuda.synchronize()
+                c = ops.counters()
+                stamps[on] = c["stamp"][0]
+                if on:
+                    spans = [s for s in profiling.records()[None] if s.device_start is not None]
+                    raw = prog.marks.stamps.tolist()
+                    if raw != sorted(raw) or len(raw) != 2 + cfg.kiters + 2 * rounds:
+                        raise AssertionError(f"tracer: {solver} stamps out of order or missing")
+                    early = t_enq - min(s.device_start for s in spans)
+                    if early > 20_000:
+                        raise AssertionError(f"tracer: {solver} stamp {early} ns before its enqueue")
+                    if sum(c[f"{key}_by_round"]) != c[key]:
+                        raise AssertionError(f"tracer: {solver} round counts do not sum")
+                    solve = next(s for s in spans if s.name == "octane.solve")
+                    say("tracer", f"{h}x{w} {solver}: {len(raw)} stamps in order, first "
+                        f"{(min(s.device_start for s in spans) - t_enq) / 1e3:.1f} us after the "
+                        f"enqueue, solve {(solve.device_end - solve.device_start) / 1e6:.3f} ms, "
+                        f"{c[key]} counted = sum of {rounds} rounds")
+                profiling.disable()
+        finally:
+            profiling.disable()
+            profiling.reset()
+            fv.clear_program_cache()
+        if stamps[False] != 0 or not all(torch.equal(a, b) for a, b in zip(flows[False], flows[True])):
+            raise AssertionError(f"tracer: {solver} untraced replay stamped or flows differ")
+
+
 def band_ranges(split):
     return list(zip(split[:-1], split[1:]))
 
@@ -3014,7 +3074,8 @@ def main(argv=None):
               ("sequence", lambda: phase_sequence(dev)),
               ("mesh", lambda: phase_mesh(dev, report)),
               ("dist", lambda: phase_dist(dev, report)),
-              ("program", lambda: phase_program(dev, report))]
+              ("program", lambda: phase_program(dev, report)),
+              ("tracer", lambda: phase_tracer(dev))]
     for name, phase in phases:
         if name in only:
             phase()

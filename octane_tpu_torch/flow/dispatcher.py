@@ -35,6 +35,7 @@ from octane_tpu_torch.io.datamodel import Scene
 from octane_tpu_torch.nav.goes import F64
 from octane_tpu_torch.nav.winds import pix2uv, pix2uv_ms, uv2pix
 from octane_tpu_torch.post.srsal import srsal_smooth
+from octane_tpu_torch.utils import profiling
 
 
 def active_mesh(cfg: OFConfig, device="cuda"):
@@ -67,48 +68,53 @@ def _variational(data1, data2, u0, v0, cfg: OFConfig, mesh=None):
     return variational_flow(data1, data2, u0, v0, cfg)
 
 
+@profiling.traced("octane.flow")
 def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
                  first_guess=None) -> Scene:
     """Fill scene1's flow products from the (scene1, scene2) pair; returns
-    scene1.  ``first_guess`` optionally gives (u0, v0) pixel displacements."""
+    scene1.  ``first_guess`` optionally gives (u0, v0) pixel displacements.
+    The tracer's span ``octane.flow``, with ``octane.flow.first_guess``,
+    ``octane.flow.solve`` and ``octane.flow.pix2uv`` (utils.profiling)."""
     h, w = scene1.shape
     dev = scene1.data.device
     nav = scene1.nav
     dt = scene2.t - scene1.t
 
     # --- first guess (ref :37-53) -------------------------------------------
-    have_guess = True
-    if first_guess is not None:
-        u0 = torch.as_tensor(first_guess[0], dtype=torch.float32, device=dev)
-        v0 = torch.as_tensor(first_guess[1], dtype=torch.float32, device=dev)
-    elif cfg.do_firstguess and scene1.ufg is not None:
-        u0, v0 = uv2pix(scene1.ufg, scene1.vfg, scene1.lat, scene1.lon,
-                        scene1.x, scene1.y, nav, dt, grid=cfg.grid)
-    else:
-        have_guess = False
-        u0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
-        v0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    with profiling.span("octane.flow.first_guess"):
+        have_guess = True
+        if first_guess is not None:
+            u0 = torch.as_tensor(first_guess[0], dtype=torch.float32, device=dev)
+            v0 = torch.as_tensor(first_guess[1], dtype=torch.float32, device=dev)
+        elif cfg.do_firstguess and scene1.ufg is not None:
+            u0, v0 = uv2pix(scene1.ufg, scene1.vfg, scene1.lat, scene1.lon,
+                            scene1.x, scene1.y, nav, dt, grid=cfg.grid)
+        else:
+            have_guess = False
+            u0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+            v0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
 
     # --- flow engine (ref :54-68; "hybrid": patch-match initialization +
     # variational refinement) ------------------------------------------------
     mesh = active_mesh(cfg, dev)
-    if cfg.algorithm in ("patch_match", "hybrid"):
-        if scene1.nchannels > 1 and cfg.algorithm == "patch_match":
-            raise ValueError("patch match supports single-channel input only")
-        if have_guess:
-            u, v = patch_match_flow(scene1.data[0], scene2.data[0], u0, v0,
-                                    cfg.rad, cfg.srad)
-        elif mesh is not None:
-            u, v = patch_match_flow_sharded(scene1.data[0], scene2.data[0], mesh,
-                                            cfg.rad, cfg.srad)
+    with profiling.span("octane.flow.solve"):
+        if cfg.algorithm in ("patch_match", "hybrid"):
+            if scene1.nchannels > 1 and cfg.algorithm == "patch_match":
+                raise ValueError("patch match supports single-channel input only")
+            if have_guess:
+                u, v = patch_match_flow(scene1.data[0], scene2.data[0], u0, v0,
+                                        cfg.rad, cfg.srad)
+            elif mesh is not None:
+                u, v = patch_match_flow_sharded(scene1.data[0], scene2.data[0], mesh,
+                                                cfg.rad, cfg.srad)
+            else:
+                # slice-based fast path (no per-pixel gathers)
+                u, v = patch_match_flow(scene1.data[0], scene2.data[0], None, None,
+                                        cfg.rad, cfg.srad)
+            if cfg.algorithm == "hybrid":
+                u, v = _variational(scene1.data, scene2.data, u, v, cfg, mesh)
         else:
-            # slice-based fast path (no per-pixel gathers)
-            u, v = patch_match_flow(scene1.data[0], scene2.data[0], None, None,
-                                    cfg.rad, cfg.srad)
-        if cfg.algorithm == "hybrid":
-            u, v = _variational(scene1.data, scene2.data, u, v, cfg, mesh)
-    else:
-        u, v = _variational(scene1.data, scene2.data, u0, v0, cfg, mesh)
+            u, v = _variational(scene1.data, scene2.data, u0, v0, cfg, mesh)
     scene1.u_pix = u
     scene1.v_pix = v
 
@@ -122,9 +128,12 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
     nav.g2y_offset = scene2.nav.y_offset if cfg.grid == "goes" else nav.y_offset
     if mesh is not None:
         from octane_tpu_torch.parallel.post import sharded_pix2uv, sharded_pix2uv_ms
-        uw, vw, ur, vr = sharded_pix2uv(u, v, nav, dt, mesh, grid=cfg.grid, pixuv=cfg.pixuv)
+        with profiling.span("octane.flow.pix2uv"):
+            uw, vw, ur, vr = sharded_pix2uv(u, v, nav, dt, mesh, grid=cfg.grid,
+                                            pixuv=cfg.pixuv)
     else:
-        uw, vw, ur, vr = pix2uv(u, v, nav, dt, grid=cfg.grid, pixuv=cfg.pixuv)
+        with profiling.span("octane.flow.pix2uv", dev):
+            uw, vw, ur, vr = pix2uv(u, v, nav, dt, grid=cfg.grid, pixuv=cfg.pixuv)
     scene1.u_wind, scene1.v_wind = uw, vw
     scene1.u_raw, scene1.v_raw = ur, vr
     if cfg.grid != "goes" and not cfg.pixuv:

@@ -23,7 +23,9 @@ coarse-to-fine solve into one CUDA graph, and it and every later pair are
 one replay each, with the relaxers' stopping tests in graph IF nodes
 (ops.guard) and no host read between the first launch and the result.
 ``variational_flow`` goes through it; on the CPU a program runs the solve
-eagerly.  ``clear_program_cache`` drops every program.
+eagerly.  ``clear_program_cache`` drops every program.  While the tracer
+(utils.profiling) is on, a solve stamps its levels and relaxer rounds and
+keeps each round's count; a program made then captures those too.
 
 The mesh path (octane_tpu_torch.parallel.sharded) runs the same schedule
 (``level_schedule``, ``gnc_rounds``) on row bands, through a program of
@@ -39,7 +41,6 @@ decays as lambdac * 0.5^k (oct_variational_optical_flow.cu:487-575).
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Tuple
 
 import numpy as np
@@ -57,6 +58,7 @@ from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                       pcg_pass_b_plain, pcg_solve_cf)
 from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain, sor_solve_cf
 from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
+from octane_tpu_torch.utils import profiling
 
 
 def _f32(x: float) -> float:
@@ -102,6 +104,7 @@ def solve_level(
     alpha: float, lam_over_alpha: float, lambdac: float, tol: float,
     liters: int, cgiters: int, gnc_steps: int, dozim: bool,
     solver: str = "pcg", sor_omega: float = 1.9, plain: bool = False, count=None,
+    marks=None,
 ):
     """GNC x inner iterations at one pyramid level; returns (u, v).
 
@@ -109,7 +112,9 @@ def solve_level(
     hint fields at this level.  ``solver`` is "pcg" or "sor" (relaxation
     factor ``sor_omega``); ``plain`` calls the kernels' plain versions on
     any device (see the module docstring).  ``count``, an int32 device
-    scalar, gains the relaxer's iterations (PCG) or passes (SOR).
+    scalar, gains the relaxer's iterations (PCG) or passes (SOR).  With
+    ``marks`` (utils.profiling.Marks) each round's relaxer lies between
+    two stamps and its count goes to its slot of ``marks.rounds``.
     """
     gx1, gy1 = gradient_4th(g1)
     gx2, gy2 = gradient_4th(g2)
@@ -126,30 +131,48 @@ def solve_level(
         asm_fn = _PLAIN_ASSEMBLE if plain else assemble_cf
         pass_fn = _PLAIN_PASS if plain else sor_pass
 
-        def round_(u, v, al1):
+        def round_(u, v, al1, j):
             samples, bc_x, bc_y = warp_fn(stack, u, v)
             cf, partials = asm_fn(samples, bc_x, bc_y, g1s, u, v, uhat, vhat,
                                   al1, lambdac, alpha, lam_over_alpha, dozim)
-            return sor_solve_cf(cf, torch.sum(partials), tol, cgiters,
-                                sor_omega, pass_fn, count)
+            with _relaxer(marks, j) as ran:
+                return sor_solve_cf(cf, torch.sum(partials), tol, cgiters,
+                                    sor_omega, pass_fn, count, ran)
     else:
         asm_fn = _PLAIN_ASSEMBLE_PCG if plain else assemble_pcg
         passes = _PLAIN_PASSES if plain else (pcg_pass_a, pcg_pass_b)
 
-        def round_(u, v, al1):
+        def round_(u, v, al1, j):
             samples, bc_x, bc_y = warp_fn(stack, u, v)
             cf, b, partials = asm_fn(samples, bc_x, bc_y, g1s, u, v, uhat, vhat,
                                      al1, lambdac, alpha, lam_over_alpha, dozim)
-            return pcg_solve_cf(cf, b, partials, tol, cgiters, *passes, count)
+            with _relaxer(marks, j) as ran:
+                return pcg_solve_cf(cf, b, partials, tol, cgiters, *passes, count, ran)
 
-    for al1 in gnc_rounds(gnc_steps, liters):
-        du, dv = round_(u, v, al1)
+    for j, al1 in enumerate(gnc_rounds(gnc_steps, liters)):
+        du, dv = round_(u, v, al1, j)
         u, v = u + du, v + dv
     return u, v
 
 
-def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
-    """(u, v, the relaxer's iterations or passes as an int32 device scalar)."""
+def _relaxer(marks, j: int):
+    """Round ``j``'s relaxer: between its stamps, yielding its count's slot,
+    where the solve is traced; else nothing."""
+    return contextlib.nullcontext() if marks is None else marks.relax(j)
+
+
+def _marks(cfg: OFConfig, device) -> profiling.Marks:
+    """The stamps and round counts of a traced solve of ``cfg``."""
+    return profiling.Marks(cfg.solver, cfg.kiters, cfg.gnc_steps, cfg.liters, device)
+
+
+def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False, marks=None):
+    """(u, v, the relaxer's iterations or passes as an int32 device scalar).
+    With ``marks`` (utils.profiling.Marks) the solve is traced: it stamps
+    its start and end, each level's start and each round's relaxer, and
+    sets each round's count."""
+    if marks is not None:
+        marks.solve()
     h, w = u0.shape
     c = geo1.shape[0]
     kiters = cfg.kiters
@@ -159,6 +182,8 @@ def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
     full = torch.cat([geo1, geo2, u0[None], v0[None]])
     u = v = None
     for k, factor, (nyy, nxx), lambdac_k in level_schedule(cfg, h, w):
+        if marks is not None:
+            marks.start_level(k)
         if k == kiters - 1:
             g1, g2 = geo1, geo2
             uhat, vhat = u0, v0
@@ -176,14 +201,26 @@ def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
             g1, g2, u, v, uhat, vhat,
             cfg.alpha, cfg.lambda_over_alpha, lambdac_k, cfg.cg_tol,
             cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim,
-            solver=cfg.solver, sor_omega=cfg.sor_omega, plain=plain, count=count)
+            solver=cfg.solver, sor_omega=cfg.sor_omega, plain=plain, count=count,
+            marks=marks)
+    if marks is not None:
+        marks.solved()
     return u, v, count
 
 
+def _record(solver: str, count, marks, nodes=None, guarded=()) -> None:
+    """``ops.record_pair`` of a solve, and where it was traced, its round
+    counts and stamps."""
+    ops.record_pair(solver, count, nodes, guarded, None if marks is None else marks.rounds)
+    if marks is not None:
+        profiling.attach(marks)
+
+
 def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
-    """The eager solve: (u, v)."""
-    u, v, count = _pair(geo1, geo2, u0, v0, cfg, plain)
-    ops.record_pair(cfg.solver, count)
+    """The eager solve: (u, v); traced while the tracer is on."""
+    marks = _marks(cfg, u0.device) if profiling.enabled() else None
+    u, v, count = _pair(geo1, geo2, u0, v0, cfg, plain, marks)
+    _record(cfg.solver, count, marks)
     return u, v
 
 
@@ -287,6 +324,13 @@ class CapturedPair:
     bodies (``nodes``) and, for each kind of guarded body (one per device
     tally, ops.guard), the launches of one body; each replay reports these
     with the tallies of the bodies that ran to ``ops.record_pair``.
+
+    The warm-up and the capture are the tracer's spans
+    ``octane.program.warm_up`` and ``octane.program.capture``.  A program
+    made while the tracer is on is traced (``marks``, a
+    utils.profiling.Marks made before the capture): its graph also holds
+    the solve's stamps and round counts, and each pair files them
+    (``profiling.attach``, ``ops.record_pair``).
     """
 
     label = "flow program"
@@ -303,6 +347,7 @@ class CapturedPair:
         self.nodes: dict = {}
         self.guarded: list = []         # [(launches of one body, its device tally)]
         self.capture_seconds = None
+        self.marks = None               # a traced solve's profiling.Marks
 
     def __call__(self, geo1, geo2, u0, v0):
         if (tuple(geo1.shape) != (self.nchan, *self.shape) or geo2.shape != geo1.shape
@@ -313,8 +358,9 @@ class CapturedPair:
         if not self.captures:
             return self._eager(geo1, geo2, u0, v0)
         if not self.warmed:
-            u, v, count = self._warm_up(geo1, geo2, u0, v0)
-            ops.record_pair(self.cfg.solver, count)
+            with profiling.span("octane.program.warm_up"):
+                u, v, count = self._warm_up(geo1, geo2, u0, v0)
+                _record(self.cfg.solver, count, self.marks)
             return u, v
         if self.graph is None:
             self._capture(geo1, geo2, u0, v0)
@@ -322,8 +368,8 @@ class CapturedPair:
             buf.copy_(t)
         self.graph.replay()
         u, v, count = (t.clone() for t in self.outputs)
-        ops.record_pair(self.cfg.solver, count, self.nodes,
-                        guarded=[(body, tally.clone()) for body, tally in self.guarded])
+        _record(self.cfg.solver, count, self.marks, self.nodes,
+                [(body, tally.clone()) for body, tally in self.guarded])
         return u, v
 
     def _solve(self, geo1, geo2, u0, v0):
@@ -351,11 +397,11 @@ class CapturedPair:
                   for t in (geo1, geo2, u0, v0)]
         before = {name: fn.launches for name, fn in ops.WRAPPERS.items()}
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
+        span = profiling.Span("octane.program.capture")
         try:
             # thread_local: the capture refuses this thread's unsafe calls, not
             # those of other threads, such as NCCL's watchdog polling its events
-            with (recording() as bodies, torch.cuda.device(dev),
+            with (span, recording() as bodies, torch.cuda.device(dev),
                   torch.cuda.graph(graph, pool=_graph_pool(dev),
                                    capture_error_mode="thread_local"),
                   _forked([d for d in self.devices if d != dev])):
@@ -364,7 +410,7 @@ class CapturedPair:
             captured = {name: fn.launches - before[name] for name, fn in ops.WRAPPERS.items()}
             for name, fn in ops.WRAPPERS.items():
                 fn.launches = before[name]
-        self.capture_seconds = time.perf_counter() - t0
+        self.capture_seconds = span.seconds
         kinds = {}      # (id(tally), place in its decision) -> (tally, launches of one body)
         for tally, index, body in bodies:
             if tally is None:
@@ -386,9 +432,11 @@ class FlowProgram(CapturedPair):
     def __init__(self, cfg: OFConfig, shape, nchan: int, device):
         device = _device(device)
         super().__init__(cfg, shape, nchan, device, device.type == "cuda")
+        if self.captures and profiling.enabled():
+            self.marks = _marks(cfg, device)
 
     def _solve(self, geo1, geo2, u0, v0):
-        return _pair(geo1, geo2, u0, v0, self.cfg)
+        return _pair(geo1, geo2, u0, v0, self.cfg, marks=self.marks)
 
     def _eager(self, geo1, geo2, u0, v0):
         return _coarse_to_fine(geo1, geo2, u0, v0, self.cfg)
@@ -396,11 +444,11 @@ class FlowProgram(CapturedPair):
 
 def program_key(cfg: OFConfig, shape, nchan: int, device) -> tuple:
     """The fields a program is keyed on: those of octane_tpu's
-    flow_program (variational.py:262-263) but its TPU option, and the
-    device."""
+    flow_program (variational.py:262-263) but its TPU option, the device,
+    and whether the tracer is on (a traced program captures its stamps)."""
     return (tuple(shape), nchan, cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor,
             cfg.kiters, cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim,
-            cfg.solver, cfg.sor_omega, cfg.cg_tol, _device(device))
+            cfg.solver, cfg.sor_omega, cfg.cg_tol, _device(device), profiling.enabled())
 
 
 def flow_program(cfg: OFConfig, shape, nchan: int, device) -> FlowProgram:

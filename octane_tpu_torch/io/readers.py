@@ -42,6 +42,7 @@ from octane_tpu_torch.io.native import requantize
 from octane_tpu_torch.nav.goes import F64, navcal_goes
 from octane_tpu_torch.nav.mercator import mercator_latlon
 from octane_tpu_torch.nav.polar import polar_latlon
+from octane_tpu_torch.utils import profiling
 
 DTOR = math.pi / 180.0
 
@@ -157,22 +158,27 @@ def _rows(row_range) -> slice:
     return slice(None) if row_range is None else slice(*row_range)
 
 
+@profiling.traced("octane.ingest")
 def scene_from_goes_arrays(counts, x, y, nav: NavConstants, cfg: OFConfig,
                            device, donav: bool = True, t: float = 0.0,
                            t_units: str = "", band: int = 13, row_range=None) -> Scene:
     """Channel-1 Scene from raw arrays: int16 counts (H, W), scan-coordinate
     counts x (W,) and y (H,), and the file's NavConstants; with
-    ``row_range``, rows [r0, r1) of them."""
+    ``row_range``, rows [r0, r1) of them.  The tracer's span
+    ``octane.ingest``, with ``octane.ingest.h2d`` and
+    ``octane.ingest.navcal`` (utils.profiling)."""
     rows = _rows(row_range)
-    counts = torch.as_tensor(np.asarray(counts[rows], np.int16), device=device)
-    x = torch.as_tensor(np.asarray(x, np.int16), device=device)
-    y = torch.as_tensor(np.asarray(y[rows], np.int16), device=device)
+    with profiling.span("octane.ingest.h2d"):
+        counts = torch.as_tensor(np.asarray(counts[rows], np.int16), device=device)
+        x = torch.as_tensor(np.asarray(x, np.int16), device=device)
+        y = torch.as_tensor(np.asarray(y[rows], np.int16), device=device)
     # normalisation range: band table unless overridden (oct_fileread.cc:341-359)
     vmin, vmax = band_min_max(band)
     vmin = cfg.norm_min if cfg.norm_min is not None else vmin
     vmax = cfg.norm_max if cfg.norm_max is not None else vmax
-    data, lat, lon = navcal_goes(counts, x, y, nav, channel=0,
-                                 norm_min=vmin, norm_max=vmax, donav=donav)
+    with profiling.span("octane.ingest.navcal", counts.device):
+        data, lat, lon = navcal_goes(counts, x, y, nav, channel=0,
+                                     norm_min=vmin, norm_max=vmax, donav=donav)
     sc = Scene(nav=nav, data=data.to(torch.float32)[None].contiguous(), t=t,
                t_units=t_units, band=(float(band), 0, 0), x=x, y=y,
                raw_counts=counts[None])

@@ -13,6 +13,9 @@ the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
 ``pcg_pass_a_band`` and ``bilateral_band`` (the assembly takes a band's
 rows itself).
 
+``stamp`` is the tracer's clock stamp (``ops.stamp``, csrc/stamp.cu),
+launched only while utils.profiling's tracer is on.
+
 A pair reports its device count of PCG iterations or SOR passes through
 ``record_pair``; a replayed pair (flow.variational.FlowProgram,
 parallel.sharded.ShardedFlowProgram) also reports what its graph launches,
@@ -22,7 +25,11 @@ body, which ran as often as that kind's device count says.
 ``counters()`` adds those to the wrappers' own counts, reading the device
 counts there and nowhere else, and gives the last pair's count as
 ``pcg_iterations`` / ``sor_passes``.  A replay adds nothing to the
-drivers' host syncs.
+drivers' host syncs.  A traced pair (utils.profiling's ``Marks``) also
+reports each GNC round's count; they are summed over pairs on the device
+and given as ``pcg_iterations_by_round`` / ``sor_passes_by_round``, lists
+of kiters x gnc_steps x liters counts in the order the rounds run (empty
+where no traced pair ran since the last reset).
 """
 
 import torch
@@ -31,6 +38,7 @@ from octane_tpu_torch.ops import assemble as _assemble
 from octane_tpu_torch.ops import bilateral as _bilateral
 from octane_tpu_torch.ops import pcg as _pcg
 from octane_tpu_torch.ops import sor as _sor
+from octane_tpu_torch.ops import stamp as _stamp
 from octane_tpu_torch.ops import warp as _warp
 
 WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
@@ -38,7 +46,8 @@ WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "assemble_pcg": _assemble.assemble_pcg,
             "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral,
             "warp_band": _warp.warp_band, "pcg_pass_a_band": _pcg.pcg_pass_a_band,
-            "sor_pass_band": _sor.sor_pass_band, "bilateral_band": _bilateral.bilateral_band}
+            "sor_pass_band": _sor.sor_pass_band, "bilateral_band": _bilateral.bilateral_band,
+            "stamp": _stamp.stamp}
 PATHS = {"pcg": ("warp", "assemble_pcg", "pcg_pass_a", "pcg_pass_b"),
          "sor": ("warp", "assemble_cf", "sor_pass"),
          "srsal": ("bilateral",),
@@ -50,6 +59,7 @@ PATHS = {"pcg": ("warp", "assemble_pcg", "pcg_pass_a", "pcg_pass_b"),
 _last_count: dict = {}      # solver -> the last pair's device count
 _graph_nodes: dict = {}     # wrapper -> launches of replayed unguarded nodes
 _graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launches
+_by_round: dict = {}        # solver -> int64 device sums of the traced pairs' rounds
 
 
 def reset_counters() -> None:
@@ -58,18 +68,22 @@ def reset_counters() -> None:
         fn.plain_calls = 0
     for driver in (_pcg.pcg_solve_fused, _sor.sor_solve_cf):
         driver.host_syncs = 0
-    for tally in (_last_count, _graph_nodes, _graph_bodies):
+    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round):
         tally.clear()
 
 
-def record_pair(solver: str, count, nodes=None, guarded=()) -> None:
+def record_pair(solver: str, count, nodes=None, guarded=(), rounds=None) -> None:
     """Note a pair of ``solver`` whose relaxer ran ``count`` (an int32
     device scalar) iterations or passes.  For a replayed graph, ``nodes``
     {wrapper: launches} are its nodes outside guarded bodies and
     ``guarded`` [({wrapper: launches of one body}, the device tally of the
     bodies that ran), ...] has one pair per kind of guarded body; the
-    guarded launches are summed on the device, with no host read."""
+    guarded launches are summed on the device, with no host read.  A
+    traced pair gives ``rounds``, its int32 device count of each round."""
     _last_count[solver] = count
+    if rounds is not None:
+        total = _by_round.get(solver)
+        _by_round[solver] = rounds.to(torch.int64) + (0 if total is None else total)
     for name, n in (nodes or {}).items():
         _graph_nodes[name] = _graph_nodes.get(name, 0) + n
     for body, ran in guarded:
@@ -80,8 +94,8 @@ def record_pair(solver: str, count, nodes=None, guarded=()) -> None:
 
 def counters() -> dict:
     """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
-    host syncs and the last pair's iterations (PCG) and passes (SOR), read
-    from the device.  A wrapper's launches include those of replayed
+    host syncs, the last pair's iterations (PCG) and passes (SOR) and the
+    traced pairs' counts by round, read from the device.  A wrapper's launches include those of replayed
     graphs (see the module docstring)."""
     launches = {name: fn.launches + _graph_nodes.get(name, 0)
                 for name, fn in WRAPPERS.items()}
@@ -92,6 +106,7 @@ def counters() -> dict:
     out["sor_host_syncs"] = _sor.sor_solve_cf.host_syncs
     for key, solver in (("pcg_iterations", "pcg"), ("sor_passes", "sor")):
         out[key] = int(_last_count[solver]) if solver in _last_count else 0
+        out[f"{key}_by_round"] = _by_round[solver].tolist() if solver in _by_round else []
     return out
 
 

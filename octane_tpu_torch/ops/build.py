@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+from octane_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -49,6 +51,7 @@ _SIGNATURES = {
     "octane_bilateral_band": (I, [P] * 5 + [I] * 7 + [F, P]),
     "octane_if_begin": (I, [P] * 3),
     "octane_if_end": (I, [P]),
+    "octane_stamp": (I, [P, I, P]),
     "octane_error_string": (ctypes.c_char_p, [I]),
 }
 
@@ -109,19 +112,21 @@ def build_kernels():
 
 
 def load_kernels() -> ctypes.CDLL:
-    """The kernel library, built on first use; ``.build_info`` holds the
-    nvcc command, its seconds and the ptxas report."""
+    """The kernel library, built on first use (the tracer's span
+    ``octane.kernels.load``); ``.build_info`` holds the nvcc command, its
+    seconds and the ptxas report."""
     global _lib
     with _lock:
         if _lib is None:
-            path, info = build_kernels()
-            lib = ctypes.CDLL(path)
-            for name, (res, args) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = res
-                fn.argtypes = args
-            lib.build_info = info
-            _lib = lib
+            with profiling.span("octane.kernels.load"):
+                path, info = build_kernels()
+                lib = ctypes.CDLL(path)
+                for name, (res, args) in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype = res
+                    fn.argtypes = args
+                lib.build_info = info
+                _lib = lib
     return _lib
 
 

@@ -294,7 +294,7 @@ for _fn in (pcg_pass_a, pcg_pass_a_band, pcg_pass_b):
 
 
 def pcg_solve_cf(cf, b, partials, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg_pass_b,
-                 count=None):
+                 count=None, round_count=None):
     """Solve A x = b from x = 0 with the two passes; returns (du, dv).
 
     ``cf`` is the (3|7, h, w) coefficient stack (3 planes: the quadratic
@@ -303,7 +303,8 @@ def pcg_solve_cf(cf, b, partials, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg
     block partials of the first sums (``initial_partials``).
     ``pass_a``/``pass_b`` default to the wrappers; the solver's plain route
     passes the plain versions.  ``count``, an int32 device scalar, gains
-    the iterations that ran.
+    the iterations that ran; ``round_count``, one of a traced solve
+    (utils.profiling.Marks), is set to them.
 
     The state lives in buffers fixed before the loop, so that a skipped
     body leaves nothing stale: x, p and r ping-pong between two sets
@@ -342,6 +343,8 @@ def pcg_solve_cf(cf, b, partials, tol, iters: int, pass_a=pcg_pass_a, pass_b=pcg
     x = x + ab[0] * torch.where(odd, ps[1], ps[0])     # the final deferred update
     if count is not None:
         count.add_(ran)
+    if round_count is not None:
+        round_count.copy_(ran)
     return x[0], x[1]
 
 

@@ -257,17 +257,18 @@ sor_pass_band.plain_calls = 0
 
 
 def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_pass,
-                 count=None):
+                 count=None, round_count=None):
     """Multi-sweep SOR from x = 0 on a coefficient stack; returns (du, dv).
 
     ``resid0`` is ||b||^2 (a device scalar, e.g. the sum of the assembly's
     partials); ``pass_fn`` defaults to the wrapper, and the solver's plain
     route passes the counted plain version.  ``count``, an int32 device
-    scalar, gains the passes that ran.  The passes ping-pong between two
-    iterate buffers (pass k reads buffer k % 2), and the passes that ran,
-    counted on the device, pick the final one by their parity.  The
-    remainder pass runs under the main passes' guard: the residual exceeds
-    tol after the loop only if no main pass was skipped.
+    scalar, gains the passes that ran; ``round_count``, one of a traced
+    solve (utils.profiling.Marks), is set to them.  The passes ping-pong
+    between two iterate buffers (pass k reads buffer k % 2), and the
+    passes that ran, counted on the device, pick the final one by their
+    parity.  The remainder pass runs under the main passes' guard: the
+    residual exceeds tol after the loop only if no main pass was skipped.
     """
     _check_cf("sor_solve_cf", cf)
     if iters < 1:
@@ -294,6 +295,8 @@ def sor_solve_cf(cf, resid0, tol, iters: int, omega: float = OMEGA, pass_fn=sor_
     x = torch.where(ran % 2 == 1, bufs[1], bufs[0])
     if count is not None:
         count.add_(ran)
+    if round_count is not None:
+        round_count.copy_(ran)
     return x[0], x[1]
 
 

@@ -28,7 +28,9 @@ program's replay on a (1, 4) mesh of cuda:0, against the eager and plain
 banded routes, with and without the reach test's wide body, and, where the
 machine has 2 cards or more, the banded program captured across the cards
 (band i on cuda:i) and each process's program over NCCL (skipped below 2
-cards).
+cards).  A traced program (utils.profiling) writes its stamps in order and
+on the host clock and counts its rounds; an untraced one launches the same
+kernels and no stamp.
 """
 
 import numpy as np
@@ -640,3 +642,65 @@ def test_nccl_program_replay_equals_the_eager_route(dev, tmp_path, solver):
         np.testing.assert_array_equal(got["v"], v[r0:r1].cpu().numpy())
         replay, eager = got["replay"], got["eager"]
         assert replay[-1] == 0 and (replay[:-1] == eager[:-1]).all() and replay[-2] > 0
+
+
+@pytest.mark.parametrize("solver", ["pcg", "sor"])
+def test_traced_program_stamps_on_the_host_clock(dev, solver):
+    """The tracer (utils.profiling) on the card: a traced program's replay
+    writes its stamps in order, and each, on the host clock, lies at or
+    after the host time its launch was enqueued, less 20 us, as do an eager
+    span's; the round counts sum to the pair's count.  The untraced
+    program's replay launches the same kernels and no stamp."""
+    import time
+
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.utils import profiling
+
+    h, w = 256, 256
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in bench_pair(h, w))
+    z = torch.zeros((h, w), device=dev)
+    cfg = OFConfig(kiters=3, solver=solver)
+    key = "pcg_iterations" if solver == "pcg" else "sor_passes"
+    rounds = cfg.kiters * cfg.gnc_steps * cfg.liters
+    launches, flows = {}, {}
+    try:
+        for on in (False, True):
+            if on:
+                profiling.enable()
+            prog = fv.flow_program(cfg, (h, w), 1, dev)
+            while prog.graph is None:       # the warm-up, then the capture
+                prog(im1, im2, z, z)
+            torch.cuda.synchronize()
+            ops.reset_counters()
+            profiling.reset()
+            t_enq = time.perf_counter_ns()
+            with profiling.span("octane.test", dev):
+                flows[on] = prog(im1, im2, z, z)
+            torch.cuda.synchronize()
+            c = ops.counters()
+            launches[on] = {name: c[name][0] for name in ops.WRAPPERS}
+            if on:
+                stamps = prog.marks.stamps.tolist()
+                assert len(stamps) == 2 + cfg.kiters + 2 * rounds
+                assert stamps == sorted(stamps)
+                recs = profiling.records()[None]
+                stamped = [s for s in recs if s.device_start is not None]
+                assert len(stamped) == 2 + cfg.kiters + rounds      # test, solve, levels, rounds
+                assert all(s.device_start >= t_enq - 20_000 for s in stamped)
+                test = next(s for s in recs if s.name == "octane.test")
+                assert test.device_start >= test.start - 20_000
+                assert test.device_end >= max(s.device_end for s in stamped)
+                assert len(c[f"{key}_by_round"]) == rounds
+                assert sum(c[f"{key}_by_round"]) == c[key]
+            profiling.disable()
+    finally:
+        profiling.disable()
+        profiling.reset()
+        fv.clear_program_cache()
+    assert launches[False]["stamp"] == 0
+    assert launches[True]["stamp"] == 2 + cfg.kiters + 2 * rounds + 2
+    assert ({n: k for n, k in launches[False].items() if n != "stamp"}
+            == {n: k for n, k in launches[True].items() if n != "stamp"})
+    assert all(torch.equal(a, b) for a, b in zip(flows[False], flows[True]))
