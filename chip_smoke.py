@@ -31,7 +31,10 @@ Phases, one line each (any failure exits non-zero):
   4. Jacobi-PCG passes vs their plain versions (bit-exact, block partials
      included: the plain versions sum in the kernels' order) and 30-iteration
      solves vs the reference loop flow.cg.pcg_solve (rel <= 5e-4), quad and
-     robust;
+     robust; then passes A and B, quad and robust, bit-exact at every level
+     shape of the full-disk pyramid (5424^2 .. 678^2) and of a sector's
+     (500^2 .. 63^2), each timed from a CUDA graph of back-to-back launches
+     (as the solver's replay runs them) beside its bound;
   5. the fused assembly vs its plain version (bit-exact, ||b||^2 partials
      included) at 512^2 and 500x372, GNC steps al1 = 1, 0.5, 0, in both
      layouts: the SOR stack (assemble_cf) and the PCG form (assemble_pcg:
@@ -362,6 +365,31 @@ def compare_passes(x, r, p, ap_in, cf, ab):
     err_b = max(float((k - q).abs().max()) for k, q in zip(kb, pb))
     part_rel = max(rel(ka[3].sum(), pa[3].sum()), rel(kb[1].sum(0), pb[1].sum(0)))
     return equal, err_a, err_b, part_rel
+
+
+def graph_ms(fn, n=40, reps=5):
+    """Device milliseconds per call of ``fn``: n calls captured in one CUDA
+    graph, launched back to back as the solver's replay launches them (no
+    host time between), the median of ``reps`` replays after one warm-up."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[reps // 2]
 
 
 def cuda_ms(fn, n=10):
@@ -707,6 +735,56 @@ def phase_pcg(dev, report):
             err_a, err_b = max(err_a, ea), max(err_b, eb)
     report["pcg_pass_a"] = {"max_abs_err": err_a}
     report["pcg_pass_b"] = {"max_abs_err": err_b}
+    pcg_level_times(dev, report)
+
+
+PCG_LEVELS = ((FULLDISK, 2712, 1356, 678), (500, 250, 125, 63))   # full disk, a sector
+
+
+def pcg_pass_bounds(h, w, nc):
+    """(bound ms, by) of passes A and B on an (h, w) image with nc
+    coefficient planes: A reads x, r, p and the planes and writes x, p', ap;
+    B reads r, ap and the diagonals and writes r."""
+    plane = h * w * 4
+    return (bound((12 + nc) * plane, (20 if nc == 3 else 30) * h * w),
+            bound(8 * plane, 14 * h * w))
+
+
+def pcg_level_times(dev, report):
+    """Passes A and B, quad and robust, at every level shape of both
+    pyramids: bit-exact to their plain versions, then timed from a graph."""
+    from octane_tpu_torch.ops import pcg
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+    rows = {}
+    for side in (n for levels in PCG_LEVELS for n in levels):
+        h = w = side
+        for quad in (True, False):
+            mode = "quad" if quad else "robust"
+            nc = 3 if quad else 7
+            cf = torch.cat([uniform((2, h, w), 4.5, 9.0), uniform((1, h, w), -0.2, 0.2),
+                            uniform((nc - 3, h, w), -1.0, -0.3)])
+            x, r, p, ap = (uniform((2, h, w), -10, 10) for _ in range(4))
+            ab = torch.tensor([0.37, 0.81], device=dev)
+            alpha = ab[:1].clone()
+            equal, *_ = compare_passes(x, r, p, ap, cf, ab)
+            if not equal:
+                raise AssertionError(f"pcg {h}x{w} {mode}: a pass differs from its plain version")
+            outs = tuple(torch.empty_like(x) for _ in range(3))
+            r_out = torch.empty_like(r)
+            ta = graph_ms(lambda: pcg.pcg_pass_a(x, r, p, cf, ab, out=outs))
+            tb = graph_ms(lambda: pcg.pcg_pass_b(r, ap, cf, alpha, out=r_out))
+            (ba, _), (bb, _) = pcg_pass_bounds(h, w, nc)
+            say("pcg", f"{h}x{w} {mode}: bit-exact True; pass A {ta:.4f} ms ({100 * ba / ta:.1f} % "
+                       f"of {ba:.4f}), pass B {tb:.4f} ms ({100 * bb / tb:.1f} % of {bb:.4f})")
+            rows[f"{h}x{w}_{mode}"] = {"pass_a_ms": ta, "pass_b_ms": tb, "pass_a_bound_ms": ba,
+                                       "pass_b_bound_ms": bb}
+            del cf, x, r, p, ap, outs, r_out
+    report["_pcg_levels"] = rows
 
 
 def sample_stack(g2):
@@ -1214,11 +1292,8 @@ def phase_fulldisk(dev, report):
                 tb = (cuda_ms(lambda: pcg_pass_b(r, ap, cf, alpha)),
                       cuda_ms(lambda: pcg_pass_b_plain(r, ap, cf, alpha), n=3))
                 times[f"pcg_pass_a_{mode}"], times[f"pcg_pass_b_{mode}"] = ta, tb
-                # pass A: x, r, p, cf in, x, p', ap out; pass B: r, ap and
-                # the diagonal in, r out
-                bounds[f"pcg_pass_a_{mode}"] = bound((12 + cf.shape[0]) * plane,
-                                                     (20 if quad else 30) * h * w)
-                bounds[f"pcg_pass_b_{mode}"] = bound(8 * plane, 14 * h * w)
+                bounds[f"pcg_pass_a_{mode}"], bounds[f"pcg_pass_b_{mode}"] = pcg_pass_bounds(
+                    h, w, cf.shape[0])
                 line += (f", pcg_pass_a {ta[0]:.3f} ms (plain {ta[1]:.3f} ms), "
                          f"pcg_pass_b {tb[0]:.3f} ms (plain {tb[1]:.3f} ms)")
             say("fulldisk", line)

@@ -102,8 +102,16 @@ def test_warp_kernel_bit_exact_multichannel(dev, hw, c):
     assert torch.equal(stats, warp.warp_block_stats(u, v))
 
 
+# the 2-row / 2-column minimum; widths one short of and past a partial block
+# (32 columns) and pass A's tile (64); heights one short of and past one and
+# two of pass A's tiles (16 rows, csrc/pcg.cu); the ragged rows and columns
+# of the 1356 and 678 pyramid levels
+PCG_SHAPES = [(256, 384), (97, 131), (2, 2), (40, 31), (40, 33), (40, 63), (40, 65), (15, 70),
+              (17, 70), (31, 70), (33, 70), (1356, 678)]
+
+
 @pytest.mark.parametrize("quad", [True, False])
-@pytest.mark.parametrize("hw", [(256, 384), (97, 131)])
+@pytest.mark.parametrize("hw", PCG_SHAPES)
 def test_pcg_kernels_match_plain(dev, hw, quad):
     h, w = hw
     rng = np.random.default_rng(1)
@@ -369,8 +377,11 @@ def test_sor_pass_band_kernel_bit_exact(dev, splits, quad, sweeps):
 
 
 @pytest.mark.parametrize("quad", [True, False])
-@pytest.mark.parametrize("splits", BAND_SPLITS)
+@pytest.mark.parametrize("splits", BAND_SPLITS + [(0, 1, 8, 17, 130), (0, 7, 16, 121, 129, 130),
+                                                  (0, 15, 32, 97, 130)])
 def test_pcg_pass_a_band_kernel_bit_exact(dev, splits, quad):
+    """Bands of 1, 7, 8 and 9 rows beside longer ones, and bands that end one
+    short of and one past a tile of pass A."""
     h, w = 130, 200
     rng = np.random.default_rng(33)
     s = _sor_system(h, w, quad, dev)
