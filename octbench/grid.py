@@ -1,8 +1,11 @@
 """The GOES-R fixed grid and band calibration of a configuration, as an L1b
 file gives them: int16 scan-coordinate counts x (W,) and y (H,) with their
-float32 scale and offset, the imager projection and the band's Planck and
-count constants.  A frozen copy of what the port's reader returns for such
-a file (tests/torch_fixtures.goes_arrays), in plain numpy and floats.
+float32 scale and offset, the imager projection and the band's count,
+Planck and kappa0 constants.  A frozen copy of what the port's reader
+returns for such a file (tests/torch_fixtures.goes_arrays), in plain numpy
+and floats.  A reflective band's file (bands 1-6) carries kappa0 and no
+usable Planck constants: a calibration without them reads 0 for each, as
+the port's NavConstants defaults do.
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ def nav_constants(cfg: dict) -> dict:
         lpo=float(cfg["lpo"]), lat0=0.0, gip_val=0.0,
         inverse_flattening=float(cfg["inverse_flattening"]),
         rad_scale=(f32(cal["rad_scale"]), 1.0, 1.0), rad_offset=(f32(cal["rad_offset"]), 0.0, 0.0),
-        fk1=(f32(cal["fk1"]), 0.0, 0.0), fk2=(f32(cal["fk2"]), 0.0, 0.0),
-        bc1=(f32(cal["bc1"]), 0.0, 0.0), bc2=(f32(cal["bc2"]), 0.0, 0.0),
+        **{k: (f32(cal.get(k, 0.0)), 0.0, 0.0) for k in ("fk1", "fk2", "bc1", "bc2")},
         kap1=(f32(cal["kap1"]), 0.0, 0.0))
 
 
@@ -48,8 +50,9 @@ def scan_angles(cfg: dict, device, dtype=torch.float32):
     return x[None, :], y[:, None]
 
 
-def earth_latlon(cfg: dict, device, dtype=torch.float32):
-    """(lat degrees, on-earth mask) of every pixel; lat is 0 off the earth."""
+def _surface(cfg: dict, device, dtype):
+    """The earth point seen at every pixel: (sx, sy, sz, on-earth mask,
+    satellite distance, req^2 / rpol^2)."""
     nav = nav_constants(cfg)
     x, y = scan_angles(cfg, device, dtype)
     req, rpol = nav["req"], nav["rpol"]
@@ -62,6 +65,18 @@ def earth_latlon(cfg: dict, device, dtype=torch.float32):
     d = b * b - 4.0 * a * c
     on = d >= 0
     rs = (-b - torch.sqrt(torch.clamp(d, min=0.0))) / (2.0 * a)
-    sx, sy, sz = rs * cosx * cosy, -rs * sinx, rs * cosx * siny
+    return rs * cosx * cosy, -rs * sinx, rs * cosx * siny, on, h_sat, ratio
+
+
+def earth_latlon(cfg: dict, device, dtype=torch.float32):
+    """(lat degrees, on-earth mask) of every pixel; lat is 0 off the earth."""
+    sx, sy, sz, on, h_sat, ratio = _surface(cfg, device, dtype)
     lat = torch.atan(ratio * sz / torch.sqrt((h_sat - sx) ** 2 + sy * sy)) * (180.0 / math.pi)
     return torch.where(on, lat, torch.zeros_like(lat)), on
+
+
+def earth_lon(cfg: dict, device, dtype=torch.float32):
+    """Longitude degrees east of every pixel; 0 off the earth."""
+    sx, sy, _, on, h_sat, _ = _surface(cfg, device, dtype)
+    lon = cfg["lpo"] - torch.atan2(sy, h_sat - sx) * (180.0 / math.pi)
+    return torch.where(on, lon, torch.zeros_like(lon))

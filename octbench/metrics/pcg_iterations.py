@@ -1,7 +1,11 @@
 """pcg_iterations: PCG iterations a pair over the traced window, the
-device count of pass A's launches (ops.counters(), read after the window)."""
+device count of pass A's launches (ops.counters(), read after the window);
+on a mesh, the band form's launches over the number of bands
+(roofline.work)."""
+
+from octbench import roofline
 
 
 def read(run):
-    n = run.window_counters.get("pcg_pass_a", 0)
+    n = roofline.work(run.config["settings"], run.window_counters, "pcg")
     return n / run.pairs if n and run.pairs else None

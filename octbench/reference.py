@@ -1,12 +1,22 @@
 """The plain reference of one GOES pair: ingest, coarse-to-fine solve with
 either relaxer, and pix2uv's int16 winds.
 
-Plain PyTorch, dense whole-image operations, on any device.  It imports
-neither jax, the JAX package nor the port; it restates the semantics the
-port documents (OCTANE's modified Zimmer / Brox variational flow, SURVEY.md
-section 8; oct_navcal_cuda.cu, oct_variational_optical_flow.cu,
-oct_pix2uv_cuda.cu) with straightforward reductions (``torch.sum``), so it
-agrees with the port to float32 round-off, not bit for bit.
+Plain PyTorch on any device.  It imports neither jax, the JAX package nor
+the port; it restates the semantics the port documents (OCTANE's modified
+Zimmer / Brox variational flow, SURVEY.md section 8; oct_navcal_cuda.cu,
+oct_variational_optical_flow.cu, oct_pix2uv_cuda.cu) with straightforward
+reductions (``torch.sum``), so it agrees with the port to float32
+round-off, not bit for bit.
+
+Every stage runs in blocks of whole rows (``row_blocks``: ``BLOCK_PIXELS``
+pixels, or ``block_rows`` rows), each with the neighbour rows its stencil
+reads, so that one 21696 x 21696 pair fits one 80 GB card: a stage's
+per-pixel arithmetic is that of the whole image, so its outputs are the
+same bits whatever the blocks.  The relaxers' dot products are summed
+block by block; a plane of up to ``BLOCK_PIXELS`` pixels (a 5424 x 5424
+full disk) is one block.  The warp's samples live one block at a time,
+a round's system and the relaxer's state as whole planes, and the level's
+image stack and its derivatives only for their level.
 
 ``Precision`` says in which types it computes: the configuration's
 (navigation float64, solve float32, the relaxers' dot products summed in
@@ -28,6 +38,7 @@ DTOR = math.pi / 180.0
 EARTH_RADIUS = 6371000.0
 PSI_EPS = 1e-6
 PASS_SWEEPS = 8             # SOR: red+black sweeps between two stopping tests
+BLOCK_PIXELS = 1 << 25      # pixels of a row block: a 5424 x 5424 plane is one block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,26 +56,58 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def row_blocks(h: int, w: int, block_rows: int = None):
+    """[(r0, r1)]: the row blocks of an (h, w) plane, ``block_rows`` rows
+    each (default: ``BLOCK_PIXELS`` pixels)."""
+    n = block_rows or max(1, BLOCK_PIXELS // w)
+    return [(r0, min(r0 + n, h)) for r0 in range(0, h, n)]
+
+
+def _slab(r0: int, r1: int, h: int, halo: int):
+    """The rows [s0, s1) that a stencil of ``halo`` rows reads for the
+    block [r0, r1) of h rows."""
+    return max(r0 - halo, 0), min(r1 + halo, h)
+
+
+class _Sum:
+    """A dot product summed block by block in ``acc`` (None: the type of
+    the products); one block's is torch.sum's whole-plane sum."""
+
+    def __init__(self, acc):
+        self.acc, self.total = acc, None
+
+    def add(self, a, b):
+        part = torch.sum(a * b, dtype=self.acc)
+        self.total = part if self.total is None else self.total + part
+
+    def value(self, dtype):
+        return self.total.to(dtype)
+
+
 # --------------------------------------------------------------------------
 # ingest: navigation, calibration and normalisation (oct_navcal_cuda.cu:11-98)
 # --------------------------------------------------------------------------
 
 def normalised(counts, nav: dict, vmin: float, vmax: float, device,
-               prec: Precision = REFERENCE) -> torch.Tensor:
+               prec: Precision = REFERENCE, block_rows: int = None) -> torch.Tensor:
     """(H, W) float32 [0, 255] data of int16 counts: radiance, limb ramp
     (1 below 0.021 rad^2 from the sub-satellite point, 0 from 0.0212),
     normalised from the band's [vmin, vmax], computed in ``prec.nav``."""
     dt = prec.nav
+    counts = np.asarray(counts)
     h, w = counts.shape
-    c = torch.as_tensor(np.asarray(counts), device=device).to(dt)
+    out = torch.empty((h, w), device=device, dtype=torch.float32)
     x = torch.arange(w, device=device, dtype=dt) * nav["x_scale"] + nav["x_offset"]
-    y = torch.arange(h, device=device, dtype=dt) * nav["y_scale"] + nav["y_offset"]
-    sub2 = x[None, :] * x[None, :] + y[:, None] * y[:, None]
     slope = 1.0 / (0.021 - 0.0212)
-    ramp = torch.where(sub2 < 0.021, 1.0,
-                       torch.where(sub2 >= 0.0212, 0.0, slope * sub2 + (1.0 - 0.021 * slope)))
-    rad = c * nav["rad_scale"][0] + nav["rad_offset"][0]
-    return (ramp * ((rad - vmin) / (vmax - vmin) * 255.0)).to(torch.float32)
+    for r0, r1 in row_blocks(h, w, block_rows):
+        c = torch.as_tensor(counts[r0:r1], device=device).to(dt)
+        y = torch.arange(r0, r1, device=device, dtype=dt) * nav["y_scale"] + nav["y_offset"]
+        sub2 = x[None, :] * x[None, :] + y[:, None] * y[:, None]
+        ramp = torch.where(sub2 < 0.021, 1.0,
+                           torch.where(sub2 >= 0.0212, 0.0, slope * sub2 + (1.0 - 0.021 * slope)))
+        rad = c * nav["rad_scale"][0] + nav["rad_offset"][0]
+        out[r0:r1] = (ramp * ((rad - vmin) / (vmax - vmin) * 255.0)).to(torch.float32)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -87,38 +130,55 @@ def _clamped_shifts(a, k: int, axis: int):
     return lambda off: p.narrow(axis, k + off, n)
 
 
-def _neighbours(f):
-    """at(di, dj) -> f's neighbour (i + di, j + dj), |di|, |dj| <= 1, with
+def _neighbours(f, lo: int = 0, n: int = None):
+    """at(di, dj) -> the neighbour (i + di, j + dj), |di|, |dj| <= 1, of
+    rows [lo, lo + n) of ``f`` (a slab holding the rows next to them), with
     the solver's mirror-at-1 edges (the neighbour beyond an edge is the one
     on the other side), as views of one padded array."""
     h, w = f.shape[-2:]
+    n = h - lo if n is None else n
     x = F.pad(f.reshape((-1, h, w)), (1, 1, 1, 1), mode="reflect")
     x = x.reshape(tuple(f.shape[:-2]) + (h + 2, w + 2))
-    return lambda di, dj: x[..., 1 + di:1 + di + h, 1 + dj:1 + dj + w]
+    return lambda di, dj: x[..., 1 + lo + di:1 + lo + di + n, 1 + dj:1 + dj + w]
 
 
-def gradients(img):
+def _derivative(img, axis: int, out=None, block_rows: int = None):
+    """4th-order central difference along ``axis``, clamped taps, into ``out``."""
+    h, w = img.shape[-2:]
+    out = torch.empty_like(img) if out is None else out
+    for r0, r1 in row_blocks(h, w, block_rows):
+        s0, s1 = _slab(r0, r1, h, 2)
+        at = _clamped_shifts(img[..., s0:s1, :], 2, axis)
+        d = (-at(2) + 8.0 * at(1) - 8.0 * at(-1) + at(-2)) / 12.0
+        out[..., r0:r1, :] = d[..., r0 - s0:r1 - s0, :]
+    return out
+
+
+def gradients(img, block_rows: int = None):
     """4th-order central differences, clamped taps: (d/dx, d/dy)."""
-    def d(axis):
-        at = _clamped_shifts(img, 2, axis)
-        return (-at(2) + 8.0 * at(1) - 8.0 * at(-1) + at(-2)) / 12.0
-    return d(-1), d(-2)
+    return _derivative(img, -1, block_rows=block_rows), _derivative(img, -2, block_rows=block_rows)
 
 
 def zoom_size(n: int, factor: float) -> int:
     return int(float(n) * factor + 0.5)
 
 
-def _blur(img, factor: float):
-    """The pyramid's Gaussian: sigma 0.6 sqrt(1/f^2 - 1), half-width
-    max(trunc(2 / sqrt(2 f)), 5), normalised over 2 half-width + 1 taps of
-    which taps -half-width .. half-width - 1 are applied, clamped edges."""
+def _blur_taps(factor: float):
+    """(half-width, taps) of the pyramid's Gaussian: sigma 0.6 sqrt(1/f^2 -
+    1), half-width max(trunc(2 / sqrt(2 f)), 5), normalised over 2
+    half-width + 1 taps."""
     sigma = 0.6 * math.sqrt(1.0 / (factor * factor) - 1.0)
     fs = max(int(2.0 / math.sqrt(2.0 * factor)), 5)
     s = 2.0 * sigma * sigma
     x = np.arange(-fs, fs + 1, dtype=np.float64)
     k = np.exp(-(x * x) / s) / (math.pi * s)
-    k = (k / k.sum()).astype(np.float32)
+    return fs, (k / k.sum()).astype(np.float32)
+
+
+def _blur(img, factor: float):
+    """The pyramid's Gaussian, of which taps -half-width .. half-width - 1
+    are applied, clamped edges."""
+    fs, k = _blur_taps(factor)
 
     def conv(a, axis):
         at = _clamped_shifts(a, fs, axis)
@@ -130,17 +190,25 @@ def _blur(img, factor: float):
     return conv(conv(img, -1), -2)
 
 
-def downsample(img, factor: float):
-    """Blur at full resolution, then sample (trunc(j / f), trunc(i / f))."""
+def downsample(img, factor: float, block_rows: int = None):
+    """Blur at full resolution, then sample (trunc(j / f), trunc(i / f)),
+    in blocks of the input's rows."""
     h, w = img.shape[-2:]
-    b = _blur(img, factor)
     f = _f32(factor)
+    fs, _ = _blur_taps(factor)
 
     def idx(n_out, n_in):
         pos = torch.arange(n_out, dtype=torch.float32, device=img.device)
         return torch.clamp(torch.trunc(pos / f).long(), 0, n_in - 1)
-    return b.index_select(-2, idx(zoom_size(h, factor), h)).index_select(
-        -1, idx(zoom_size(w, factor), w))
+    ri, ci = idx(zoom_size(h, factor), h), idx(zoom_size(w, factor), w)
+    out = img.new_empty(tuple(img.shape[:-2]) + (ri.numel(), ci.numel()))
+    per = max(1, int((block_rows or max(1, BLOCK_PIXELS // w)) * factor))
+    for o0 in range(0, ri.numel(), per):
+        o1 = min(o0 + per, ri.numel())
+        s0, s1 = _slab(int(ri[o0]), int(ri[o1 - 1]) + 1, h, fs)
+        b = _blur(img[..., s0:s1, :], factor)
+        out[..., o0:o1, :] = b.index_select(-2, ri[o0:o1] - s0).index_select(-1, ci)
+    return out
 
 
 def _catmull_rom(n_in: int, n_out: int, device, dtype):
@@ -167,14 +235,16 @@ def zoom_flow(uv, new_hw, scale_factor: float):
     return torch.matmul(torch.matmul(ry, uv), rx.T) / _f32(scale_factor)
 
 
-def warp(stack, u, v):
-    """Bilinear samples of (K, H, W) at (i + u, j + v) with the conditional
-    clamp: positions outside the image are clamped to it and flagged.
-    Positions are float32 whatever the type of the samples."""
+def warp(stack, u, v, r0: int = 0):
+    """Bilinear samples of (K, H, W) at (i + u, j + v) of the rows [r0, r0 +
+    n) that (n, W) u and v give, with the conditional clamp: positions
+    outside the image are clamped to it and flagged.  Positions are float32
+    whatever the type of the samples."""
     k, h, w = stack.shape
+    n = u.shape[0]
     dt = stack.dtype
     px = torch.arange(w, device=u.device, dtype=torch.float32)[None, :] + u.float()
-    py = torch.arange(h, device=u.device, dtype=torch.float32)[:, None] + v.float()
+    py = torch.arange(r0, r0 + n, device=u.device, dtype=torch.float32)[:, None] + v.float()
     bc_x = (px < 0) | (px >= w)
     bc_y = (py < 0) | (py >= h)
     iv = torch.where(px < 0, 0.0, torch.where(px >= w, float(w - 1), px))
@@ -187,7 +257,7 @@ def warp(stack, u, v):
     idx = (j1 * w + i1).reshape(-1)
 
     def take(off):
-        return flat[:, idx + off].reshape(k, h, w)
+        return flat[:, idx + off].reshape(k, n, w)
     return p3 * (p1 * take(0) + p2 * take(1)) + p4 * (p1 * take(w) + p2 * take(w + 1)), \
         bc_x, bc_y
 
@@ -197,12 +267,16 @@ def psi(x):
 
 
 def assemble(samples, bc_x, bc_y, g1, gx1, gy1, u, v, uhat, vhat, al1, alpha, lam_a,
-             lambdac, dozim):
+             lambdac, dozim, lo: int = 0):
     """The linearised Euler-Lagrange system around (u, v) of one GNC round:
     (diagonal blocks a1, a2, a4, off-diagonals [west, north, east, south]
-    (-1 in the quadratic round al1 = 1), right-hand sides bu, bv)."""
+    (-1 in the quadratic round al1 = 1), right-hand sides bu, bv).  Of the
+    rows [lo, lo + n) of the slabs u and v, where the samples and the other
+    planes hold those n rows."""
     c = g1.shape[0]
-    nu, nv = _neighbours(u), _neighbours(v)
+    n = samples.shape[-2]
+    nu, nv = _neighbours(u, lo, n), _neighbours(v, lo, n)
+    u, v = nu(0, 0), nv(0, 0)
     uW, uE, uN, uS = nu(0, -1), nu(0, 1), nu(-1, 0), nu(1, 0)
     vW, vE, vN, vS = nv(0, -1), nv(0, 1), nv(-1, 0), nv(1, 0)
     nsum_u, nsum_v = uW + uN + uE + uS, vW + vN + vE + vS
@@ -271,10 +345,13 @@ def assemble(samples, bc_x, bc_y, g1, gx1, gy1, u, v, uhat, vhat, al1, alpha, la
     return a1, a2, a4, off, bu, bv
 
 
-def apply_a(sysm, x):
-    """A x of the (2, H, W) iterate [u, v] with the mirror-at-1 edges."""
+def apply_a(sysm, x, lo: int = 0):
+    """A x of the (2, H, W) iterate [u, v] with the mirror-at-1 edges: of
+    the rows [lo, lo + n) of the slab ``x``, where the system holds those n
+    rows."""
     a1, a2, a4, off, _, _ = sysm
-    at = _neighbours(x)
+    at = _neighbours(x, lo, a1.shape[-2])
+    x = at(0, 0)
     if off is None:
         nb = -(at(0, -1) + at(-1, 0) + at(0, 1) + at(1, 0))
     else:
@@ -282,69 +359,133 @@ def apply_a(sysm, x):
     return torch.stack([a1 * x[0] + a2 * x[1], a2 * x[0] + a4 * x[1]]) + nb
 
 
-def _dot(a, b, acc=None):
-    return torch.sum(a * b, dtype=acc).to(a.dtype)
+def _rows(sysm, r0: int, r1: int):
+    """The system's rows [r0, r1)."""
+    a1, a2, a4, off, bu, bv = sysm
+    return (a1[r0:r1], a2[r0:r1], a4[r0:r1], None if off is None else [o[r0:r1] for o in off],
+            bu[r0:r1], bv[r0:r1])
 
 
-def pcg(sysm, tol: float, iters: int, acc=None):
+def pcg(sysm, tol: float, iters: int, acc=None, block_rows: int = None):
     """Jacobi-preconditioned CG from x = 0: stop once ||r||^2 <= tol or
-    after ``iters`` iterations.  Returns (du, dv, iterations)."""
+    after ``iters`` iterations.  Returns (du, dv, iterations).  A p is
+    applied block by block twice, for <p, A p> and for the update, so
+    that no plane of it is kept."""
     a1, _, a4, _, bu, bv = sysm
-    diag = torch.stack([a1, a4])
+    h, w = bu.shape
+    blocks = row_blocks(h, w, block_rows)
+
+    def diag(r0, r1):
+        return torch.stack([a1[r0:r1], a4[r0:r1]])
+
+    def ap(r0, r1):
+        s0, s1 = _slab(r0, r1, h, 1)
+        return apply_a(_rows(sysm, r0, r1), p[:, s0:s1], r0 - s0)
+
     r = torch.stack([bu, bv])
     x = torch.zeros_like(r)
-    z = r / diag
-    p = z
-    rz = _dot(r, z, acc)
-    resid = _dot(r, r, acc)
+    p = torch.empty_like(r)
+    rz, rr = _Sum(acc), _Sum(acc)
+    for r0, r1 in blocks:
+        z = r[:, r0:r1] / diag(r0, r1)
+        p[:, r0:r1] = z
+        rz.add(r[:, r0:r1], z)
+        rr.add(r[:, r0:r1], r[:, r0:r1])
+    rz, resid = rz.value(r.dtype), rr.value(r.dtype)
     k = 0
     while k < iters and float(resid) > tol:
-        ap = apply_a(sysm, p)
-        step = rz / _dot(p, ap, acc)
-        x = x + step * p
-        r = r - step * ap
-        resid = _dot(r, r, acc)
-        z = r / diag
-        rz_new = _dot(r, z, acc)
-        p = z + (rz_new / rz) * p
+        pap = _Sum(acc)
+        for r0, r1 in blocks:
+            pap.add(p[:, r0:r1], ap(r0, r1))
+        step = rz / pap.value(r.dtype)
+        rz_new, rr = _Sum(acc), _Sum(acc)
+        for r0, r1 in blocks:
+            x[:, r0:r1] = x[:, r0:r1] + step * p[:, r0:r1]
+            rb = r[:, r0:r1] - step * ap(r0, r1)
+            r[:, r0:r1] = rb
+            rr.add(rb, rb)
+            rz_new.add(rb, rb / diag(r0, r1))
+        resid, rz_new = rr.value(r.dtype), rz_new.value(r.dtype)
+        beta = rz_new / rz
+        for r0, r1 in blocks:
+            p[:, r0:r1] = r[:, r0:r1] / diag(r0, r1) + beta * p[:, r0:r1]
         rz = rz_new
         k += 1
     return x[0], x[1], k
 
 
-def sor(sysm, tol: float, iters: int, omega: float, acc=None):
+def sor(sysm, tol: float, iters: int, omega: float, acc=None, block_rows: int = None):
     """Red-black SOR from x = 0 with the exact 2 x 2 block solve, in passes
     of up to 8 red+black sweeps (``iters`` in all): a pass runs while the
     residual that the previous pass found on entry (||b||^2 before the
-    first) exceeds ``tol``.  Returns (du, dv, passes)."""
+    first) exceeds ``tol``.  Returns (du, dv, passes).  A half-sweep
+    writes a second buffer, so every block reads the iterate it started
+    from."""
     a1, a2, a4, _, bu, bv = sysm
     h, w = bu.shape
+    blocks = row_blocks(h, w, block_rows)
     red = (torch.arange(h, device=bu.device)[:, None] + torch.arange(w, device=bu.device)) % 2 == 0
-    rdet = 1.0 / (a1 * a4 - a2 * a2)
     b = torch.stack([bu, bv])
+    rdet = torch.empty_like(bu)
+    resid = _Sum(acc)
+    for r0, r1 in blocks:
+        rdet[r0:r1] = 1.0 / (a1[r0:r1] * a4[r0:r1] - a2[r0:r1] * a2[r0:r1])
+        resid.add(b[:, r0:r1], b[:, r0:r1])
+    resid = resid.value(b.dtype)
     x = torch.zeros_like(b)
+    spare = torch.empty_like(x)
 
-    def half(x, mask, want_resid):
-        r = b - apply_a(sysm, x)
-        d = torch.stack([(a4 * r[0] - a2 * r[1]) * rdet, (a1 * r[1] - a2 * r[0]) * rdet])
-        return torch.where(mask, x + omega * d, x), (_dot(r, r, acc) if want_resid else None)
+    def half(x, out, mask, want_resid: bool):
+        total = _Sum(acc)
+        for r0, r1 in blocks:
+            s0, s1 = _slab(r0, r1, h, 1)
+            sb = _rows(sysm, r0, r1)
+            r = b[:, r0:r1] - apply_a(sb, x[:, s0:s1], r0 - s0)
+            d = torch.stack([(sb[2] * r[0] - sb[1] * r[1]) * rdet[r0:r1],
+                             (sb[0] * r[1] - sb[1] * r[0]) * rdet[r0:r1]])
+            out[:, r0:r1] = torch.where(mask[r0:r1], x[:, r0:r1] + omega * d, x[:, r0:r1])
+            if want_resid:
+                total.add(r, r)
+        return out, x, (total.value(b.dtype) if want_resid else None)
 
     s_main = min(PASS_SWEEPS, iters)
     n_main, s_rem = divmod(iters, s_main)
     sizes = [s_main] * n_main + ([s_rem] if s_rem else [])
-    resid = _dot(b, b, acc)
     passes = 0
     for sweeps in sizes:
         if not float(resid) > tol:
             break
-        x, entry = half(x, red, True)
-        x, _ = half(x, ~red, False)
+        x, spare, entry = half(x, spare, red, True)
+        x, spare, _ = half(x, spare, ~red, False)
         for _ in range(sweeps - 1):
-            x, _ = half(x, red, False)
-            x, _ = half(x, ~red, False)
+            x, spare, _ = half(x, spare, red, False)
+            x, spare, _ = half(x, spare, ~red, False)
         resid = entry
         passes += 1
     return x[0], x[1], passes
+
+
+def system(stack, g1, gx1, gy1, u, v, uhat, vhat, al1, alpha, lam_a, lambdac, dozim,
+           block_rows: int = None):
+    """``assemble`` of the warped samples, block by block: the system's
+    planes (a1, a2, a4, off or None, bu, bv)."""
+    h, w = u.shape
+    planes = None
+    for r0, r1 in row_blocks(h, w, block_rows):
+        s0, s1 = _slab(r0, r1, h, 1)
+        samples, bc_x, bc_y = warp(stack, u[r0:r1], v[r0:r1], r0)
+        part = assemble(samples, bc_x, bc_y, g1[:, r0:r1], gx1[:, r0:r1], gy1[:, r0:r1],
+                        u[s0:s1], v[s0:s1], uhat[r0:r1], vhat[r0:r1], al1, alpha, lam_a,
+                        lambdac, dozim, r0 - s0)
+        del samples, bc_x, bc_y
+        a1, a2, a4, off, bu, bv = part
+        flat = [a1, a2, a4, bu, bv] + (off or [])
+        if planes is None:
+            planes = [t.new_empty((h, w)) for t in flat]
+        for dst, src in zip(planes, flat):
+            dst[r0:r1] = src
+    a1, a2, a4, bu, bv = planes[:5]
+    return a1, a2, a4, (planes[5:] or None), bu, bv
 
 
 def level_schedule(s: dict, h: int, w: int):
@@ -355,7 +496,8 @@ def level_schedule(s: dict, h: int, w: int):
             (s["lambdac"] / s["alpha"]) * (0.5 ** k)
 
 
-def solve(geo1, geo2, u0, v0, s: dict, solver: str, dtype=torch.float32, acc=None):
+def solve(geo1, geo2, u0, v0, s: dict, solver: str, dtype=torch.float32, acc=None,
+          block_rows: int = None):
     """The coarse-to-fine solve of (C, H, W) float32 images from the first
     guess (u0, v0), in ``dtype``, the relaxers' dot products summed in
     ``acc`` (default: ``dtype``): (u, v) float32 and the relaxer's
@@ -371,31 +513,39 @@ def solve(geo1, geo2, u0, v0, s: dict, solver: str, dtype=torch.float32, acc=Non
         if k == s["kiters"] - 1:
             g1, g2, uhat, vhat = geo1, geo2, u0, v0
         else:
-            lvl = downsample(torch.cat([geo1, geo2, u0[None], v0[None]]), factor)
-            g1, g2 = lvl[:c], lvl[c:2 * c]
-            uhat, vhat = lvl[2 * c] * _f32(factor), lvl[2 * c + 1] * _f32(factor)
+            g1, g2 = downsample(geo1, factor, block_rows), downsample(geo2, factor, block_rows)
+            uhat = downsample(u0[None], factor, block_rows)[0] * _f32(factor)
+            vhat = downsample(v0[None], factor, block_rows)[0] * _f32(factor)
         if k == 0:
             u, v = uhat, vhat
         else:
             uv = zoom_flow(torch.stack([u, v]), shape, s["scale_factor"])
             u, v = uv[0], uv[1]
-        gx1, gy1 = gradients(g1)
-        gx2, gy2 = gradients(g2)
-        gxx, _ = gradients(gx2)
-        gxy, gyy = gradients(gy2)
-        stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy])
+            del uv
+        gx1, gy1 = gradients(g1, block_rows)
+        # the level's stack: g2 and its derivatives, each made in its slot
+        stack = g2.new_empty((6 * c,) + tuple(shape))
+        stack[:c] = g2
+        del g2
+        _derivative(stack[:c], -1, stack[c:2 * c], block_rows)
+        _derivative(stack[:c], -2, stack[2 * c:3 * c], block_rows)
+        _derivative(stack[c:2 * c], -1, stack[3 * c:4 * c], block_rows)
+        _derivative(stack[2 * c:3 * c], -1, stack[4 * c:5 * c], block_rows)
+        _derivative(stack[2 * c:3 * c], -2, stack[5 * c:], block_rows)
         for step in range(s["gnc_steps"]):
             al1 = 1.0 - 0.5 * step
             for _ in range(s["liters"]):
-                samples, bc_x, bc_y = warp(stack, u, v)
-                sysm = assemble(samples, bc_x, bc_y, g1, gx1, gy1, u, v, uhat, vhat,
-                                al1, alpha, lam_a, lambdac, s["dozim"])
+                sysm = system(stack, g1, gx1, gy1, u, v, uhat, vhat, al1, alpha, lam_a,
+                              lambdac, s["dozim"], block_rows)
                 if solver == "sor":
-                    du, dv, n = sor(sysm, tol, s["cgiters"], s["sor_omega"], acc)
+                    du, dv, n = sor(sysm, tol, s["cgiters"], s["sor_omega"], acc, block_rows)
                 else:
-                    du, dv, n = pcg(sysm, tol, s["cgiters"], acc)
+                    du, dv, n = pcg(sysm, tol, s["cgiters"], acc, block_rows)
+                del sysm
                 u, v = u + du, v + dv
+                del du, dv
                 work += n
+        del stack, g1, gx1, gy1
     return u.to(torch.float32), v.to(torch.float32), work
 
 
@@ -429,27 +579,32 @@ def _haversine(lat1, lon1, lat2, lon2):
     return EARTH_RADIUS * 2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a))
 
 
-def winds(u, v, nav: dict, dt: float, prec: Precision = REFERENCE):
+def winds(u, v, nav: dict, dt: float, prec: Precision = REFERENCE, block_rows: int = None):
     """(U, V, U_raw, V_raw) int16: trunc(100 m/s) of the zonal and
     meridional great-circle distances between each pixel and its displaced
     end point over ``dt`` s (0 off the earth and beyond the limb,
     0.021 rad^2), and trunc(100 px)."""
     t = prec.nav
     h, w = u.shape
+    out = [torch.empty((h, w), device=u.device, dtype=torch.int16) for _ in range(4)]
     ii = torch.arange(w, device=u.device, dtype=t)[None, :]
-    jj = torch.arange(h, device=u.device, dtype=t)[:, None]
     x0 = ii * nav["x_scale"] + nav["x_offset"]
-    y0 = jj * nav["y_scale"] + nav["y_offset"]
-    x1 = (u.to(t) + ii) * nav["x_scale"] + nav["x_offset"]
-    y1 = (v.to(t) + jj) * nav["y_scale"] + nav["y_offset"]
-    lat0, lon0 = _latlon(x0.expand(h, w), y0.expand(h, w), nav)
-    lat1, lon1 = _latlon(x1, y1, nav)
-    bad = (lat0 < -998.0) | (lat1 < -998.0) | ((x0 * x0 + y0 * y0) > 0.021)
-    du = _haversine(lat0, lon0, lat0, lon1)
-    dv = _haversine(lat0, lon0, lat1, lon0)
-    uw = torch.where(bad, 0.0, torch.where(lon1 >= lon0, du, -du) / dt)
-    vw = torch.where(bad, 0.0, torch.where(lat1 >= lat0, dv, -dv) / dt)
 
     def short(a):
         return torch.trunc(100.0 * a).to(torch.int16)
-    return short(uw), short(vw), short(u), short(v)
+    for r0, r1 in row_blocks(h, w, block_rows):
+        ub, vb = u[r0:r1], v[r0:r1]
+        jj = torch.arange(r0, r1, device=u.device, dtype=t)[:, None]
+        y0 = jj * nav["y_scale"] + nav["y_offset"]
+        x1 = (ub.to(t) + ii) * nav["x_scale"] + nav["x_offset"]
+        y1 = (vb.to(t) + jj) * nav["y_scale"] + nav["y_offset"]
+        lat0, lon0 = _latlon(x0.expand(r1 - r0, w), y0.expand(r1 - r0, w), nav)
+        lat1, lon1 = _latlon(x1, y1, nav)
+        bad = (lat0 < -998.0) | (lat1 < -998.0) | ((x0 * x0 + y0 * y0) > 0.021)
+        du = _haversine(lat0, lon0, lat0, lon1)
+        dv = _haversine(lat0, lon0, lat1, lon0)
+        uw = torch.where(bad, 0.0, torch.where(lon1 >= lon0, du, -du) / dt)
+        vw = torch.where(bad, 0.0, torch.where(lat1 >= lat0, dv, -dv) / dt)
+        for dst, src in zip(out, (uw, vw, ub, vb)):
+            dst[r0:r1] = short(src)
+    return tuple(out)

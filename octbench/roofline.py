@@ -64,15 +64,31 @@ def sor_bound_s(settings, rows, cols, pairs: int, passes: int, c=None) -> float:
                        for px, q in rs)
 
 
+def bands(settings: dict) -> int:
+    """The row bands of the configuration's mesh (``mesh_shape``, rows x
+    cols; 1 without one)."""
+    ry, rx = settings.get("mesh_shape", (1, 1))
+    return ry * rx
+
+
+def work(settings: dict, counters: dict, layer: str):
+    """The relaxer's iterations (PCG) or passes (SOR) in ``counters``
+    ({wrapper: launches}): the whole-image kernel's launches plus the band
+    form's over the number of bands, each band launching it once an
+    iteration or pass."""
+    c = counts()[layer]
+    return counters.get(c["counter"], 0) + counters.get(c["band_counter"], 0) / bands(settings)
+
+
 def share(run, layer: str, kernels) -> float:
     """Percent of the bound that the named kernels reach over the profiled
-    slice, or None where they did not run."""
+    slice, summed over the cards, or None where they did not run."""
     from octbench import trace
 
     kernel_s = trace.kernel_us(run.trace, kernels) / 1e6
-    work = run.slice_counters.get(counts()[layer]["counter"], 0)
-    if kernel_s <= 0 or work <= 0:
+    n = work(run.config["settings"], run.slice_counters, layer)
+    if kernel_s <= 0 or n <= 0:
         return None
     s = run.config["settings"]
     fn = pcg_bound_s if layer == "pcg" else sor_bound_s
-    return 100.0 * fn(s, run.config["rows"], run.config["cols"], run.slice_pairs, work) / kernel_s
+    return 100.0 * fn(s, run.config["rows"], run.config["cols"], run.slice_pairs, n) / kernel_s

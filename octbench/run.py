@@ -17,15 +17,16 @@
    host to its winds on the host.
 3. With ``--trace 1`` the traffic's ``trace_pairs`` pairs run under
    ``torch.profiler`` ahead of the window (the profiled slice), and in the
-   window each layer is timed by a span that ends in a device sync; the
-   cell's per-layer metrics are read from those (``metrics/<name>.py``) in
-   place of the end-to-end ones.
-4. Once the window has closed and the memory peak is read, the programs
-   are freed and the plain reference (``reference.py``) recomputes the
-   compared pairs, drawn from the seed, from the same counts: the ingest,
-   the whole solve (the warm-start chain from its loop's first pair) and
-   the winds.  ``correct`` holds when every number is within the cell's
-   limit (``limits/<cell>.json``).
+   window each layer is timed by a span that ends in a sync of every card
+   the cell uses; the cell's per-layer metrics are read from those
+   (``metrics/<name>.py``) in place of the end-to-end ones.
+4. Once the window has closed and the memory peak of each card is read,
+   the programs are freed, the program's kept outputs go to host memory,
+   and the plain reference (``reference.py``) recomputes on the first card
+   the compared pairs, drawn from the seed, from the same counts: the
+   ingest, the whole solve (the warm-start chain from its loop's first
+   pair) and the winds.  ``correct`` holds when every number is within
+   the cell's limit (``limits/<cell>.json``).
 5. The last line of standard output is the result, in JSON.
 
 It refuses to run (exit 2, no result) without as many CUDA devices as the
@@ -55,12 +56,47 @@ def forbidden_modules(modules=None):
     return sorted(names & set(FORBIDDEN))
 
 
-class Spans:
-    """Per-layer host spans of the traced run, each ended by a device sync
-    and named for the profiler."""
+def cards(device, chips: int):
+    """The devices a cell of ``chips`` cards uses from ``device`` on: the
+    mesh puts band i on cuda:i.  The CPU is one device."""
+    import torch
 
-    def __init__(self, on: bool, device):
-        self.on, self.device = on, device
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", device.index + i) for i in range(chips)]
+
+
+def synchronizer(devices):
+    """A function that waits for every device of ``devices``."""
+    import torch
+
+    def sync():
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+    return sync
+
+
+def device_record(devices) -> dict:
+    """The result's ``device``: the platform, the first card's name, the
+    number of cards, and the memory peak of the fullest card beside each
+    card's peak, in the order of ``devices``."""
+    import torch
+
+    if devices[0].type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": len(devices), "memory_peak_bytes": 0}
+    peaks = [int(torch.cuda.max_memory_allocated(d)) for d in devices]
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(devices[0]),
+            "count": len(devices), "memory_peak_bytes": max(peaks),
+            "memory_peak_bytes_per_card": peaks}
+
+
+class Spans:
+    """Per-layer host spans of the traced run, each ended by a sync of
+    every card and named for the profiler."""
+
+    def __init__(self, on: bool, sync):
+        self.on, self.sync = on, sync
         self.ms = {"ingest": [], "flow": [], "output": []}
 
     @contextlib.contextmanager
@@ -73,8 +109,7 @@ class Spans:
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"octbench.{name}"):
             yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self.sync()
         self.ms[name].append((time.perf_counter() - t0) * 1e3)
 
 
@@ -91,7 +126,10 @@ class Pairs:
         cfg = cell.config
         self.cfg, self.stream, self.device, self.spans = cfg, stream, device, spans
         self.warm_start = cell.traffic["warm_start"]
-        self.ocfg = OFConfig(solver=cell.traffic["solver"], **cfg["settings"])
+        settings = dict(cfg["settings"])
+        if "mesh_shape" in settings:        # a JSON list; the port takes a tuple
+            settings["mesh_shape"] = tuple(settings["mesh_shape"])
+        self.ocfg = OFConfig(solver=cell.traffic["solver"], **settings)
         self.x, self.y = grid.scan_counts(cfg)
         nav = grid.nav_constants(cfg)
 
@@ -143,12 +181,16 @@ def compared_positions(cell, seed: int):
 
 def judge(cell, stream, kept, positions, device, precision=None):
     """Numbers of the comparison: (numbers of the program, numbers of the
-    control or None).  The reference replays each compared loop from its
-    first pair, warm-starting where the traffic does."""
+    control or None).  The program's kept planes wait in host memory; the
+    reference replays each compared loop from its first pair,
+    warm-starting where the traffic does."""
     import torch
 
     from octbench import grid, reference
 
+    for got in kept.values():
+        for name in ("data1", "data2", "u", "v"):
+            got[name] = got[name].cpu()
     cfg, s = cell.config, cell.config["settings"]
     nav = grid.nav_constants(cfg)
     vmin, vmax = cfg["norm_min"], cfg["norm_max"]
@@ -275,7 +317,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda", t_start=Non
         torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         ops.build.load_kernels()
-    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    devices = cards(device, cell.chips)
+    sync = synchronizer(devices)
 
     def phase(name):
         sync()
@@ -288,7 +331,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda", t_start=Non
           f"largest motion {stream.max_px:.3f} px per {cell.config['cadence_s']:g} s, "
           f"calm share {stream.calm_share:.3f} (a sanity check, not a metric)", flush=True)
     positions = compared_positions(cell, seed)
-    spans = Spans(trace, device)
+    spans = Spans(trace, sync)
     pairs = Pairs(cell, stream, device, spans)
     pairs(0)                    # the key's eager pair
     phase("eager_pair")
@@ -331,11 +374,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda", t_start=Non
     window_s = time.perf_counter() - t0
     window_counters = _launches()
 
-    result_device = {"platform": "gpu" if device.type == "cuda" else "cpu",
-                     "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-                     "count": 1,
-                     "memory_peak_bytes": (torch.cuda.max_memory_allocated(device)
-                                           if device.type == "cuda" else 0)}
+    result_device = device_record(devices)
     if device.type == "cuda":
         result_device["power_limit_w"] = _power_limit()
 
@@ -346,8 +385,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda", t_start=Non
         window_counters=window_counters)
     breakdown = None
     if prof is not None:
-        runrec.trace = tr.from_profiler(prof)
-        result_device["busy_s"] = tr.busy_us(runrec.trace) / 1e6
+        runrec.trace = tr.from_profiler(prof, len(devices))
+        result_device["busy_s"] = tr.busy_us(runrec.trace) / runrec.trace.cards / 1e6
         result_device["window_s"] = (runrec.trace.t1 - runrec.trace.t0) / 1e6
         breakdown = {"device_ops": tr.device_ops(runrec.trace),
                      "idle_gaps": tr.idle_gaps(runrec.trace)}
@@ -362,7 +401,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda", t_start=Non
     del pairs.prev
     kept = pairs.kept
     clear_program_cache()
+    t_ref = time.perf_counter()
     numbers, control_numbers = judge(cell, stream, kept, positions, device, control)
+    print(f"comparison: {time.perf_counter() - t_ref:.3f} s", file=sys.stderr, flush=True)
     correct = within(numbers, cell.limits)
     out = {"correct": correct, "attempted": len(latencies), "failed": 0, "metrics": metrics,
            "device": result_device}

@@ -24,7 +24,7 @@ def test_command_prints_a_result(name):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["correct"], out["checks"]
     assert set(out["metrics"]) == {m["name"] for m in spec.cell(name).end_to_end}
-    assert out["device"]["platform"] == "gpu" and out["device"]["count"] == 1
+    assert out["device"]["platform"] == "gpu" and out["device"]["count"] == spec.cell(name).chips
 
 
 def test_without_a_card_the_command_refuses(monkeypatch):

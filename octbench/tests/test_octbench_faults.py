@@ -26,6 +26,17 @@ def test_sound_run_is_correct():
     assert {"pair_ms", "setup_s"} <= set(out["metrics"])
 
 
+@pytest.mark.parametrize("solver", ["pcg", "sor"])
+def test_sound_run_on_bands_is_correct(solver):
+    # settings.mesh_shape as a JSON list: two row bands (on the CPU, both
+    # on the CPU), the kept outputs compared from host memory
+    cell = tiny_cell(solver)
+    cell.config["settings"]["mesh_shape"] = [2, 1]
+    out, numbers = _run(cell, seconds=3.0)
+    assert out["correct"], numbers
+    assert out["device"]["count"] == 1
+
+
 def test_traced_run_reads_its_layers():
     out, _ = _run(tiny_cell("sor"), trace=True)
     assert out["correct"]

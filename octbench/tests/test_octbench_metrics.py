@@ -13,8 +13,8 @@ from octbench import roofline, spec, trace
 def _trace():
     # slice [0, 100) us; kernels overlap at 10-30 and 25-40, one at 60-70;
     # a user-annotation-free device list, host ranges around the gaps
-    dev = [(10.0, 30.0, "pcg_pass_a<true>"), (25.0, 40.0, "pcg_pass_b"),
-           (60.0, 70.0, "Memcpy DtoH (Device -> Pageable)")]
+    dev = [(10.0, 30.0, "pcg_pass_a<true>", 0), (25.0, 40.0, "pcg_pass_b", 0),
+           (60.0, 70.0, "Memcpy DtoH (Device -> Pageable)", 0)]
     host = [(0.0, 100.0, trace.SLICE), (38.0, 62.0, "octbench.output"),
             (39.0, 61.0, "cudaMemcpyAsync"), (65.0, 99.0, "cudaDeviceSynchronize")]
     return trace.Trace(dev, host, 0.0, 100.0)
@@ -84,8 +84,81 @@ def test_share_is_none_without_the_kernels():
                                 config={"settings": SETTINGS, "rows": 100, "cols": 64},
                                 slice_pairs=1)
     assert roofline.share(run, "pcg", ("pcg_pass_a",)) is None
-    run.trace = trace.Trace([(0.0, 1000.0, "pcg_pass_a"), (1000.0, 1500.0, "pcg_pass_b")],
+    run.trace = trace.Trace([(0.0, 1000.0, "pcg_pass_a", 0), (1000.0, 1500.0, "pcg_pass_b", 0)],
                             [], 0.0, 2000.0)
     run.slice_counters = {"pcg_pass_a": 180}
     want = 100 * roofline.pcg_bound_s(SETTINGS, 100, 64, 1, 180) / 1.5e-3
     assert roofline.share(run, "pcg", ("pcg_pass_a", "pcg_pass_b")) == pytest.approx(want)
+
+
+def _two_cards():
+    # card 0 busy 10-40, card 1 busy 30-80 and 90-95, in a slice of 100 us:
+    # 85 us of 200 card-us busy; no card busy 0-10, 80-90 and 95-100 (under
+    # GAP_MIN_US); card 1 alone idle 0-30
+    dev = [(10.0, 30.0, "pcg_pass_a<true, true>", 0), (20.0, 40.0, "pcg_pass_b", 0),
+           (30.0, 80.0, "pcg_pass_a<false, true>", 1), (90.0, 95.0, "memset", 1)]
+    host = [(0.0, 100.0, trace.SLICE), (79.0, 91.0, "cudaStreamSynchronize")]
+    return trace.Trace(dev, host, 0.0, 100.0, cards=2)
+
+
+def test_busy_and_idle_share_per_card():
+    tr = _two_cards()
+    assert trace.busy_us(tr) == pytest.approx(30.0 + 55.0)
+    assert trace.busy_by_card(tr) == pytest.approx({0: 30.0, 1: 55.0})
+    assert trace.idle_share(tr) == pytest.approx(1.0 - 85.0 / 200.0)
+    idle = spec.metric_reader("device_idle_share")
+    assert idle(types.SimpleNamespace(trace=tr)) == pytest.approx(1.0 - 85.0 / 200.0)
+    # a card of the run that did no work counts as idle
+    tr.cards = 4
+    assert trace.idle_share(tr) == pytest.approx(1.0 - 85.0 / 400.0)
+    # gaps are those in which no card is busy
+    gaps = dict(trace.idle_gaps(_two_cards()))
+    assert sum(gaps.values()) == pytest.approx((10.0 + 10.0) * 1e-6)
+    assert gaps["cudaStreamSynchronize"] == pytest.approx(10e-6)
+
+
+def test_one_card_reads_what_the_union_over_the_wall_read():
+    tr = _trace()
+    union = sum(e - s for s, e in trace.union([(s, e) for s, e, *_ in tr.device]))
+    assert trace.busy_us(tr) == union
+    assert trace.idle_share(tr) == 1.0 - union / (tr.t1 - tr.t0)
+
+
+@pytest.mark.parametrize("layer,counter,band_counter,per_pair", [
+    ("pcg", "pcg_pass_a", "pcg_pass_a_band", 180), ("sor", "sor_pass", "sor_pass_band", 24)])
+def test_a_pair_is_counted_once_on_one_band_or_four(layer, counter, band_counter, per_pair):
+    # one pair's work: whole-image launches on one band, each of four bands
+    # launching the band form once an iteration or pass
+    def run(mesh, counters):
+        settings = dict(SETTINGS, **({"mesh_shape": mesh} if mesh else {}))
+        return types.SimpleNamespace(
+            config={"settings": settings, "rows": 100, "cols": 64}, slice_pairs=1,
+            slice_counters=counters, window_counters=counters, pairs=1,
+            trace=trace.Trace([(0.0, 1000.0, f"{counter}<true>", c) for c in range(4)],
+                              [], 0.0, 2000.0, cards=4))
+    one = run(None, {counter: per_pair})
+    four = run([4, 1], {band_counter: 4 * per_pair})
+    kernels = (counter,)
+    assert roofline.share(four, layer, kernels) == roofline.share(one, layer, kernels)
+    assert roofline.work(four.config["settings"], four.slice_counters, layer) == per_pair
+    reader = spec.metric_reader("pcg_iterations" if layer == "pcg" else "sor_passes")
+    assert reader(four) == reader(one) == per_pair
+
+
+@pytest.mark.parametrize("chips", [1, 4])
+def test_device_record_per_card(chips, monkeypatch):
+    import torch
+
+    from octbench import run
+
+    peaks = {0: 7 * 2 ** 30, 1: 9 * 2 ** 30, 2: 8 * 2 ** 30, 3: 2 ** 30}
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda d: peaks[d.index])
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "NVIDIA H100 80GB HBM3")
+    devices = run.cards(torch.device("cuda", 0), chips)
+    assert [d.index for d in devices] == list(range(chips))
+    rec = run.device_record(devices)
+    assert rec["count"] == chips and rec["platform"] == "gpu"
+    assert rec["memory_peak_bytes_per_card"] == [peaks[i] for i in range(chips)]
+    assert rec["memory_peak_bytes"] == max(peaks[i] for i in range(chips))
+    assert rec["kind"] == "NVIDIA H100 80GB HBM3"
+    assert run.device_record(run.cards(torch.device("cpu"), chips))["count"] == 1

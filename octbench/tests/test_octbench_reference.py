@@ -1,6 +1,8 @@
 """The plain reference against the port on the CPU, at 64 x 64 with the
 configuration's settings, and its control: the same reference in the
-precision below the configuration's, which the limits must refuse."""
+precision below the configuration's, which the limits must refuse; and
+the reference in blocks of rows against the same in one block (the
+whole image)."""
 
 import numpy as np
 import pytest
@@ -8,6 +10,10 @@ import torch
 
 from octbench import grid, reference, spec, traffic
 from octbench.tests.tiny import LIMITS
+
+
+def _f32(x):
+    return float(np.float32(x))
 
 
 def _pairs(solver, n=64):
@@ -72,3 +78,85 @@ def test_winds_zero_beyond_the_limb():
     limb = (x * x + y * y > 0.021).numpy()
     assert np.all(U.numpy()[limb] == 0) and np.all(U.numpy()[~limb] > 0)
     assert np.all(Ur.numpy() == 10)
+
+
+def _scene(n):
+    cfg = spec.load_json(f"{spec.HERE}/configs/goes-meso-b13.json")
+    cfg["rows"] = cfg["cols"] = n
+    tr = spec.traffic("meso-loop")
+    tr.update(sequences=1, frames=2)
+    st = traffic.make_stream(cfg, tr, 2 ** 32 + 77 + n, "cpu")
+    return cfg, grid.nav_constants(cfg), st.frames[0]
+
+
+def _level(n, block_rows):
+    """The finest level's stack, gradients and a first guess, made in blocks."""
+    cfg, nav, (c1, c2) = _scene(n)
+    lo, hi = cfg["norm_min"], cfg["norm_max"]
+    d1, d2 = (reference.normalised(c, nav, lo, hi, "cpu", block_rows=block_rows)
+              for c in (c1, c2))
+    gx1, gy1 = reference.gradients(d1[None], block_rows)
+    gx2, gy2 = reference.gradients(d2[None], block_rows)
+    gxx, _ = reference.gradients(gx2, block_rows)
+    gxy, gyy = reference.gradients(gy2, block_rows)
+    stack = torch.cat([d2[None], gx2, gy2, gxx, gxy, gyy])
+    gen = torch.Generator().manual_seed(n)
+    u = 3.0 * torch.rand((n, n), generator=gen) - 1.5
+    v = 3.0 * torch.rand((n, n), generator=gen) - 1.5
+    low = reference.downsample(torch.stack([d1, u]), 0.5, block_rows)
+    return cfg, nav, d1, d2, stack, gx1, gy1, u, v, low
+
+
+@pytest.mark.parametrize("n", [64, 96])
+@pytest.mark.parametrize("al1", [1.0, 0.5])
+def test_blocked_stages_are_the_whole_images(n, al1):
+    # each stage's blocks, with the neighbour rows its stencil reads, give
+    # the bits of the whole image (one block)
+    whole = _level(n, None)
+    blocked = _level(n, 7)
+    for a, b in zip(whole[2:], blocked[2:]):
+        assert torch.equal(a, b)
+    cfg, nav, d1, d2, stack, gx1, gy1, u, v, _ = whole
+    s = cfg["settings"]
+    args = (stack, d1[None], gx1, gy1, u, v, 0.5 * u, 0.5 * v, al1, _f32(s["alpha"]),
+            _f32(s["lambda_"] / s["alpha"]), 0.0, s["dozim"])
+    samples, bc_x, bc_y = reference.warp(stack, u, v)
+    want = reference.assemble(samples, bc_x, bc_y, *args[1:])
+    got = reference.system(*args, block_rows=7)
+    flat = lambda m: [m[0], m[1], m[2], m[4], m[5]] + (m[3] or [])      # noqa: E731
+    assert (want[3] is None) == (al1 == 1.0) and (got[3] is None) == (al1 == 1.0)
+    for a, b in zip(flat(want), flat(got)):
+        assert torch.equal(a, b)
+    x = torch.stack([u, v])
+    ax = torch.cat([reference.apply_a(reference._rows(got, r0, r1),
+                                      x[:, max(r0 - 1, 0):r1 + 1], r0 - max(r0 - 1, 0))
+                    for r0, r1 in reference.row_blocks(n, n, 5)], dim=1)
+    assert torch.equal(ax, reference.apply_a(want, x))
+    for a, b in zip(reference.winds(u, v, nav, 60.0), reference.winds(u, v, nav, 60.0,
+                                                                        block_rows=3)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [64, 96])
+@pytest.mark.parametrize("solver", ["pcg", "sor"])
+def test_blocked_solve_is_the_whole_images(n, solver):
+    # every round of the solve, quadratic and robust; only the dot
+    # products' float64 sums are added in another order
+    cfg, nav, (c1, c2) = _scene(n)
+    d1, d2 = (reference.normalised(c, nav, cfg["norm_min"], cfg["norm_max"], "cpu")
+              for c in (c1, c2))
+    z = torch.zeros_like(d1)
+    runs = [reference.solve(d1[None], d2[None], z + 0.25, z - 0.5, cfg["settings"], solver,
+                            acc=torch.float64, block_rows=b) for b in (None, 9)]
+    (u, v, n_whole), (ub, vb, n_blocked) = runs
+    assert n_whole == n_blocked and n_whole > 0
+    assert float((u - ub).abs().max()) <= 1e-6 and float((v - vb).abs().max()) <= 1e-6
+    assert float(u.abs().max()) > 0.5           # the solve moved: not a trivial equality
+
+
+def test_row_blocks_cover_every_row_once():
+    assert reference.row_blocks(10, 4, 3) == [(0, 3), (3, 6), (6, 9), (9, 10)]
+    assert reference.row_blocks(5424, 5424) == [(0, 5424)]          # a full disk: one block
+    blocks = reference.row_blocks(21696, 21696)
+    assert blocks[0][0] == 0 and blocks[-1][1] == 21696 and len(blocks) == 15
+    assert all(b[1] == c[0] for b, c in zip(blocks, blocks[1:]))

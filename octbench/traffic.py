@@ -1,4 +1,4 @@
-"""The general generator of GOES-R ABI band-13 scan streams.
+"""The general generator of GOES-R ABI scan streams.
 
 A traffic file (``traffic/<name>.json``, resolved by ``spec.traffic``)
 gives the parameters; the seed gives everything else.  Each stream is ``sequences`` loops of ``frames``
@@ -6,7 +6,14 @@ consecutive scans ``cadence_s`` apart (the configuration's cadence), int16
 L1b counts on the configuration's fixed grid:
 
 * space beyond the limb takes the configuration's space count;
-* clear sky has a brightness temperature that falls with latitude;
+* an emissive band (7-16) sees a brightness temperature: clear sky that
+  cools with latitude, cloud tops colder than it (``clouds``), through
+  the band's inverse Planck function into radiance;
+* a reflective band (1-6) sees a reflectance factor (``clouds`` for the
+  decks and the traffic's ``reflectance`` for the rest): a seeded
+  land/ocean surface under the same cloud decks, brighter than it, all
+  scaled by the cosine of the solar zenith angle from the subsolar point
+  and 0 where the sun is down, into radiance through the band's kappa0;
 * cloud decks carry multi-scale texture, power-law spectra made by FFT;
 * the motion is smooth and non-uniform: zonal jets with meanders and
   vortices, damped to calm over part of the scene, capped at
@@ -112,19 +119,55 @@ def motion_px(cfg: dict, mot: dict, lat: torch.Tensor, rng, gen, device):
     return u * dt / px_m, -v * dt / px_m, float((calm > 0.5).float().mean())
 
 
+def cloud_decks(cl: dict, h: int, w: int, gen, device):
+    """(cover, depth, texture): the cloud cover in [0, 1] with edges of
+    width ``edge``, the decks' depth in [0, 1], and the unit texture field
+    that the scene's surface shares."""
+    structure = power_law_field(h, w, cl["structure_slope"], gen, device)
+    texture = power_law_field(h, w, cl["texture_slope"], gen, device)
+    thr = float(torch.special.ndtri(torch.tensor(1.0 - cl["cloud_share"])))
+    cover = torch.sigmoid((structure - thr) / cl["edge"])
+    depth = torch.clamp(structure - thr, min=0.0, max=3.0) / 3.0
+    return cover, depth, texture
+
+
 def brightness_temperature(cl: dict, lat: torch.Tensor, gen, device) -> torch.Tensor:
     """(h, w) float32 kelvin: clear sky cooling with latitude, cloud decks
     of multi-scale texture."""
     h, w = lat.shape
-    structure = power_law_field(h, w, cl["structure_slope"], gen, device)
-    texture = power_law_field(h, w, cl["texture_slope"], gen, device)
+    cover, depth, texture = cloud_decks(cl, h, w, gen, device)
     s = torch.sin(lat * (math.pi / 180.0))
     clear = cl["clear_equator_k"] - cl["clear_drop_k"] * s * s + cl["clear_texture_k"] * texture
-    thr = float(torch.special.ndtri(torch.tensor(1.0 - cl["cloud_share"])))
-    cover = torch.sigmoid((structure - thr) / cl["edge"])
-    depth = torch.clamp(structure - thr, min=0.0, max=3.0) / 3.0
     tops = cl["top_warm_k"] - cl["top_span_k"] * depth + cl["top_texture_k"] * texture
     return clear * (1.0 - cover) + tops * cover
+
+
+def cos_solar_zenith(rf: dict, lat: torch.Tensor, lon: torch.Tensor) -> torch.Tensor:
+    """The cosine of the solar zenith angle at (lat, lon) degrees for the
+    subsolar point (``subsolar_lat_deg``, ``subsolar_lon_deg``), 0 where
+    the sun is below the horizon."""
+    d = math.pi / 180.0
+    lat_s, lon_s = rf["subsolar_lat_deg"] * d, rf["subsolar_lon_deg"] * d
+    mu = math.sin(lat_s) * torch.sin(lat * d) \
+        + math.cos(lat_s) * torch.cos(lat * d) * torch.cos(lon * d - lon_s)
+    return torch.clamp(mu, min=0.0)
+
+
+def reflectance_factor(cl: dict, rf: dict, mu0: torch.Tensor, gen, device) -> torch.Tensor:
+    """(h, w) float32 reflectance factor: a surface of ocean (``ocean``
+    range) and land (``land`` range, over ``land_share`` of the scene with
+    coasts of width ``coast_edge``) under the cloud decks of ``cl``, whose
+    tops span ``cloud_top`` with depth, all times ``mu0``."""
+    h, w = mu0.shape
+    cover, depth, texture = cloud_decks(cl, h, w, gen, device)
+    land_field = power_law_field(h, w, rf["land_slope"], gen, device)
+    thr = float(torch.special.ndtri(torch.tensor(1.0 - rf["land_share"])))
+    land = torch.sigmoid((land_field - thr) / rf["coast_edge"])
+    shade = torch.sigmoid(texture)
+    (o0, o1), (l0, l1), (t0, t1) = rf["ocean"], rf["land"], rf["cloud_top"]
+    surface = (o0 + (o1 - o0) * shade) * (1.0 - land) + (l0 + (l1 - l0) * shade) * land
+    tops = t0 + (t1 - t0) * depth + rf["top_texture"] * texture
+    return (surface * (1.0 - cover) + tops * cover) * mu0
 
 
 def advect(field: torch.Tensor, d_col: torch.Tensor, d_row: torch.Tensor) -> torch.Tensor:
@@ -140,11 +183,21 @@ def advect(field: torch.Tensor, d_col: torch.Tensor, d_row: torch.Tensor) -> tor
                                            padding_mode="border", align_corners=True)[0, 0]
 
 
-def to_counts(bt: torch.Tensor, on_earth: torch.Tensor, cfg: dict) -> torch.Tensor:
-    """Kelvin -> band radiance (the inverse of the reader's Planck) -> int16
-    counts; space takes the space count."""
+def reflective(cfg: dict) -> bool:
+    """Bands 1-6 reflect sunlight; 7-16 are emissive."""
+    return cfg["band"] <= 6
+
+
+def to_counts(field: torch.Tensor, on_earth: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """The scene -> band radiance -> int16 counts; space takes the space
+    count.  An emissive band's scene is kelvin, through the inverse of the
+    reader's Planck function; a reflective band's is a reflectance factor,
+    over kappa0."""
     cal = cfg["calibration"]
-    rad = cal["fk1"] / (torch.exp(cal["fk2"] / (cal["bc1"] + cal["bc2"] * bt)) - 1.0)
+    if reflective(cfg):
+        rad = field / cal["kap1"]
+    else:
+        rad = cal["fk1"] / (torch.exp(cal["fk2"] / (cal["bc1"] + cal["bc2"] * field)) - 1.0)
     counts = torch.round((rad - cal["rad_offset"]) / cal["rad_scale"])
     counts = torch.clamp(counts, 0, cal["max_count"])
     counts = torch.where(on_earth, counts, torch.full_like(counts, cfg["space_count"]))
@@ -155,6 +208,8 @@ def make_stream(cfg: dict, traffic: dict, seed: int, device) -> Stream:
     """The stream of a configuration and traffic mix for ``seed``."""
     gen = _generator(seed, device)
     lat, on_earth = grid.earth_latlon(cfg, device)
+    mu0 = (cos_solar_zenith(traffic["reflectance"], lat, grid.earth_lon(cfg, device))
+           if reflective(cfg) else None)
     frames, times, max_px, calm = [], [], 0.0, []
     for s in range(traffic["sequences"]):
         rng = np.random.default_rng([seed % (1 << 63), s])
@@ -163,12 +218,16 @@ def make_stream(cfg: dict, traffic: dict, seed: int, device) -> Stream:
         d_row = torch.where(on_earth, d_row, torch.zeros_like(d_row))
         max_px = max(max_px, float(torch.sqrt(d_col * d_col + d_row * d_row).max()))
         calm.append(calm_s)
-        bt = brightness_temperature(traffic["clouds"], lat, gen, device)
+        if mu0 is None:
+            scene = brightness_temperature(traffic["clouds"], lat, gen, device)
+        else:
+            scene = reflectance_factor(traffic["clouds"], traffic["reflectance"], mu0, gen,
+                                       device)
         loop, t = [], []
         for i in range(traffic["frames"]):
             if i:
-                bt = advect(bt, d_col, d_row)
-            loop.append(to_counts(bt, on_earth, cfg).cpu().numpy())
+                scene = advect(scene, d_col, d_row)
+            loop.append(to_counts(scene, on_earth, cfg).cpu().numpy())
             t.append(T0 + s * LOOP_GAP_S + i * cfg["cadence_s"])
         frames.append(loop)
         times.append(t)
