@@ -91,8 +91,8 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
                             scene1.x, scene1.y, nav, dt, grid=cfg.grid)
         else:
             have_guess = False
-            u0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
-            v0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+            # one zero seen as a plane: the solvers copy it where they need it
+            u0 = v0 = torch.zeros((), dtype=torch.float32, device=dev).expand(h, w)
 
     # --- flow engine (ref :54-68; "hybrid": patch-match initialization +
     # variational refinement) ------------------------------------------------

@@ -161,9 +161,11 @@ def _relaxer(marks, j: int):
     return contextlib.nullcontext() if marks is None else marks.relax(j)
 
 
-def _marks(cfg: OFConfig, device) -> profiling.Marks:
-    """The stamps and round counts of a traced solve of ``cfg``."""
-    return profiling.Marks(cfg.solver, cfg.kiters, cfg.gnc_steps, cfg.liters, device)
+def _marks(cfg: OFConfig, device, exchanges: bool = False) -> profiling.Marks:
+    """The stamps and round counts of a traced solve of ``cfg`` (with room
+    for a banded solve's exchanges)."""
+    return profiling.Marks(cfg.solver, cfg.kiters, cfg.gnc_steps, cfg.liters, device,
+                           exchanges)
 
 
 def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False, marks=None):
@@ -210,10 +212,17 @@ def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False, marks=None):
 
 def _record(solver: str, count, marks, nodes=None, guarded=()) -> None:
     """``ops.record_pair`` of a solve, and where it was traced, its round
-    counts and stamps."""
-    ops.record_pair(solver, count, nodes, guarded, None if marks is None else marks.rounds)
-    if marks is not None:
-        profiling.attach(marks)
+    counts and stamps; ``marks`` is one Marks, or {device: Marks} of a
+    banded solve, whose first holds the round counts."""
+    every = [] if marks is None else list(marks.values()) if isinstance(marks, dict) else [marks]
+    ops.record_pair(solver, count, nodes, guarded, every[0].rounds if every else None)
+    for m in every:
+        if m.device != every[0].device:
+            # another card's stamps: its copy waits for the pair, which the
+            # first card's stream ran
+            torch.cuda.current_stream(m.device).wait_stream(
+                torch.cuda.current_stream(every[0].device))
+        profiling.attach(m)
 
 
 def _coarse_to_fine(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False):
@@ -349,12 +358,15 @@ class CapturedPair:
         self.capture_seconds = None
         self.marks = None               # a traced solve's profiling.Marks
 
-    def __call__(self, geo1, geo2, u0, v0):
+    def _check(self, geo1, geo2, u0, v0) -> None:
         if (tuple(geo1.shape) != (self.nchan, *self.shape) or geo2.shape != geo1.shape
                 or tuple(u0.shape) != self.shape or v0.shape != u0.shape):
             raise ValueError(f"{self.label} of {self.nchan} x {self.shape}: got images "
                              f"{tuple(geo1.shape)}, {tuple(geo2.shape)} and flows "
                              f"{tuple(u0.shape)}, {tuple(v0.shape)}")
+
+    def __call__(self, geo1, geo2, u0, v0):
+        self._check(geo1, geo2, u0, v0)
         if not self.captures:
             return self._eager(geo1, geo2, u0, v0)
         if not self.warmed:
@@ -365,7 +377,8 @@ class CapturedPair:
         if self.graph is None:
             self._capture(geo1, geo2, u0, v0)
         for buf, t in zip(self.inputs, (geo1, geo2, u0, v0)):
-            buf.copy_(t)
+            if buf is not t:
+                buf.copy_(t)
         self.graph.replay()
         u, v, count = (t.clone() for t in self.outputs)
         _record(self.cfg.solver, count, self.marks, self.nodes,
@@ -391,10 +404,15 @@ class CapturedPair:
         self.warmed = True
         return out
 
+    def _static_inputs(self, geo1, geo2, u0, v0) -> list:
+        """The buffers that the graph reads its inputs from, holding these
+        inputs: copies of them (a subclass may keep its own)."""
+        return [t.to(device=self.device, dtype=torch.float32).clone()
+                for t in (geo1, geo2, u0, v0)]
+
     def _capture(self, geo1, geo2, u0, v0):
         dev = self.device
-        inputs = [t.to(device=dev, dtype=torch.float32).clone()
-                  for t in (geo1, geo2, u0, v0)]
+        inputs = self._static_inputs(geo1, geo2, u0, v0)
         before = {name: fn.launches for name, fn in ops.WRAPPERS.items()}
         graph = torch.cuda.CUDAGraph()
         span = profiling.Span("octane.program.capture")

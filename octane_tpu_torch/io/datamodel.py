@@ -2,7 +2,13 @@
 
 ``Scene`` has the JAX package's fields, with tensors where that package
 holds numpy arrays; ``scene_from_numpy`` carries a JAX-package scene
-(``dataclasses.asdict``) over to the port.
+(``dataclasses.asdict``) over to the port.  A scene's ``lat`` and ``lon``
+may be deferred (``Scene.defer_navigation``): the reader then leaves the
+two float64 planes uncomputed until something reads them, which on a pair
+of winds only a first guess from winds does.  Whatever reads every field
+reads them too: ``dataclasses.asdict``, ``dataclasses.replace``, ``==`` and
+``repr`` of a deferred scene compute its navigation (7.5 GB of float64 at
+21696 x 21696).
 """
 
 from __future__ import annotations
@@ -66,6 +72,29 @@ class NavConstants:
 Tensor = Optional[torch.Tensor]
 
 
+class _Navigation:
+    """A Scene's ``lat`` or ``lon``: the tensor set, or, while the scene's
+    navigation is deferred, both planes computed on the first read of
+    either (``Scene.defer_navigation``), also by an operation on the whole
+    dataclass (asdict, replace, ==, repr).  Its default is None."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, scene, owner=None):
+        if scene is None:
+            return None
+        state = scene.__dict__
+        navigate = state.pop("_navigate", None)
+        if navigate is not None:
+            state["lat"], state["lon"] = navigate()
+        return state.get(self.name)
+
+    def __set__(self, scene, value):
+        scene.__dict__.pop("_navigate", None)
+        scene.__dict__[self.name] = value
+
+
 @dataclasses.dataclass
 class Scene:
     """One satellite image + derived products (reference GOESVar).
@@ -82,8 +111,8 @@ class Scene:
     x: Tensor = None                   # (W,) int16 scan-coordinate counts
     y: Tensor = None                   # (H,) int16
     raw_counts: Tensor = None          # (C, H, W) int16 (float32 on flat grids)
-    lat: Tensor = None                 # (H, W) float64 degrees
-    lon: Tensor = None
+    lat: Tensor = _Navigation()        # (H, W) float64 degrees
+    lon: Tensor = _Navigation()
     cth: Tensor = None                 # (H, W) cloud-top height (m)
     ufg: Tensor = None                 # (H, W) first-guess winds (m/s)
     vfg: Tensor = None
@@ -102,6 +131,20 @@ class Scene:
     dt: float = 0.0                    # t2 - t1 seconds
     frdt: float = 0.0
     t_interp: float = 0.0
+
+    def defer_navigation(self, navigate) -> None:
+        """Leave ``lat`` and ``lon`` to ``navigate()`` -> (lat, lon), called
+        on the first read of either; setting either drops it."""
+        self.__dict__["lat"] = self.__dict__["lon"] = None
+        self.__dict__["_navigate"] = navigate
+
+    def navigation_of(self, other: "Scene") -> None:
+        """Take ``other``'s lat and lon, deferred where they are deferred."""
+        navigate = other.__dict__.get("_navigate")
+        if navigate is None:
+            self.lat, self.lon = other.lat, other.lon
+        else:
+            self.defer_navigation(navigate)
 
     @property
     def shape(self):

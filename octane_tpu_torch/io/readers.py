@@ -28,6 +28,7 @@ those of the whole read bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -39,7 +40,7 @@ from octane_tpu_torch.core.zoom import zoom_in_image_rows, zoom_out_image_rows
 from octane_tpu_torch.io import hdf5
 from octane_tpu_torch.io.datamodel import NavConstants, Scene
 from octane_tpu_torch.io.native import requantize
-from octane_tpu_torch.nav.goes import F64, navcal_goes
+from octane_tpu_torch.nav.goes import F64, navcal_goes, navigate_goes
 from octane_tpu_torch.nav.mercator import mercator_latlon
 from octane_tpu_torch.nav.polar import polar_latlon
 from octane_tpu_torch.utils import profiling
@@ -131,7 +132,7 @@ def read_scene(path: str, cfg: OFConfig, donav: bool = True, channel: int = 1,
     scene.x, scene.y, scene.raw_counts = sc.x, sc.y, sc.raw_counts
     scene.norm_ranges = sc.norm_ranges[:1] + tuple(scene.norm_ranges[1:])
     if donav:
-        scene.lat, scene.lon = sc.lat, sc.lon
+        scene.navigation_of(sc)
     return scene
 
 
@@ -164,9 +165,13 @@ def scene_from_goes_arrays(counts, x, y, nav: NavConstants, cfg: OFConfig,
                            t_units: str = "", band: int = 13, row_range=None) -> Scene:
     """Channel-1 Scene from raw arrays: int16 counts (H, W), scan-coordinate
     counts x (W,) and y (H,), and the file's NavConstants; with
-    ``row_range``, rows [r0, r1) of them.  The tracer's span
-    ``octane.ingest``, with ``octane.ingest.h2d`` and
-    ``octane.ingest.navcal`` (utils.profiling)."""
+    ``row_range``, rows [r0, r1) of them.  The normalised data is computed
+    in row blocks straight into its float32 plane (``nav.goes.navcal_goes``);
+    with ``donav`` the scene's lat and lon are deferred
+    (``Scene.defer_navigation``): ``nav.goes.navigate_goes`` computes them,
+    in row blocks, when first read.  The tracer's span ``octane.ingest``,
+    with ``octane.ingest.h2d`` and ``octane.ingest.navcal``
+    (utils.profiling)."""
     rows = _rows(row_range)
     with profiling.span("octane.ingest.h2d"):
         counts = torch.as_tensor(np.asarray(counts[rows], np.int16), device=device)
@@ -177,14 +182,14 @@ def scene_from_goes_arrays(counts, x, y, nav: NavConstants, cfg: OFConfig,
     vmin = cfg.norm_min if cfg.norm_min is not None else vmin
     vmax = cfg.norm_max if cfg.norm_max is not None else vmax
     with profiling.span("octane.ingest.navcal", counts.device):
-        data, lat, lon = navcal_goes(counts, x, y, nav, channel=0,
-                                     norm_min=vmin, norm_max=vmax, donav=donav)
-    sc = Scene(nav=nav, data=data.to(torch.float32)[None].contiguous(), t=t,
-               t_units=t_units, band=(float(band), 0, 0), x=x, y=y,
-               raw_counts=counts[None])
+        data, _, _ = navcal_goes(counts, x, y, nav, channel=0, norm_min=vmin, norm_max=vmax,
+                                 donav=False, dtype=torch.float32)
+    sc = Scene(nav=nav, data=data[None], t=t, t_units=t_units, band=(float(band), 0, 0),
+               x=x, y=y, raw_counts=counts[None])
     sc.norm_ranges = ((float(vmin), float(vmax)),) + tuple(sc.norm_ranges[1:])
     if donav:
-        sc.lat, sc.lon = lat, lon
+        grid = dataclasses.replace(nav)         # the projection as read now
+        sc.defer_navigation(lambda: navigate_goes(x, y, grid))
     return sc
 
 
@@ -221,8 +226,8 @@ def channel_onto_scene(counts, x, y, band: int, scene: Scene, cfg: OFConfig,
         data, _, _ = navcal_goes(
             torch.as_tensor(np.asarray(counts[s0:s1], np.int16), device=dev), x,
             torch.as_tensor(np.asarray(y[s0:s1], np.int16), device=dev), nav, channel=ci,
-            norm_min=vmin, norm_max=vmax, donav=False)
-        return data.to(torch.float32)
+            norm_min=vmin, norm_max=vmax, donav=False, dtype=torch.float32)
+        return data
 
     h, w = counts.shape
     h1, w1 = nav.ny, nav.nx

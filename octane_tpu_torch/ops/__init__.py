@@ -16,8 +16,11 @@ rows itself).
 ``stamp`` is the tracer's clock stamp (``ops.stamp``, csrc/stamp.cu),
 launched only while utils.profiling's tracer is on.
 
-A pair reports its device count of PCG iterations or SOR passes through
-``record_pair``; a replayed pair (flow.variational.FlowProgram,
+A banded pair also reports, through ``record_wide_rounds``, the device
+tally of its rounds whose band warp fell back to the whole level (the
+reach test's body, parallel.sharded), which ``counters()`` gives as
+``wide_warp_rounds``, the last pair's.  A pair reports its device count of
+PCG iterations or SOR passes through ``record_pair``; a replayed pair (flow.variational.FlowProgram,
 parallel.sharded.ShardedFlowProgram) also reports what its graph launches,
 which the wrappers, called only at capture, do not count: the nodes that
 every replay runs, and for each kind of guarded body the launches of one
@@ -60,6 +63,7 @@ _last_count: dict = {}      # solver -> the last pair's device count
 _graph_nodes: dict = {}     # wrapper -> launches of replayed unguarded nodes
 _graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launches
 _by_round: dict = {}        # solver -> int64 device sums of the traced pairs' rounds
+_wide: dict = {}            # "rounds" -> the last banded pair's device tally of wide warps
 
 
 def reset_counters() -> None:
@@ -68,7 +72,7 @@ def reset_counters() -> None:
         fn.plain_calls = 0
     for driver in (_pcg.pcg_solve_fused, _sor.sor_solve_cf):
         driver.host_syncs = 0
-    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round):
+    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide):
         tally.clear()
 
 
@@ -92,10 +96,17 @@ def record_pair(solver: str, count, nodes=None, guarded=(), rounds=None) -> None
             _graph_bodies[key] = _graph_bodies.get(key, 0) + n * ran.to(torch.int64)
 
 
+def record_wide_rounds(rounds) -> None:
+    """Note a banded pair whose band warp fell back to the whole level in
+    ``rounds`` rounds (an int32 device scalar, read in ``counters()``)."""
+    _wide["rounds"] = rounds
+
+
 def counters() -> dict:
     """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
-    host syncs, the last pair's iterations (PCG) and passes (SOR) and the
-    traced pairs' counts by round, read from the device.  A wrapper's launches include those of replayed
+    host syncs, the last pair's iterations (PCG) and passes (SOR), the
+    traced pairs' counts by round and the last banded pair's
+    ``wide_warp_rounds``, read from the device.  A wrapper's launches include those of replayed
     graphs (see the module docstring)."""
     launches = {name: fn.launches + _graph_nodes.get(name, 0)
                 for name, fn in WRAPPERS.items()}
@@ -107,7 +118,9 @@ def counters() -> dict:
     for key, solver in (("pcg_iterations", "pcg"), ("sor_passes", "sor")):
         out[key] = int(_last_count[solver]) if solver in _last_count else 0
         out[f"{key}_by_round"] = _by_round[solver].tolist() if solver in _by_round else []
+    out["wide_warp_rounds"] = int(_wide["rounds"]) if _wide else 0
     return out
 
 
-__all__ = ["WRAPPERS", "PATHS", "reset_counters", "record_pair", "counters"]
+__all__ = ["WRAPPERS", "PATHS", "reset_counters", "record_pair", "record_wide_rounds",
+           "counters"]

@@ -14,7 +14,8 @@ from one of three fills:
 
 ``LocalExchange`` moves the rows with ``copy_`` into ``out``, a buffer the
 caller allocates once, so the same code serves a neighbour on the same
-device and one on another card of the process.
+device and one on another card of the process (there a plane at a time,
+each one peer DMA).
 
 ``ProcessExchange`` serves bands that live in several processes
 (``torch.distributed``), each process holding tensors for its own bands
@@ -45,6 +46,7 @@ memory (``staged``), which no graph captures: its programs stay eager.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -78,11 +80,19 @@ class LocalExchange:
 
     @staticmethod
     def _copy(parts, a: int, b: int, out, at: int) -> None:
-        """out rows [at, at + b - a) = field rows [a, b), all inside the field."""
+        """out rows [at, at + b - a) = field rows [a, b), all inside the field.
+        Between cards the rows move a plane at a time: each plane's rows are
+        one contiguous block, which the card copies as one peer DMA (the
+        profiler's "Memcpy PtoP") instead of a copy kernel."""
         for r0, t in parts:
             s, e = max(a, r0), min(b, r0 + t.shape[-2])
             if s < e:
-                out[..., at + s - a:at + e - a, :].copy_(t[..., s - r0:e - r0, :])
+                dst, src = out[..., at + s - a:at + e - a, :], t[..., s - r0:e - r0, :]
+                if dst.device == src.device or dst.dim() == 2:
+                    dst.copy_(src)
+                    continue
+                for plane in itertools.product(*map(range, dst.shape[:-2])):
+                    dst[plane].copy_(src[plane])
 
     def fetch(self, parts, a: int, b: int, out: torch.Tensor, fill: str = "edge",
               value: float = 0.0) -> torch.Tensor:

@@ -86,6 +86,7 @@ the mesh's first device.
 
 from __future__ import annotations
 
+import contextlib
 import types
 from typing import Tuple
 
@@ -97,7 +98,7 @@ from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.core.zoom import (flow_rows, pyramid_downsample_rows, pyramid_rows,
                                         zoom_in_flow_rows)
 from octane_tpu_torch.flow.variational import (CapturedPair, _counted_plain, _device, _f32,
-                                               gnc_rounds, level_schedule)
+                                               _marks, _record, gnc_rounds, level_schedule)
 from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
                                            assemble_pcg_plain)
 from octane_tpu_torch.ops.guard import decide, when
@@ -109,6 +110,7 @@ from octane_tpu_torch.parallel import cg as band_cg
 from octane_tpu_torch.parallel import sor as band_sor
 from octane_tpu_torch.parallel.halo import LocalExchange, field_rows, stub
 from octane_tpu_torch.parallel.mesh import mesh_bands
+from octane_tpu_torch.utils import profiling
 
 _PLAIN_WARP = _counted_plain(warp_band, warp_band_plain)
 _PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
@@ -285,7 +287,8 @@ def _home(mesh, exchange) -> torch.device:
     return own[0] if own else exchange.device
 
 
-def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = False):
+def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = False,
+                marks=None, wide_rounds=None):
     """The coarse-to-fine solve on the mesh's bands: the one loop of the
     whole-tensor ``sharded_variational_flow`` and of the multi-process
     ``parallel.distributed.distributed_variational_flow``.
@@ -300,7 +303,13 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
 
     Each level's guarded bodies have device tallies of their own, one for
     the solver's and one for the reach test's, since the bands that run
-    them differ between levels (a band may be empty at a coarse level).
+    them differ between levels (a band may be empty at a coarse level);
+    ``wide_rounds``, an int32 device scalar where given, is set to the rounds
+    whose reach test's body ran.  ``marks`` ({device: utils.profiling.Marks},
+    the first band's device first) traces the solve on each of this
+    process's cards: the solve, its levels, the relaxer's rounds and the
+    exchanges (the level's fetch of its sample stack, each round's ghost
+    rows of u and v).
     Each decision is taken on every device of the level's local bands
     (ops.guard.Gate), with every transfer at the top level: the whole
     level's sample stack that the reach test's body warps from is fetched
@@ -315,8 +324,15 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
     alpha, lam_a = _f32(cfg.alpha), _f32(cfg.lambda_over_alpha)
     dev0 = _home(mesh, exchange)
     count = torch.zeros((), dtype=torch.int32, device=dev0)
+    marks = marks or {}
+    if wide_rounds is not None:
+        wide_rounds.zero_()
+    for m in marks.values():
+        m.solve()
     bands = prev = None
     for k, factor, hw, lambdac_k in level_schedule(cfg, h, w):
+        for m in marks.values():
+            m.start_level(k)
         lambdac_k = _f32(lambdac_k)
         top = k == cfg.kiters - 1
         first = bands is None
@@ -328,7 +344,8 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
                                for b in bands], exchange)
         in_body = exchange.staged or band_sor.one_body(devs, exchange)
         if not in_body:
-            level = _fetch_level(bands, exchange, hw[0])
+            with _traced(marks, "exchange"):
+                level = _fetch_level(bands, exchange, hw[0])
             for b in bands:
                 if b.local:
                     b.level = level[b.dev]
@@ -358,7 +375,7 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
                 bands = [b for b in bands if b.local and b.dev == d]
             _warp_wide(bands, exchange, h_level, warp_fn, widened if d == dev0 else None)
 
-        for al1 in gnc_rounds(cfg.gnc_steps, cfg.liters):
+        for j, al1 in enumerate(gnc_rounds(cfg.gnc_steps, cfg.liters)):
             for b in bands:
                 if b.local:
                     warp_fn(b.stack, b.uv[0], b.uv[1], b.s0, b.a0, hw[0], out=b.warped)
@@ -367,8 +384,13 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
             for d in devs:
                 gate(d, lambda d=d: wide(d))
             guard_reads.reads += gate.read
-            du = round_fn(bands, hw[0], al1, lambdac_k, alpha, lam_a, cfg, exchange, plain,
-                          solved)
+            with _traced(marks, "relax", j) as ran:
+                if ran is not None:
+                    ran.copy_(solved)
+                du = round_fn(bands, hw[0], al1, lambdac_k, alpha, lam_a, cfg, exchange, plain,
+                              solved)
+                if ran is not None:         # the round's count: solved's gain
+                    torch.sub(solved, ran, out=ran)
             for b, d in zip(bands, du):
                 if b.local:
                     b.interior(b.uv).add_(d.to(b.dev))
@@ -377,20 +399,39 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
             for b in bands:
                 reqs += [(b.i, b.a0, b.r0, b.uv[:, :b.r0 - b.a0] if b.local else None),
                          (b.i, b.r1, b.a1, b.uv[:, b.r1 - b.a0:] if b.local else None)]
-            exchange.fetch_bands(prev, reqs)
+            with _traced(marks, "exchange", j):
+                exchange.fetch_bands(prev, reqs)
         count.add_(solved)
+        if wide_rounds is not None:
+            wide_rounds.add_(widened)
         wc = hw[1]
+    for m in marks.values():
+        m.solved()
     return prev, count
 
 
-def _banded_pair(geo1, geo2, u0, v0, cfg: OFConfig, mesh, exchange, plain: bool = False):
+@contextlib.contextmanager
+def _traced(marks: dict, what: str, *args):
+    """The block between stamps on every card of ``marks`` (``Marks.relax``
+    or ``Marks.exchange``); yields the first card's round slot of a relaxer
+    round, else None.  Without marks, nothing."""
+    with contextlib.ExitStack() as stack:
+        slots = [stack.enter_context(getattr(m, what)(*args)) for m in marks.values()]
+        yield slots[0] if slots else None
+
+
+def _banded_pair(geo1, geo2, u0, v0, cfg: OFConfig, mesh, exchange, plain: bool = False,
+                 field=None, marks=None, wide_rounds=None):
     """``banded_flow`` of whole tensors within one process: (u, v) on the
-    mesh's first device, and the relaxer's device count."""
+    mesh's first device, and the relaxer's device count.  ``field``, where
+    given, is the (2C + 2, H, W) [geo1, geo2, u0, v0] already joined."""
     # the full-resolution inputs as one field of 2C + 2 planes; each band
     # reads its rows of it through the exchange
-    full = [(0, torch.cat([geo1, geo2, u0[None], v0[None]]))]
-    prev, count = banded_flow(full, u0.shape, geo1.shape[0], cfg, mesh, exchange, plain)
-    uv = exchange.rows(prev, 0, u0.shape[0], prev[0][1].device)
+    if field is None:
+        field = torch.cat([geo1, geo2, u0[None], v0[None]])
+    prev, count = banded_flow([(0, field)], tuple(field.shape[1:]), (field.shape[0] - 2) // 2,
+                              cfg, mesh, exchange, plain, marks, wide_rounds)
+    uv = exchange.rows(prev, 0, field.shape[1], prev[0][1].device)
     return uv[0], uv[1], count
 
 
@@ -446,13 +487,14 @@ def sharded_program_key(cfg: OFConfig, shape, nchan: int, mesh, exchange=None) -
     """The fields a banded program is keyed on: octane_tpu's
     (sharded.py:231-234) with the mesh's shape and devices in place of its
     identity, and without its TPU option or its true shape (the bands are
-    not padded); a program over processes (a ``ProcessExchange``) adds the
+    not padded), and whether the tracer is on (a traced program captures
+    its stamps); a program over processes (a ``ProcessExchange``) adds the
     bands' processes, the backend, the group's size and this process's
     rank."""
     key = (tuple(mesh.shape), tuple(_device(d) for d in mesh.devices), tuple(shape), nchan,
            cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor, cfg.kiters, cfg.liters,
            cfg.cgiters, cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega, cfg.cg_tol,
-           cfg.halo_warp)
+           cfg.halo_warp, profiling.enabled())
     if exchange is not None and not isinstance(exchange, LocalExchange):
         key += (exchange.ranks, exchange.backend, exchange.world, exchange.rank)
     return key
@@ -504,6 +546,10 @@ class ShardedFlowProgram(CapturedPair):
                                           f"{exchange.world} on {first}")
         super().__init__(cfg, (rows, w), nchan, first, route == "graph", devices)
         self.mesh, self.exchange = mesh, exchange
+        self.field = self.views = None  # the joined inputs (_into_field)
+        self.wide = None    # the rounds whose band warp fell back to the whole level
+        if self.captures and profiling.enabled():
+            self.marks = self._new_marks()
         self.sent: dict = {}            # what one replay's transfers send
         warp_levels = [k for k, _, hw, _ in level_schedule(cfg, h, w)
                        if len(mesh_bands(mesh, hw[0])) > 1]
@@ -511,13 +557,42 @@ class ShardedFlowProgram(CapturedPair):
                      "cg_levels": frozenset(range(cfg.kiters)), "kiters": cfg.kiters,
                      "key": key, "route": route, "reason": reason}
 
+    def _new_marks(self) -> dict:
+        """{device: Marks} of a traced banded solve on this program's cards."""
+        return {d: _marks(self.cfg, d, exchanges=True) for d in self.devices}
+
     def __call__(self, geo1, geo2, u0, v0):
         replays = self.captures and self.warmed
+        if self.captures and self.exchange is None:
+            self._check(geo1, geo2, u0, v0)
+            geo1, geo2, u0, v0 = self._into_field(geo1, geo2, u0, v0)
         out = super().__call__(geo1, geo2, u0, v0)
+        ops.record_wide_rounds(self.wide.clone())
         if replays and self.exchange is not None:
             for k, n in self.sent.items():
                 self.exchange.sent[k] += n
         return out
+
+    def _into_field(self, geo1, geo2, u0, v0):
+        """The inputs copied into the program's (2C + 2, H, W) field on the
+        first band's device, made at the first call: views of it that every
+        call and the graph read, so that the joined field is the graph's
+        input and no copy of it is made inside the pair."""
+        if self.field is None:
+            c = self.nchan
+            self.field = torch.empty((2 * c + 2, *self.hw), dtype=torch.float32,
+                                     device=self.device)
+            self.views = (self.field[:c], self.field[c:2 * c], self.field[2 * c],
+                          self.field[2 * c + 1])
+        if geo1 is not self.views[0]:
+            for buf, t in zip(self.views, (geo1, geo2, u0, v0)):
+                buf.copy_(t)
+        return self.views
+
+    def _static_inputs(self, geo1, geo2, u0, v0) -> list:
+        if self.exchange is None:
+            return list(self.views)
+        return super()._static_inputs(geo1, geo2, u0, v0)
 
     def _capture(self, geo1, geo2, u0, v0):
         before = dict(self.exchange.sent) if self.exchange is not None else {}
@@ -528,25 +603,29 @@ class ShardedFlowProgram(CapturedPair):
                 self.sent = {k: self.exchange.sent[k] - n for k, n in before.items()}
                 self.exchange.sent.update(before)
 
-    def _pair(self, geo1, geo2, u0, v0, plain=False):
+    def _pair(self, geo1, geo2, u0, v0, marks=None):
+        if self.wide is None:           # set by every pair, kept across calls
+            self.wide = torch.zeros((), dtype=torch.int32, device=self.device)
         if self.exchange is None:
+            field = self.field if self.views and geo1 is self.views[0] else None
             return _banded_pair(geo1, geo2, u0, v0, self.cfg, self.mesh, LocalExchange(),
-                                plain)
+                                False, field, marks, self.wide)
         from octane_tpu_torch.parallel.distributed import local_parts, local_rows
 
         block = torch.cat([geo1, geo2, u0[None], v0[None]])
         prev, count = banded_flow(local_parts(block, self.row0, self.mesh, self.hw[0]),
                                   self.hw, self.nchan, self.cfg, self.mesh, self.exchange,
-                                  plain)
+                                  False, marks, self.wide)
         uv = local_rows(prev, block[:2])
         return uv[0], uv[1], count
 
     def _solve(self, geo1, geo2, u0, v0):
-        return self._pair(geo1, geo2, u0, v0)
+        return self._pair(geo1, geo2, u0, v0, self.marks)
 
     def _eager(self, geo1, geo2, u0, v0):
-        u, v, count = self._pair(geo1, geo2, u0, v0)
-        ops.record_pair(self.cfg.solver, count)
+        marks = self._new_marks() if profiling.enabled() else None
+        u, v, count = self._pair(geo1, geo2, u0, v0, marks)
+        _record(self.cfg.solver, count, marks)
         return u, v
 
 
@@ -591,5 +670,7 @@ def sharded_variational_flow(geo1, geo2, u0, v0, cfg: OFConfig, mesh):
     if geo1.dim() == 2:
         geo1, geo2 = geo1[None], geo2[None]
     program = sharded_flow_program(cfg, u0.shape, geo1.shape[0], mesh)
-    return program(geo1.contiguous(), geo2.contiguous(), u0.to(torch.float32).contiguous(),
-                   v0.to(torch.float32).contiguous())
+    # the program copies or joins its inputs itself: a broadcast zero guess
+    # stays one value
+    return program(geo1.contiguous(), geo2.contiguous(), u0.to(torch.float32),
+                   v0.to(torch.float32))

@@ -35,13 +35,20 @@ also stamps ``device``'s current stream at its entry and exit
 stamps its start and end, each pyramid level's start and each GNC round's
 relaxer start (after the assembly) and end into ``Marks``, a buffer that
 its program owns: in a captured graph the stamps are kernel nodes, none
-inside an IF body, so a replay carries them.  ``attach(marks)`` files a
-copy of them, on the device, under the open span; ``records()`` reads them
-and gives the spans ``octane.solve``, ``octane.level`` (``at`` = (level,))
-and ``octane.pcg`` or ``octane.sor`` (``at`` = (level, GNC step, inner
-iteration)), with device times only.  ``Marks.rounds`` holds each round's
-device count of relaxer iterations or passes, which ``ops.record_pair``
-accumulates over pairs (``ops.counters()``'s ``*_by_round``).
+inside an IF body, so a replay carries them.  A traced banded solve
+(parallel.sharded.banded_flow) stamps the same on every card of its bands,
+each card into its own ``Marks``, and also each level's fetch of the whole
+level's sample stack and each round's exchange of u and v's ghost rows
+(``Marks.exchange``).  ``attach(marks)`` files a copy of them, on the
+device, under the open span; ``records()`` reads them and gives the spans
+``octane.solve``, ``octane.level`` (``at`` = (level,)), ``octane.pcg`` or
+``octane.sor`` (``at`` = (level, GNC step, inner iteration)) and
+``octane.exchange`` (``at`` = (level,) for the level's fetch, the round's
+three numbers for its ghost rows), with device times only and ``card``,
+the index of the card that stamped them.  ``Marks.rounds`` holds each
+round's device count of relaxer iterations or passes (on a mesh, in the
+first card's ``Marks``), which ``ops.record_pair`` accumulates over pairs
+(``ops.counters()``'s ``*_by_round``).
 
 **Clock.**  The first ``records()`` that reads a card's stamps measures
 the offset of its stamp clock to the host clock: rounds of sync, host
@@ -108,11 +115,11 @@ class Span:
     tracer is on at its entry."""
 
     __slots__ = ("name", "id", "parent", "request", "start", "end", "device_start",
-                 "device_end", "at", "_device", "_stamps", "_range")
+                 "device_end", "at", "card", "_device", "_stamps", "_range")
 
     def __init__(self, name: str, device=None, at: tuple = ()):
         self.name, self.at, self._device = name, at, device
-        self.id = self.parent = self.request = None
+        self.id = self.parent = self.request = self.card = None
         self.start = self.end = self.device_start = self.device_end = None
         self._stamps = self._range = None
 
@@ -190,13 +197,17 @@ class Marks:
     stamp, and ``rounds``, each round's int32 count of the relaxer's
     iterations or passes (level-major), both on ``device`` and made before
     a capture, so that a replay writes them in place; ``slots`` names each
-    stamp.  See the module docstring."""
+    stamp.  ``exchanges`` makes room for a banded solve's exchange spans,
+    one a level and one a round.  See the module docstring."""
 
-    def __init__(self, solver: str, levels: int, steps: int, inner: int, device):
+    def __init__(self, solver: str, levels: int, steps: int, inner: int, device,
+                 exchanges: bool = False):
         n = levels * steps * inner
         self.name = f"octane.{solver}"
         self.steps, self.inner = steps, inner
-        self.stamps = torch.zeros(2 + levels + 2 * n, dtype=torch.int64, device=device)
+        self.device = torch.device(device)
+        size = 2 + levels + 2 * n + (2 * (levels + n) if exchanges else 0)
+        self.stamps = torch.zeros(size, dtype=torch.int64, device=device)
         self.rounds = torch.zeros(n, dtype=torch.int32, device=device)
         self.slots: List[Tuple[str, tuple, bool]] = []
         self.level = 0
@@ -219,14 +230,26 @@ class Marks:
         self.level = k
         self._mark("octane.level", (k,))
 
+    def _round(self, j: int) -> tuple:
+        return (self.level, j // self.inner, j % self.inner)
+
     @contextlib.contextmanager
     def relax(self, j: int):
         """Round ``j`` of the level's relaxer, between two stamps; yields
         the 0-dim slot of ``rounds`` that takes its count."""
-        at = (self.level, j // self.inner, j % self.inner)
+        at = self._round(j)
         self._mark(self.name, at)
         yield self.rounds[self.level * self.steps * self.inner + j]
         self._mark(self.name, at, end=True)
+
+    @contextlib.contextmanager
+    def exchange(self, j=None):
+        """An exchange between the bands, between two stamps: the level's
+        (``j`` None) or round ``j``'s."""
+        at = (self.level,) if j is None else self._round(j)
+        self._mark("octane.exchange", at)
+        yield
+        self._mark("octane.exchange", at, end=True)
 
 
 def attach(marks: Marks) -> None:
@@ -237,7 +260,7 @@ def attach(marks: Marks) -> None:
                         marks.slots))
 
 
-def _device_spans(parent, request_id, times, slots) -> list:
+def _device_spans(parent, request_id, times, slots, card=None) -> list:
     """The device spans of one solve's stamps: a stamp opens a span, or
     closes the open one of its name (``end``); a span opened where one of
     its name is open closes that one first (a level ends where the next
@@ -252,7 +275,7 @@ def _device_spans(parent, request_id, times, slots) -> list:
                     break
         if not end:
             s = Span(name, at=at)
-            s.id, s.request, s.device_start = next(_ids), request_id, t
+            s.id, s.request, s.device_start, s.card = next(_ids), request_id, t, card
             s.parent = stack[-1].id if stack else parent
             stack.append(s)
             out.append(s)
@@ -307,7 +330,7 @@ def _resolve() -> None:
                 owner.device_start, owner.device_end = times
                 owner._stamps = None
             else:
-                solved += _device_spans(owner[0], owner[1], times, owner[3])
+                solved += _device_spans(owner[0], owner[1], times, owner[3], device.index)
     _solves.clear()
     _spans.extend(solved)
 

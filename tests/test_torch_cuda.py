@@ -400,6 +400,51 @@ def test_pcg_pass_a_band_kernel_bit_exact(dev, splits, quad):
         assert all(torch.equal(a, c[:, r0:r1]) for a, c in zip(k[:3], whole[:3]))
 
 
+def test_band_kernels_past_2_31_elements(dev):
+    """The band forms on stacks of more than 2^31 elements, at the band-2
+    full disk's width (21696): the warp from a whole 21696^2 level's
+    6-plane sample stack (2.82e9 elements; a band of the last rows, its
+    taps in the stack's last rows), and PCG pass A (quadratic, 3 planes) on
+    a band of 33008 rows (2.15e9 elements of coefficients).  Each equals its
+    plain version on rows near the end, partials included (~43 GB at the
+    most)."""
+    w, big = 21696, 1 << 31
+    gen = torch.Generator(device=dev).manual_seed(35)
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+    stack = uniform((6, w, w), -1.0, 1.0)
+    assert stack.numel() > big
+    hb, r0 = 64, w - 64
+    u, v = uniform((hb, w), -40.0, 40.0), uniform((hb, w), -40.0, 40.0)
+    args = (stack, u, v, 0, r0, w)
+    for a, b in zip(warp.warp_band(*args), warp.warp_band_plain(*args)):
+        assert torch.equal(a, b)
+    del stack, args
+
+    hb, row0, true_h = 33008, 100, 33208
+    cf = torch.cat([uniform((2, hb, w), 1.0, 2.0), uniform((1, hb, w), -0.5, 0.5)])
+    assert cf.numel() > big
+    x, r, p = (uniform((2, hb, w), -10.0, 10.0) for _ in range(3))
+    gr, gp, gd = uniform((2, 2, w), -10.0, 10.0), uniform((2, 2, w), -10.0, 10.0), \
+        uniform((2, 2, w), 1.0, 2.0)
+    ab = torch.tensor([0.37, 0.81], device=dev)
+    got = pcg.pcg_pass_a_band(x, r, p, cf, ab, gr, gp, gd, row0, true_h)
+    n = 16                                   # the last rows: two whole blocks of partials
+    a = hb - n
+
+    def ghost(t, g):
+        return torch.stack([t[:, a - 1], g[:, 1]], dim=1).contiguous()
+
+    want = pcg.pcg_pass_a_band_plain(*(t[:, a:].contiguous() for t in (x, r, p, cf)), ab,
+                                     ghost(r, gr), ghost(p, gp), ghost(cf[0:2], gd),
+                                     row0 + a, true_h)
+    assert all(torch.equal(g[:, a:], q) for g, q in zip(got[:3], want[:3]))
+    nbx = -(-w // 32)
+    assert torch.equal(got[3][-2 * nbx:], want[3])
+
+
 @pytest.mark.parametrize("splits", BAND_SPLITS)
 def test_bilateral_band_kernel_within_budget(dev, splits):
     h, w = 130, 90
@@ -617,6 +662,75 @@ def test_several_card_program_replay_equals_the_eager_route(dev, solver, reach):
         assert (c["warp_band"][0] > slabs) == (reach == "beyond")
     finally:
         fv.clear_program_cache()
+
+
+def test_several_card_traced_program_stamps_every_card(dev):
+    """The tracer on a banded program with band i on cuda:i: each card's
+    replayed stamps lie in order; read back after a replay with no sync of
+    the other cards, each card's solve, levels, PCG rounds and exchanges
+    (one a level, for the whole level's sample stack, and one a round) are
+    spans of that card of no negative length, and the solve spans the
+    rounds.  The untraced program launches the same kernels and no stamp;
+    ``wide_warp_rounds`` counts the rounds whose wide body ran."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.parallel import make_mesh, sharded
+    from octane_tpu_torch.utils import profiling
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 CUDA devices")
+    h = w = 512
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in bench_pair(h, w))
+    z = torch.zeros((h, w), device=dev)
+    v0 = torch.full((h, w), 20.0, device=dev)
+    cfg = OFConfig(kiters=3, solver="pcg", halo_warp=4, lambdac=5.0)
+    rounds = cfg.kiters * cfg.gnc_steps * cfg.liters
+    cards = [torch.device("cuda", i) for i in range(n)]
+    mesh = make_mesh((1, n), cards)
+    launches = {}
+    try:
+        for on in (False, True):
+            if on:
+                profiling.enable()
+            prog = sharded.sharded_flow_program(cfg, (h, w), 1, mesh)
+            while prog.graph is None:
+                prog(im1, im2, z, v0)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            ops.reset_counters()
+            profiling.reset()
+            prog(im1, im2, z, v0)
+            c = ops.counters()
+            launches[on] = {name: c[name][0] for name in ops.WRAPPERS}
+            # each band warps once a round, and again in a round whose wide body ran
+            assert 0 < c["wide_warp_rounds"] == c["warp_band"][0] / n - rounds
+            if on:
+                spans = profiling.records()[None]
+                for card in range(n):
+                    mine = [s for s in spans if s.card == card]
+                    names = [s.name for s in mine]
+                    assert names.count("octane.solve") == 1 and names.count("octane.level") == 3
+                    assert names.count("octane.pcg") == rounds
+                    assert names.count("octane.exchange") == cfg.kiters + rounds
+                    assert all(s.device_end >= s.device_start for s in mine)
+                    solve = next(s for s in mine if s.name == "octane.solve")
+                    assert all(solve.device_start <= s.device_start <= s.device_end
+                               <= solve.device_end for s in mine)
+                    stamps = prog.marks[cards[card]].stamps.tolist()
+                    used = stamps[:len(prog.marks[cards[card]].slots)]
+                    assert used == sorted(used)
+            profiling.disable()
+            fv.clear_program_cache()
+    finally:
+        profiling.disable()
+        profiling.reset()
+        fv.clear_program_cache()
+    assert launches[False]["stamp"] == 0
+    assert launches[True]["stamp"] == n * (2 + cfg.kiters + 2 * (cfg.kiters + 2 * rounds))
+    assert ({k: v for k, v in launches[False].items() if k != "stamp"}
+            == {k: v for k, v in launches[True].items() if k != "stamp"})
 
 
 @pytest.mark.parametrize("solver", ["sor", "pcg"])

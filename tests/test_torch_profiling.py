@@ -368,3 +368,76 @@ def test_enable_measures_no_clock_offset(monkeypatch):
     finally:
         profiling.disable()
         profiling.reset()
+
+
+def _banded(cfg, h=48, w=40, v0=0.0):
+    """The fixture pair's flow on a (4, 1) mesh of CPU bands, from a first
+    guess of ``v0`` px down."""
+    from octane_tpu_torch.parallel import make_mesh, sharded
+
+    im1 = torch.from_numpy(fixture_counts(0, 0, h, w).astype(np.float32) / 40.0)[None]
+    im2 = torch.from_numpy(fixture_counts(1.2, -0.6, h, w).astype(np.float32) / 40.0)[None]
+    z = torch.zeros((h, w))
+    return sharded.sharded_variational_flow(im1, im2, z, torch.full((h, w), v0), cfg,
+                                            make_mesh((4, 1), [torch.device("cpu")] * 4))
+
+
+@pytest.mark.parametrize("solver", ["pcg", "sor"])
+def test_banded_solve_stamps_levels_rounds_and_exchanges(tracer, solver):
+    """A traced banded solve gives octane.solve, its levels, each round's
+    relaxer and each round's exchange of ghost rows (octane.exchange, after
+    the round's relaxer, in its level), on the card of its bands (the CPU
+    here: no card index); the counts by round sum to the pair's."""
+    cfg = OFConfig(kiters=2, solver=solver)
+    ops.reset_counters()
+    with profiling.request(0):
+        _banded(cfg)
+    spans = profiling.records()[0]
+    by_id = {s.id: s for s in spans}
+    names = {s.name for s in spans}
+    assert names == {"octane.solve", "octane.level", f"octane.{solver}", "octane.exchange"}
+    rounds = [(k, g, i) for k in range(2) for g in range(3) for i in range(3)]
+    relax = [s for s in spans if s.name == f"octane.{solver}"]
+    exchanges = [s for s in spans if s.name == "octane.exchange"]
+    assert [s.at for s in relax] == rounds and [s.at for s in exchanges] == rounds
+    for r, x in zip(relax, exchanges):
+        assert by_id[x.parent].name == "octane.level" and by_id[x.parent].at == x.at[:1]
+        assert r.device_end <= x.device_start <= x.device_end
+        assert x.card is None and x.start is None
+    c = ops.counters()
+    key = _key(solver)
+    assert sum(c[f"{key}_by_round"]) == c[key] > 0
+    assert c["wide_warp_rounds"] == 0
+    # stamps: the solve, the levels, and two a relaxer round and an exchange
+    assert c["stamp"][1] == 2 + cfg.kiters + 4 * len(rounds)
+
+
+def test_wide_warp_rounds_counts_the_pair_s_wide_bodies():
+    """A 12-px first guess down, held by lambdac, with halo_warp 4 (reach 2)
+    sends every round of both levels to the whole level; with halo_warp 64
+    none.  The counter gives the last pair's, with the tracer off."""
+    assert not profiling.enabled()
+    ops.reset_counters()
+    assert ops.counters()["wide_warp_rounds"] == 0
+    cfg = OFConfig(kiters=2, solver="pcg", halo_warp=4, lambdac=0.5)
+    narrow = _banded(cfg, v0=12.0)
+    assert ops.counters()["wide_warp_rounds"] == 2 * 9
+    wide = _banded(cfg.replace(halo_warp=64), v0=12.0)
+    assert ops.counters()["wide_warp_rounds"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(narrow, wide))
+    assert ops.counters()["stamp"] == (0, 0)
+    fv.clear_program_cache()
+
+
+def test_banded_tracing_is_part_of_the_program_key():
+    from octane_tpu_torch.parallel import make_mesh, sharded
+
+    cfg = OFConfig(kiters=2)
+    mesh = make_mesh((4, 1), [torch.device("cpu")] * 4)
+    off = sharded.sharded_program_key(cfg, (48, 40), 1, mesh)
+    profiling.enable()
+    try:
+        on = sharded.sharded_program_key(cfg, (48, 40), 1, mesh)
+    finally:
+        profiling.disable()
+    assert off != on and off[:-1] == on[:-1]
