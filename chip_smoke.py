@@ -158,9 +158,10 @@ Phases, one line each (any failure exits non-zero):
      version called, the replay's launches (from its device tallies) equal
      to the eager route's, the replay torch.equal to the eager banded flow
      and within 1e-3 px of the single-device flow (bit-identical printed),
-     the interior median within 0.1 px of (2.4, 0), sharded_pix2uv equal to
-     pix2uv; (b') at 1024^2 per relaxer the replay torch.equal to the first
-     call, the eager and the plain banded routes, launches equal, and a
+     the interior median within 0.1 px of (2.4, 0), sharded_pix2uv's
+     page-locked host planes equal to pix2uv's; (b') at 1024^2 per relaxer
+     the replay torch.equal to the first call, the eager and the plain
+     banded routes, launches equal, and a
      reach case (a 20-px first guess, halo_warp 4) whose wide body runs at
      every level, the same equalities held; (c) sharded_srsal of the banded
      SOR flow with the 5424^2 CTH within rel 1e-5 of srsal_smooth; (d)
@@ -1104,7 +1105,7 @@ def phase_srsal(dev, report):
         want = srsal_smooth(flat.u_pix, flat.v_pix, flat.cth)
         same = torch.equal(s1.u_pix, want[0]) and torch.equal(s1.v_pix, want[1])
         moved = float((s1.u_pix - flat.u_pix).abs().max())
-        ctp_ok = torch.equal(s1.ctp, s1.cth.to(torch.int16))
+        ctp_ok = torch.equal(s1.ctp, s1.cth.to(torch.int16).cpu())
         med = (float(s1.u_pix[64:-64, 64:-64].median()), float(s1.v_pix[64:-64, 64:-64].median()))
         say("srsal", f"{solver}: u_pix = srsal_smooth(unsmoothed flow) {same}, max |smoothed "
                      f"- unsmoothed| {moved:.4f} px, CTP == int16(cth) {ctp_ok}, median "
@@ -2557,8 +2558,8 @@ def phase_mesh(dev, report):
         diff = max(float((bu - su).abs().max()), float((bv - sv).abs().max()))
         med = (float(bu[m:-m, m:-m].median()), float(bv[m:-m, m:-m].median()))
         uw, vw, ur, vr = sharded_pix2uv(bu, bv, nav, 60.0, mesh)
-        nav_equal = all(torch.equal(a, b) for a, b in zip((uw, vw, ur, vr),
-                                                          pix2uv(bu, bv, nav, 60.0)))
+        nav_equal = all(a.is_pinned() and torch.equal(a, b.cpu())
+                        for a, b in zip((uw, vw, ur, vr), pix2uv(bu, bv, nav, 60.0)))
         limit = 144 if solver == "sor" else 1080
         stat = {k: (min(t), float(np.median(t))) for k, t in ms.items()}
         say("mesh", f"{solver} {h}x{w} on {MESH_BANDS} bands of cuda:0: banded replay "

@@ -20,6 +20,12 @@ single-device call, as octane_tpu's is, patch_match.py:293-300); the
 first-guess patch-match is sector-scale and runs whole.  Temporal
 interpolation (``pipeline.interpolate_sequence``) runs on the bands too
 (``parallel.post.sharded_interpolate_frame``).
+
+Product planes made on a card (the int16 winds and raw shorts, the CTP,
+the float64 winds of flat grids) are delivered in page-locked host memory
+(``io.host.to_host``); on a mesh each band's rows go there from its own
+card.  The flow (``u_pix`` / ``v_pix``) stays on the device, where warm
+starts, SRSAL and interpolation read it.  CPU planes stay as they are.
 """
 
 from __future__ import annotations
@@ -32,10 +38,14 @@ from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.flow.patch_match import patch_match_flow, patch_match_flow_sharded
 from octane_tpu_torch.flow.variational import variational_flow
 from octane_tpu_torch.io.datamodel import Scene
+from octane_tpu_torch.io.host import to_host
 from octane_tpu_torch.nav.goes import F64
 from octane_tpu_torch.nav.winds import pix2uv, pix2uv_ms, uv2pix
 from octane_tpu_torch.post.srsal import srsal_smooth
 from octane_tpu_torch.utils import profiling
+
+# the product planes of a scene, in the order they go to the host
+PRODUCTS = ("ctp", "u_wind", "v_wind", "u_raw", "v_raw", "u_ms", "v_ms")
 
 
 def active_mesh(cfg: OFConfig, device="cuda"):
@@ -73,8 +83,10 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
                  first_guess=None) -> Scene:
     """Fill scene1's flow products from the (scene1, scene2) pair; returns
     scene1.  ``first_guess`` optionally gives (u0, v0) pixel displacements.
-    The tracer's span ``octane.flow``, with ``octane.flow.first_guess``,
-    ``octane.flow.solve`` and ``octane.flow.pix2uv`` (utils.profiling)."""
+    Product planes made on a card are page-locked host tensors, complete
+    when it returns (see the module docstring).  The tracer's span
+    ``octane.flow``, with ``octane.flow.first_guess``, ``octane.flow.solve``,
+    ``octane.flow.pix2uv`` and ``octane.flow.to_host`` (utils.profiling)."""
     h, w = scene1.shape
     dev = scene1.data.device
     nav = scene1.nav
@@ -145,6 +157,15 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
             ums, vms = pix2uv_ms(u, v, nav, dt, grid=cfg.grid)
         scene1.u_ms, scene1.v_ms = ums.to(F64), vms.to(F64)
     scene1.dt = float(dt)
+
+    # --- the products to page-locked host memory (a mesh's pix2uv bands are
+    # there already) -----------------------------------------------------------
+    on_card = [name for name in PRODUCTS
+               if getattr(scene1, name) is not None and getattr(scene1, name).is_cuda]
+    if on_card:
+        planes = to_host([(0, tuple(getattr(scene1, name) for name in on_card))], h)
+        for name, plane in zip(on_card, planes):
+            setattr(scene1, name, plane)
 
     # --- bilateral smoothing of the pixel flow (ref :100-105) ---------------
     if cfg.do_srsal and scene1.cth is not None:

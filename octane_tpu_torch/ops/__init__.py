@@ -33,6 +33,11 @@ reports each GNC round's count; they are summed over pairs on the device
 and given as ``pcg_iterations_by_round`` / ``sor_passes_by_round``, lists
 of kiters x gnc_steps x liters counts in the order the rounds run (empty
 where no traced pair ran since the last reset).
+
+``record_host_planes`` notes the product planes that ``io.host.to_host``
+delivered into page-locked host memory; ``counters()`` gives their number
+and bytes since the last reset as ``host_planes`` / ``host_plane_bytes``
+(0 where every plane was made on the CPU).
 """
 
 import torch
@@ -64,6 +69,7 @@ _graph_nodes: dict = {}     # wrapper -> launches of replayed unguarded nodes
 _graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launches
 _by_round: dict = {}        # solver -> int64 device sums of the traced pairs' rounds
 _wide: dict = {}            # "rounds" -> the last banded pair's device tally of wide warps
+_host: dict = {}            # "planes", "bytes" -> product planes delivered to page-locked memory
 
 
 def reset_counters() -> None:
@@ -72,7 +78,7 @@ def reset_counters() -> None:
         fn.plain_calls = 0
     for driver in (_pcg.pcg_solve_fused, _sor.sor_solve_cf):
         driver.host_syncs = 0
-    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide):
+    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide, _host):
         tally.clear()
 
 
@@ -102,11 +108,18 @@ def record_wide_rounds(rounds) -> None:
     _wide["rounds"] = rounds
 
 
+def record_host_planes(planes) -> None:
+    """Note ``planes``, delivered into page-locked host memory."""
+    _host["planes"] = _host.get("planes", 0) + len(planes)
+    _host["bytes"] = _host.get("bytes", 0) + sum(p.numel() * p.element_size() for p in planes)
+
+
 def counters() -> dict:
     """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
     host syncs, the last pair's iterations (PCG) and passes (SOR), the
-    traced pairs' counts by round and the last banded pair's
-    ``wide_warp_rounds``, read from the device.  A wrapper's launches include those of replayed
+    traced pairs' counts by round, the last banded pair's
+    ``wide_warp_rounds``, read from the device, and ``host_planes`` /
+    ``host_plane_bytes``.  A wrapper's launches include those of replayed
     graphs (see the module docstring)."""
     launches = {name: fn.launches + _graph_nodes.get(name, 0)
                 for name, fn in WRAPPERS.items()}
@@ -119,8 +132,10 @@ def counters() -> dict:
         out[key] = int(_last_count[solver]) if solver in _last_count else 0
         out[f"{key}_by_round"] = _by_round[solver].tolist() if solver in _by_round else []
     out["wide_warp_rounds"] = int(_wide["rounds"]) if _wide else 0
+    out["host_planes"] = _host.get("planes", 0)
+    out["host_plane_bytes"] = _host.get("bytes", 0)
     return out
 
 
 __all__ = ["WRAPPERS", "PATHS", "reset_counters", "record_pair", "record_wide_rounds",
-           "counters"]
+           "record_host_planes", "counters"]

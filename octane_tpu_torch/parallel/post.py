@@ -3,7 +3,9 @@ interpolation (counterpart of octane_tpu.parallel.post).
 
 * ``sharded_pix2uv`` / ``sharded_pix2uv_ms``: elementwise per band, with
   the band's global rows (``nav.winds``' ``row0``), so the float64
-  navigation equals the single-device call's bit for bit;
+  navigation equals the single-device call's bit for bit; on cards each
+  band's rows go from its own card into page-locked host planes
+  (``io.host.to_host``), with no plane gathered on a card;
 * ``sharded_srsal``: each band smooths its rows with the band form of the
   bilateral kernel (``ops.bilateral.bilateral_band``) from a slab of its
   rows and the p = 18 rows beside them, the reference's reflect boundary
@@ -24,7 +26,7 @@ Each has a band form (``*_bands``) over a banded field's parts, which the
 multi-process path (``parallel.distributed``) calls with a
 ``halo.ProcessExchange`` on the process's own bands; the ``sharded_*``
 functions take and return whole tensors within one process (results on
-the mesh's first device).
+the mesh's first device, but pix2uv's in host memory on cards).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Tuple
 import torch
 
 from octane_tpu_torch.core.gaussian import gaussian_kernel_1d
+from octane_tpu_torch.io.host import to_host
 from octane_tpu_torch.nav.winds import pix2uv, pix2uv_ms
 from octane_tpu_torch.ops.bilateral import band_slab, bilateral_band
 from octane_tpu_torch.parallel.halo import LocalExchange, field_rows, stub
@@ -50,6 +53,15 @@ def _gather(outs, h: int, n_out: int):
     dev0 = outs[0][1][0].device
     return tuple(LocalExchange().rows([(r0, o[j]) for r0, o in outs], 0, h, dev0)
                  for j in range(n_out))
+
+
+def _products(outs, h: int, n_out: int):
+    """Whole planes of each of the ``n_out`` results of [(r0, results)]:
+    page-locked host planes where the bands are on cards, else on the
+    first band's device."""
+    if outs[0][1][0].is_cuda:
+        return to_host(outs, h)
+    return _gather(outs, h, n_out)
 
 
 def pix2uv_bands(parts, nav, dt: float, grid: str = "goes", pixuv: bool = False):
@@ -70,15 +82,17 @@ def _split(mesh, fields):
 
 def sharded_pix2uv(u_pix, v_pix, nav, dt: float, mesh, grid: str = "goes",
                    pixuv: bool = False):
-    """``nav.winds.pix2uv`` per band: (u_wind, v_wind, u_raw, v_raw)."""
+    """``nav.winds.pix2uv`` per band: (u_wind, v_wind, u_raw, v_raw), in
+    page-locked host memory on cards."""
     outs = pix2uv_bands(_split(mesh, (u_pix, v_pix)), nav, dt, grid, pixuv)
-    return _gather(outs, u_pix.shape[0], 4)
+    return _products(outs, u_pix.shape[0], 4)
 
 
 def sharded_pix2uv_ms(u_pix, v_pix, nav, dt: float, mesh, grid: str = "goes"):
-    """``nav.winds.pix2uv_ms`` per band: (u m/s, v m/s), float64."""
+    """``nav.winds.pix2uv_ms`` per band: (u m/s, v m/s), float64, in
+    page-locked host memory on cards."""
     outs = pix2uv_ms_bands(_split(mesh, (u_pix, v_pix)), nav, dt, grid)
-    return _gather(outs, u_pix.shape[0], 2)
+    return _products(outs, u_pix.shape[0], 2)
 
 
 def whole_field(parts, exchange) -> dict:

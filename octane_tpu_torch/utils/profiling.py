@@ -15,7 +15,8 @@ with ``request(i)``, which every span inside inherits.  While on, each
 span is also a ``torch.profiler.record_function`` range, so it lies on the
 profiler's timeline beside the device's work.  ``span(name, device)``
 also stamps ``device``'s current stream at its entry and exit
-(``ops.stamp``), which gives its device start and end.  The port's spans:
+(``ops.stamp``), which gives its device start and end, and ``card``, the
+index of that card.  The port's spans:
 
   octane.kernels.load            ops.build.load_kernels (a build included)
   octane.ingest                  io.readers.scene_from_goes_arrays
@@ -27,6 +28,10 @@ also stamps ``device``'s current stream at its entry and exit
                                  program's lookup, copy-in, replay, copies
                                  of the outputs and ops.record_pair
     octane.flow.pix2uv           nav.winds.pix2uv (device stamps)
+    octane.flow.to_host          io.host.to_host: one a card that copies
+                                 product rows to page-locked host memory
+                                 (device stamps on that card; on a mesh
+                                 inside octane.flow.pix2uv)
   octane.program.warm_up         a program key's eager pair (CapturedPair)
   octane.program.capture         its capture and instantiation
   octane.stage.<name>            StageTimer.stage(name)
@@ -328,6 +333,7 @@ def _resolve() -> None:
             pos += t.numel()
             if isinstance(owner, Span):
                 owner.device_start, owner.device_end = times
+                owner.card = device.index
                 owner._stamps = None
             else:
                 solved += _device_spans(owner[0], owner[1], times, owner[3], device.index)

@@ -30,7 +30,10 @@ machine has 2 cards or more, the banded program captured across the cards
 (band i on cuda:i) and each process's program over NCCL (skipped below 2
 cards).  A traced program (utils.profiling) writes its stamps in order and
 on the host clock and counts its rounds; an untraced one launches the same
-kernels and no stamp.
+kernels and no stamp.  compute_flow's product planes are page-locked host
+tensors bit-equal to pix2uv on the card, a pair's planes outlive the next
+pair unchanged and are counted, and on a mesh of four cards each band's
+rows go to the host from its own card.
 """
 
 import numpy as np
@@ -829,3 +832,98 @@ def test_traced_program_stamps_on_the_host_clock(dev, solver):
     assert ({n: k for n, k in launches[False].items() if n != "stamp"}
             == {n: k for n, k in launches[True].items() if n != "stamp"})
     assert all(torch.equal(a, b) for a, b in zip(flows[False], flows[True]))
+
+
+def _fixture_scenes(cfg, dev, shift):
+    """The 512^2 GOES fixture pair moved by ``shift`` px over 60 s, on ``dev``."""
+    from octane_tpu_torch.io.readers import scene_from_goes_arrays
+    from torch_fixtures import FIXTURE_T0, fixture_counts, goes_arrays
+
+    return [scene_from_goes_arrays(*goes_arrays(fixture_counts(*sh), t)[:4], cfg, dev,
+                                   donav=nav, t=t)
+            for sh, t, nav in (((0, 0), FIXTURE_T0, True), (shift, FIXTURE_T0 + 60.0, False))]
+
+
+def test_products_go_to_page_locked_host_memory(dev):
+    """compute_flow on one card delivers its product planes as page-locked
+    host tensors, bit-equal to pix2uv (and the CTP) run on the card and then
+    copied to the host; the flow stays on the card; ops.counters() counts
+    each pair's planes and their bytes; a second pair leaves the first
+    pair's planes as they were (no shared storage)."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow.dispatcher import compute_flow
+    from octane_tpu_torch.nav.winds import pix2uv
+
+    names = ("u_wind", "v_wind", "u_raw", "v_raw")
+    cfg = OFConfig(kiters=3)
+    ops.reset_counters()
+    s1, s2 = _fixture_scenes(cfg, dev, (3.0, -1.5))
+    compute_flow(s1, s2, cfg)
+    c = ops.counters()
+    planes = [getattr(s1, n) for n in names]
+    assert all(p.device.type == "cpu" and p.is_pinned() and p.dtype == torch.int16
+               for p in planes)
+    assert s1.u_pix.is_cuda and s1.v_pix.is_cuda
+    for p, want in zip(planes, pix2uv(s1.u_pix, s1.v_pix, s1.nav, s2.t - s1.t)):
+        assert torch.equal(p, want.cpu())
+    assert int(s1.u_raw.abs().max()) > 100 and int(s1.u_wind.abs().max()) > 100
+    assert c["host_planes"] == 4 and c["host_plane_bytes"] == 4 * 512 * 512 * 2
+    kept = [p.clone() for p in planes]
+    # a second pair, with a cloud-top height: five planes, the CTP among them
+    cfg = OFConfig(kiters=3, do_cth=True)
+    ops.reset_counters()
+    t1, t2 = _fixture_scenes(cfg, dev, (-2.0, 1.0))
+    t1.cth = torch.from_numpy(cth_steps(512, 512)).to(dev)
+    compute_flow(t1, t2, cfg)
+    c = ops.counters()
+    assert c["host_planes"] == 5 and c["host_plane_bytes"] == 5 * 512 * 512 * 2
+    assert t1.ctp.is_pinned() and torch.equal(t1.ctp, t1.cth.to(torch.int16).cpu())
+    assert all(torch.equal(p, k) for p, k in zip(planes, kept))
+    assert not torch.equal(t1.u_raw, s1.u_raw)
+    ptrs = {p.data_ptr() for p in planes}
+    assert not ptrs & {getattr(t1, n).data_ptr() for n in names + ("ctp",)}
+
+
+def test_mesh_products_go_to_host_from_every_card(dev):
+    """compute_flow on a (4, 1) mesh with band i on cuda:i: its product
+    planes are page-locked host tensors, each band's rows copied from its
+    own card, and none is left on a card; they equal pix2uv of the mesh's
+    flow on one card bit for bit, and so do sharded_pix2uv_ms's float64
+    winds; each card that copied stamps its octane.flow.to_host span."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.flow.dispatcher import active_mesh, compute_flow
+    from octane_tpu_torch.nav.winds import pix2uv, pix2uv_ms
+    from octane_tpu_torch.parallel import sharded_pix2uv_ms
+    from octane_tpu_torch.utils import profiling
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    names = ("u_wind", "v_wind", "u_raw", "v_raw")
+    cfg = OFConfig(kiters=3, mesh_shape=(4, 1))
+    s1, s2 = _fixture_scenes(cfg, dev, (3.0, -1.5))
+    ops.reset_counters()
+    profiling.reset()
+    profiling.enable()
+    try:
+        compute_flow(s1, s2, cfg)
+        spans = [s for s in profiling.records()[None] if s.name == "octane.flow.to_host"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+        fv.clear_program_cache()
+    c = ops.counters()
+    assert sorted(s.card for s in spans) == [0, 1, 2, 3]
+    assert all(s.device_start <= s.device_end for s in spans)
+    assert c["host_planes"] == 4 and c["host_plane_bytes"] == 4 * 512 * 512 * 2
+    dt = s2.t - s1.t
+    for name, want in zip(names, pix2uv(s1.u_pix, s1.v_pix, s1.nav, dt)):
+        plane = getattr(s1, name)
+        assert plane.device.type == "cpu" and plane.is_pinned(), name
+        assert torch.equal(plane, want.cpu()), name
+    assert int(s1.u_raw.abs().max()) > 100
+    ums, vms = sharded_pix2uv_ms(s1.u_pix, s1.v_pix, s1.nav, dt, active_mesh(cfg, dev))
+    for got, want in zip((ums, vms), pix2uv_ms(s1.u_pix, s1.v_pix, s1.nav, dt)):
+        assert got.is_pinned() and got.dtype == torch.float64 and torch.equal(got, want.cpu())

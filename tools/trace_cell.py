@@ -18,15 +18,22 @@ tracer read (``profiling.totals``), each a mean a pair over the window
   solve_ms      first to last stamp of the solve (flow.variational._pair;
                 on a mesh, each card's, summed over the cards)
   pix2uv_ms     the stamps around nav.winds.pix2uv
+  to_host_ms    the stamps around each card's copies of the product planes
+                to page-locked host memory (io.host.to_host), summed over
+                the cards
   relax_ms      the rounds' relaxer spans summed (octane.pcg or octane.sor)
   exchange_ms   on a mesh, the octane.exchange spans summed over the cards:
                 each level's fetch of its sample stack and each round's
                 ghost rows (parallel.sharded.banded_flow)
-  by_card       on a mesh, solve_ms, relax_ms and exchange_ms of each card
+  by_card       on a mesh, solve_ms, relax_ms, exchange_ms and to_host_ms of
+                each card
   navcal_ms     the stamps around both scans' nav.goes.navcal_goes
   capped_rounds profiling.capped_share of the window's counts by round
   wide_warp_rounds  ops.counters(): the last pair's rounds whose band warp
                 fell back to the whole level (0 on one card)
+  host_planes, host_plane_bytes  ops.counters(): the product planes
+                delivered into page-locked host memory and their bytes, a
+                pair of the window
   setup_s       seconds of the spans octane.kernels.load, octane.program.warm_up
                 and octane.program.capture, each summed over the run
 
@@ -68,6 +75,7 @@ def summary(pairs, solver: str, by_card=None) -> dict:
     host = sorted({name for t in pairs for name, (ms, _) in t.items() if ms})
     out = {"pairs": len(pairs), "solve_ms": device("octane.solve"),
            "pix2uv_ms": device("octane.flow.pix2uv"),
+           "to_host_ms": device("octane.flow.to_host"),
            "relax_ms": device(f"octane.{solver}"),
            "exchange_ms": device("octane.exchange"),
            "navcal_ms": device("octane.ingest.navcal"),
@@ -75,7 +83,8 @@ def summary(pairs, solver: str, by_card=None) -> dict:
     if by_card:
         out["by_card"] = {card: {"solve_ms": device("octane.solve", of),
                                  "relax_ms": device(f"octane.{solver}", of),
-                                 "exchange_ms": device("octane.exchange", of)}
+                                 "exchange_ms": device("octane.exchange", of),
+                                 "to_host_ms": device("octane.flow.to_host", of)}
                           for card, of in sorted(by_card.items())}
     return out
 
@@ -196,6 +205,8 @@ def main(argv=None) -> int:
             capped_rounds=profiling.capped_share(
                 by_round, solver, cell.config["settings"]["cgiters"], run.pairs),
             wide_warp_rounds=c["wide_warp_rounds"],
+            host_planes=c["host_planes"] / run.pairs,
+            host_plane_bytes=c["host_plane_bytes"] / run.pairs,
             by_round_per_pair=[n / run.pairs for n in by_round],
             count_per_pair=sum(by_round) / run.pairs if by_round else None,
             counted_per_pair=roofline.work(cell.config["settings"], {k: v[0] for k, v in c.items()
