@@ -1185,8 +1185,8 @@ def phase_fulldisk(dev, report):
     from octane_tpu_torch.core.gradients import gradient_4th
     from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_size
     from octane_tpu_torch.flow.stencil import assemble
-    from octane_tpu_torch.flow.variational import (_coarse_to_fine, program_pool_bytes,
-                                                   variational_flow)
+    from octane_tpu_torch.flow.program import program_pool_bytes
+    from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
     from octane_tpu_torch.nav.winds import pix2uv
     from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
                                                assemble_pcg_plain)
@@ -1555,7 +1555,7 @@ def phase_hybrid_interp(dev, report, interp):
 
 def phase_interp(dev, hybrid):
     from octane_tpu_torch.io.native import requantize
-    from octane_tpu_torch.post.temporal import (_fill_step, fill_holes, forward_splat,
+    from octane_tpu_torch.post.temporal import (fill_holes, fill_step, forward_splat,
                                                 interpolate_frame)
 
     u, v, g1, g2, nav = hybrid
@@ -1575,11 +1575,11 @@ def phase_interp(dev, hybrid):
         splat_holes = int((ut < -998.0).sum())
         uv, steps = torch.stack([ut, vt]), 0
         while bool((uv[0] < -998.0).any()):
-            uv, steps = _fill_step(uv), steps + 1
+            uv, steps = fill_step(uv), steps + 1
         fu, fv = fill_holes(ut, vt)
         holes = int((fu < -998.0).sum())
         fill_ms = cuda_ms(lambda: fill_holes(ut, vt), n=2)
-        step_ms = cuda_ms(lambda: _fill_step(uv), n=2)
+        step_ms = cuda_ms(lambda: fill_step(uv), n=2)
         check_ms = cuda_ms(lambda: bool((uv[0] < -998.0).any()), n=10)
         share = (torch.bincount(occ.reshape(-1).to(torch.int64), minlength=3).double()
                  / (h * w)).tolist()
@@ -2075,6 +2075,7 @@ def phase_program(dev, report):
     from octane_tpu_torch import ops
     from octane_tpu_torch.config import OFConfig
     from octane_tpu_torch.flow import variational as fv
+    from octane_tpu_torch.flow.program import program_pool_bytes
 
     fx = load_tests_module("torch_fixtures")
     t_phase = time.perf_counter()
@@ -2149,7 +2150,7 @@ def phase_program(dev, report):
             torch.cuda.synchronize()
             first_s.append(time.perf_counter() - t0)
         capture_peak = torch.cuda.max_memory_allocated()
-        pool = fv.program_pool_bytes(dev)
+        pool = program_pool_bytes(dev)
         times = {"eager": ([], []), "graph": ([], [])}
         flows, launched = {}, {}
         for route in ("eager", "graph", "graph", "eager"):
@@ -2320,7 +2321,7 @@ def phase_mesh(dev, report):
     from octane_tpu_torch.ops.pcg import pcg_pass_a, pcg_pass_a_band, pcg_pass_a_band_plain
     from octane_tpu_torch.ops.sor import sor_pass, sor_pass_band, sor_pass_band_plain
     from octane_tpu_torch.ops.warp import warp, warp_band, warp_band_plain
-    from octane_tpu_torch.flow.variational import clear_program_cache, program_pool_bytes
+    from octane_tpu_torch.flow.program import clear_program_cache, program_pool_bytes
     from octane_tpu_torch.parallel import LocalExchange, make_mesh, sharded_pix2uv, sharded_srsal
     from octane_tpu_torch.parallel import sharded
     from octane_tpu_torch.post.srsal import srsal_smooth
@@ -2721,7 +2722,7 @@ def cards_pair(g1, g2, z, cfg, mesh, want):
     replayed, launches equal, the replay torch.equal to the eager route and
     to ``want`` (the one-card banded replay)."""
     from octane_tpu_torch import ops
-    from octane_tpu_torch.flow.variational import program_pool_bytes
+    from octane_tpu_torch.flow.program import program_pool_bytes
     from octane_tpu_torch.parallel import LocalExchange, sharded
 
     solver = cfg.solver
@@ -2825,7 +2826,8 @@ def dist_worker(rank, nprocs, url, backend, out):
     to ``out``.rank.json."""
     from octane_tpu_torch import ops
     from octane_tpu_torch.config import OFConfig
-    from octane_tpu_torch.flow.variational import program_pool_bytes, variational_flow
+    from octane_tpu_torch.flow.program import program_pool_bytes
+    from octane_tpu_torch.flow.variational import variational_flow
     from octane_tpu_torch.nav.winds import pix2uv
     from octane_tpu_torch.parallel import distributed as D
     from octane_tpu_torch.parallel import make_mesh, sharded, sharded_variational_flow

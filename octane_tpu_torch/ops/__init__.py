@@ -11,7 +11,7 @@ the wrappers each relaxer's solve goes through, and the one SRSAL
 smoothing goes through, on one device and (``mesh_*``) on the row bands of
 the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
 ``pcg_pass_a_band`` and ``bilateral_band`` (the assembly takes a band's
-rows itself).
+rows itself).  ``counted_plain`` makes such a counted direct call.
 
 ``stamp`` is the tracer's clock stamp (``ops.stamp``, csrc/stamp.cu),
 launched only while utils.profiling's tracer is on.
@@ -20,8 +20,9 @@ A banded pair also reports, through ``record_wide_rounds``, the device
 tally of its rounds whose band warp fell back to the whole level (the
 reach test's body, parallel.sharded), which ``counters()`` gives as
 ``wide_warp_rounds``, the last pair's.  A pair reports its device count of
-PCG iterations or SOR passes through ``record_pair``; a replayed pair (flow.variational.FlowProgram,
-parallel.sharded.ShardedFlowProgram) also reports what its graph launches,
+PCG iterations or SOR passes through ``record_pair``; a replayed pair (any
+program of flow.program.CapturedPair: flow.variational.FlowProgram and
+parallel.sharded's banded programs) also reports what its graph launches,
 which the wrappers, called only at capture, do not count: the nodes that
 every replay runs, and for each kind of guarded body the launches of one
 body, which ran as often as that kind's device count says.
@@ -70,6 +71,14 @@ _graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launche
 _by_round: dict = {}        # solver -> int64 device sums of the traced pairs' rounds
 _wide: dict = {}            # "rounds" -> the last banded pair's device tally of wide warps
 _host: dict = {}            # "planes", "bytes" -> product planes delivered to page-locked memory
+
+
+def counted_plain(wrapper, plain_fn):
+    """``plain_fn`` on any device, each call added to ``wrapper.plain_calls``."""
+    def run(*args, **kwargs):
+        wrapper.plain_calls += 1
+        return plain_fn(*args, **kwargs)
+    return run
 
 
 def reset_counters() -> None:
@@ -137,5 +146,5 @@ def counters() -> dict:
     return out
 
 
-__all__ = ["WRAPPERS", "PATHS", "reset_counters", "record_pair", "record_wide_rounds",
-           "record_host_planes", "counters"]
+__all__ = ["WRAPPERS", "PATHS", "counted_plain", "reset_counters", "record_pair",
+           "record_wide_rounds", "record_host_planes", "counters"]

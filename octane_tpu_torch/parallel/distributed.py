@@ -101,15 +101,11 @@ def shutdown_multihost() -> None:
     with it, their graphs first: NCCL does not tear down a communicator
     while a CUDA graph that captured its work lives (the processes hang
     on exit)."""
-    from octane_tpu_torch.parallel.sharded import _sharded_program_cache
+    from octane_tpu_torch.flow.program import drop_programs
+    from octane_tpu_torch.parallel.sharded import ProcessFlowProgram
 
     _exchanges.clear()
-    for key, program in list(_sharded_program_cache.items()):
-        if program.exchange is not None:
-            if program.graph is not None:
-                program.graph.reset()
-                program.graph = None
-            del _sharded_program_cache[key]
+    drop_programs(ProcessFlowProgram)
     if dist.is_initialized():
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
@@ -201,10 +197,7 @@ def distributed_variational_flow(geo1_local, geo2_local, global_shape, cfg: OFCo
     its device; every process must call it.  It goes through the
     process's banded program (``parallel.sharded.sharded_flow_program``
     with the exchange, as octane_tpu's goes through
-    ``sharded_variational_flow``): under NCCL a key's second call captures
-    the solve and later calls replay it, reading nothing on the host; over
-    gloo, on the CPU, and within one process without a group, see the
-    program's ``last_program_info``."""
+    ``sharded_variational_flow``), whose route ``last_program_info`` says."""
     mesh = mesh or distributed_mesh(cfg, device)
     exchange = exchange or distributed_exchange(mesh)
     dev = own_device(mesh)
@@ -519,7 +512,7 @@ def run_sequence_distributed(files, cfg: OFConfig, outdir: str = "./",
     rerun resumes from the first pair not done.  Products are named as the
     single-process sequence's (outfile{suffix}_NNN.nc; frames in
     pair_NNN/)."""
-    from octane_tpu_torch.sequence import _cfg_key
+    from octane_tpu_torch.sequence import cfg_key
 
     if len(files) < 2:
         raise ValueError("a sequence needs at least two frames")
@@ -528,7 +521,7 @@ def run_sequence_distributed(files, cfg: OFConfig, outdir: str = "./",
     mesh = distributed_mesh(cfg, device)
     exchange = distributed_exchange(mesh)
     r0, r1 = host_row_block(h, mesh)
-    key = _cfg_key(cfg)
+    key = cfg_key(cfg)
 
     start, fg = 0, None
     if checkpoint:

@@ -43,7 +43,7 @@ from octane_tpu_torch.parallel.halo import LocalExchange, field_rows, stub
 from octane_tpu_torch.parallel.mesh import mesh_bands
 from octane_tpu_torch.parallel.sor import split_rows
 from octane_tpu_torch.post.srsal import srsal_smooth
-from octane_tpu_torch.post.temporal import (_HOLE, _fill_step, forward_splat,
+from octane_tpu_torch.post.temporal import (HOLE, fill_step, forward_splat,
                                             interpolate_frame, synthesize)
 
 
@@ -191,8 +191,8 @@ def _fill_bands(uv, parts, exchange, max_iters: int = 10000):
                 g = None
             reqs += [(i, r0 - 1, r0, None if g is None else g[:, 0:1]),
                      (i, r0 + rows, r0 + rows + 1, None if g is None else g[:, 1:2])]
-        exchange.fetch_bands(field, reqs, fill="constant", value=_HOLE)
-        uv = {i: _fill_step(uv[i], ghosts[i]) for i in uv}
+        exchange.fetch_bands(field, reqs, fill="constant", value=HOLE)
+        uv = {i: fill_step(uv[i], ghosts[i]) for i in uv}
         done += 1
         left = holes()
     return uv

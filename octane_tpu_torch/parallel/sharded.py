@@ -6,9 +6,10 @@ warp -> assemble -> solve) on the mesh's row bands, through the mesh's
 program (``sharded_flow_program``).  Per level, each band
 builds once, on a slab of its rows and a halo, the level-invariant parts:
 the level images and hints (``core.zoom.pyramid_downsample_rows`` of the
-full-resolution rows they read), their gradients (``gradient_4th`` twice:
-4 rows more), the 6C-plane sample stack on the warp's slab and the 3C-plane
-[geo1, gx1, gy1] on the assembly's rows.  Inside the rounds only u and v
+full-resolution rows they read) and their stacks
+(``flow.variational.level_stacks``, whose gradients read 4 rows more): the
+6C-plane sample stack on the warp's slab and the 3C-plane [geo1, gx1, gy1]
+on the assembly's rows.  Inside the rounds only u and v
 change: each band holds them on its rows and one ghost row beside each
 cut, the assembly's stencil, and exchanges those once per round.  A round
 on a band is the band form of the warp (``ops.warp.warp_band``), the
@@ -45,20 +46,18 @@ round.  ``guard_reads`` counts the host reads: one per round, 36 per
 default pair, none in a replay.
 
 ``sharded_flow_program(cfg, shape, nchan, mesh)`` is the counterpart of
-JAX's one program per (mesh, shape, channels, config): where the bands lie
-on CUDA devices, on one card (``-mesh`` on one card) or one band per card
-(``-mesh`` over several cards, one capture begun on the first band's card
-that every other card's streams join), a key's first call runs the banded
-solve eagerly, its second captures the whole coarse-to-fine solve into one
-CUDA graph (flow.variational.CapturedPair), and it and every later call
-replay it: the banded solvers' stopping tests and the reach test are IF
-nodes on every card, with every cross-card copy between them, so a replay
-reads nothing on the host.  With a ``halo.ProcessExchange``
-(``exchange=``) it is one process's program of the multi-process solve
-(parallel.distributed): under NCCL each process captures its part, the
-exchange's sends, receives and collectives included; over gloo it stays
-eager.  Bands on the CPU run the eager loop too
-(``last_program_info["route"]`` says which and why).
+JAX's one program per (mesh, shape, channels, config), captured and cached
+by flow.program, in one of two forms.  ``MeshFlowProgram`` takes whole
+tensors in one process; where its bands lie on one card or one a card, a
+key's second call captures the whole banded solve into one CUDA graph
+(begun on the first band's card, every other card's streams joining it)
+and later calls replay it: the solvers' stopping tests and the reach test
+are IF nodes on every card, with every cross-card copy between them, so a
+replay reads nothing on the host.  ``ProcessFlowProgram`` takes one
+process's row block over a ``halo.ProcessExchange`` (parallel.distributed):
+under NCCL it captures its part, collectives included; over gloo it stays
+eager.  Bands on the CPU run the eager loop (``last_program_info["route"]``
+says which and why).
 
 Left behind from the TPU layout: the 2-D (dy, dx) block grid (a (ry, rx)
 mesh runs as ry * rx row bands, the same function: the kernels work on
@@ -94,11 +93,12 @@ import torch
 
 from octane_tpu_torch import ops
 from octane_tpu_torch.config import OFConfig
-from octane_tpu_torch.core.gradients import gradient_4th
 from octane_tpu_torch.core.zoom import (flow_rows, pyramid_downsample_rows, pyramid_rows,
                                         zoom_in_flow_rows)
-from octane_tpu_torch.flow.variational import (CapturedPair, _counted_plain, _device, _f32,
-                                               _marks, _record, gnc_rounds, level_schedule)
+from octane_tpu_torch.flow.program import (CapturedPair, cached, device_of, solve_fields,
+                                           solve_marks)
+from octane_tpu_torch.flow.variational import f32, gnc_rounds, level_schedule, level_stacks
+from octane_tpu_torch.ops import counted_plain
 from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assemble_pcg,
                                            assemble_pcg_plain)
 from octane_tpu_torch.ops.guard import decide, when
@@ -108,16 +108,17 @@ from octane_tpu_torch.ops.sor import sor_pass_band, sor_pass_band_plain
 from octane_tpu_torch.ops.warp import warp_band, warp_band_plain
 from octane_tpu_torch.parallel import cg as band_cg
 from octane_tpu_torch.parallel import sor as band_sor
+from octane_tpu_torch.parallel.distributed import host_row_block, local_parts, local_rows
 from octane_tpu_torch.parallel.halo import LocalExchange, field_rows, stub
 from octane_tpu_torch.parallel.mesh import mesh_bands
 from octane_tpu_torch.utils import profiling
 
-_PLAIN_WARP = _counted_plain(warp_band, warp_band_plain)
-_PLAIN_ASSEMBLE = _counted_plain(assemble_cf, assemble_cf_plain)
-_PLAIN_ASSEMBLE_PCG = _counted_plain(assemble_pcg, assemble_pcg_plain)
-_PLAIN_PASS = _counted_plain(sor_pass_band, sor_pass_band_plain)
-_PLAIN_PASSES = (_counted_plain(pcg_pass_a_band, pcg_pass_a_band_plain),
-                 _counted_plain(pcg_pass_b, pcg_pass_b_plain))
+_PLAIN_WARP = counted_plain(warp_band, warp_band_plain)
+_PLAIN_ASSEMBLE = counted_plain(assemble_cf, assemble_cf_plain)
+_PLAIN_ASSEMBLE_PCG = counted_plain(assemble_pcg, assemble_pcg_plain)
+_PLAIN_PASS = counted_plain(sor_pass_band, sor_pass_band_plain)
+_PLAIN_PASSES = (counted_plain(pcg_pass_a_band, pcg_pass_a_band_plain),
+                 counted_plain(pcg_pass_b, pcg_pass_b_plain))
 
 
 guard_reads = types.SimpleNamespace(reads=0)     # host reads of the warp reach test
@@ -214,17 +215,12 @@ class _Band:
             hint = lvl[2 * c:]
         else:
             lvl = pyramid_downsample_rows(rows, f0, hfull, factor, (self.e0, self.e1))
-            hint = lvl[2 * c:] * _f32(factor)
+            hint = lvl[2 * c:] * f32(factor)
         e0 = self.e0
-        g1, g2 = lvl[:c], lvl[c:2 * c]
-        gx1, gy1 = gradient_4th(g1)
-        gx2, gy2 = gradient_4th(g2)
-        gxx, _ = gradient_4th(gx2)
-        gxy, gyy = gradient_4th(gy2)
-        self.stack = torch.cat([g2, gx2, gy2, gxx, gxy, gyy])[:, self.s0 - e0:self.s1 - e0]
-        self.stack = self.stack.contiguous()
+        stack, g1s = level_stacks(lvl[:c], lvl[c:2 * c])
+        self.stack = stack[:, self.s0 - e0:self.s1 - e0].contiguous()
         a = slice(self.a0 - e0, self.a1 - e0)
-        self.g1s = torch.cat([g1, gx1, gy1])[:, a].contiguous()
+        self.g1s = g1s[:, a].contiguous()
         self.uhat, self.vhat = hint[0, a].contiguous(), hint[1, a].contiguous()
         self.warped = _warp_buffers(6 * c, self.a1 - self.a0, self.stack.shape[2], self.dev)
 
@@ -311,17 +307,13 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
     exchanges (the level's fetch of its sample stack, each round's ghost
     rows of u and v).
     Each decision is taken on every device of the level's local bands
-    (ops.guard.Gate), with every transfer at the top level: the whole
-    level's sample stack that the reach test's body warps from is fetched
-    once per level, ahead of the rounds.  Where the exchange stages rows
-    through host memory (gloo on a card, which stays eager) or the bands
-    lie on one card of one process (parallel.sor.one_body), the body
-    fetches it itself, only where the test fails.
+    (ops.guard.Gate); the reach test's body warps from the whole level's
+    sample stack, fetched as the module docstring says.
     """
     h, w = hw
     warp_fn = _PLAIN_WARP if plain else warp_band
     round_fn = _sor_round if cfg.solver == "sor" else _pcg_round
-    alpha, lam_a = _f32(cfg.alpha), _f32(cfg.lambda_over_alpha)
+    alpha, lam_a = f32(cfg.alpha), f32(cfg.lambda_over_alpha)
     dev0 = _home(mesh, exchange)
     count = torch.zeros((), dtype=torch.int32, device=dev0)
     marks = marks or {}
@@ -333,7 +325,7 @@ def banded_flow(full, hw, c: int, cfg: OFConfig, mesh, exchange, plain: bool = F
     for k, factor, hw, lambdac_k in level_schedule(cfg, h, w):
         for m in marks.values():
             m.start_level(k)
-        lambdac_k = _f32(lambdac_k)
+        lambdac_k = f32(lambdac_k)
         top = k == cfg.kiters - 1
         first = bands is None
         bands = [_Band(i, dev, r0, r1, hw[0])
@@ -479,7 +471,6 @@ def _pcg_round(bands, h, al1, lambdac, alpha, lam_a, cfg, exchange, plain, count
                                count=count, first=first)
 
 
-_sharded_program_cache: dict = {}
 last_program_info = None         # the info of the last program sharded_flow_program gave
 
 
@@ -491,66 +482,25 @@ def sharded_program_key(cfg: OFConfig, shape, nchan: int, mesh, exchange=None) -
     its stamps); a program over processes (a ``ProcessExchange``) adds the
     bands' processes, the backend, the group's size and this process's
     rank."""
-    key = (tuple(mesh.shape), tuple(_device(d) for d in mesh.devices), tuple(shape), nchan,
-           cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor, cfg.kiters, cfg.liters,
-           cfg.cgiters, cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega, cfg.cg_tol,
-           cfg.halo_warp, profiling.enabled())
+    key = (tuple(mesh.shape), tuple(device_of(d) for d in mesh.devices), tuple(shape), nchan,
+           *solve_fields(cfg), cfg.halo_warp, profiling.enabled())
     if exchange is not None and not isinstance(exchange, LocalExchange):
         key += (exchange.ranks, exchange.backend, exchange.world, exchange.rank)
     return key
 
 
 class ShardedFlowProgram(CapturedPair):
-    """The banded coarse-to-fine solve of one mesh, shape, channel count and
-    config (see the module docstring and CapturedPair); ``info`` is what
-    ``last_program_info`` reports for it.
-
-    Within one process (``exchange`` None) it takes whole tensors and
-    returns the flow on the mesh's first device; bands on several cards are
-    captured in one graph begun on the first band's card.  Over processes
-    (a ``halo.ProcessExchange``) it takes and returns this process's row
-    block (``parallel.distributed.host_row_block``): under NCCL each process
-    captures its graph with the exchange's collectives in it; gloo stays
-    eager.  A replay adds to the exchange's ``sent`` what the capture's
-    transfers sent, as its launches are added from the capture."""
+    """What the two banded programs (see the module docstring) share;
+    ``info`` is what ``last_program_info`` reports for it."""
 
     label = "sharded flow program"
 
-    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key, exchange=None):
+    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key, rows: int, devices,
+                 route: str, reason: str):
         h, w = self.hw = tuple(shape)
-        self.row0, rows = 0, h
-        if exchange is None:
-            devices = list(dict.fromkeys(_device(d) for d in mesh.devices))
-            first = devices[0]
-            if any(d.type != "cuda" for d in devices):
-                route, reason = "eager", f"the bands lie on the {first.type}"
-            elif len(devices) > 1:
-                route, reason = "graph", (f"the bands lie on {len(devices)} cards "
-                                          f"({', '.join(map(str, devices))}), one capture")
-            else:
-                route, reason = "graph", f"every band lies on {first}"
-        else:
-            from octane_tpu_torch.parallel.distributed import host_row_block
-
-            first = _device(exchange.device)
-            devices = [first]
-            self.row0, r1 = host_row_block(h, mesh)
-            rows = r1 - self.row0
-            if first.type != "cuda":
-                route, reason = "eager", f"the bands lie on the {first.type}"
-            elif exchange.staged:
-                route, reason = "eager", ("gloo stages a card's rows through pinned host "
-                                          "memory, which no CUDA graph captures")
-            else:
-                route, reason = "graph", (f"{exchange.backend}, process {exchange.rank} of "
-                                          f"{exchange.world} on {first}")
-        super().__init__(cfg, (rows, w), nchan, first, route == "graph", devices)
-        self.mesh, self.exchange = mesh, exchange
-        self.field = self.views = None  # the joined inputs (_into_field)
+        super().__init__(cfg, (rows, w), nchan, devices[0], route == "graph", devices)
+        self.mesh = mesh
         self.wide = None    # the rounds whose band warp fell back to the whole level
-        if self.captures and profiling.enabled():
-            self.marks = self._new_marks()
-        self.sent: dict = {}            # what one replay's transfers send
         warp_levels = [k for k, _, hw, _ in level_schedule(cfg, h, w)
                        if len(mesh_bands(mesh, hw[0])) > 1]
         self.info = {"warp_levels": frozenset(warp_levels),
@@ -559,19 +509,38 @@ class ShardedFlowProgram(CapturedPair):
 
     def _new_marks(self) -> dict:
         """{device: Marks} of a traced banded solve on this program's cards."""
-        return {d: _marks(self.cfg, d, exchanges=True) for d in self.devices}
+        return {d: solve_marks(self.cfg, d, exchanges=True) for d in self.devices}
 
     def __call__(self, geo1, geo2, u0, v0):
-        replays = self.captures and self.warmed
-        if self.captures and self.exchange is None:
-            self._check(geo1, geo2, u0, v0)
-            geo1, geo2, u0, v0 = self._into_field(geo1, geo2, u0, v0)
+        if self.wide is None:           # set by every pair, kept across calls
+            self.wide = torch.zeros((), dtype=torch.int32, device=self.device)
         out = super().__call__(geo1, geo2, u0, v0)
         ops.record_wide_rounds(self.wide.clone())
-        if replays and self.exchange is not None:
-            for k, n in self.sent.items():
-                self.exchange.sent[k] += n
         return out
+
+
+class MeshFlowProgram(ShardedFlowProgram):
+    """The banded program of one process: whole tensors in, the flow on
+    the mesh's first device out."""
+
+    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key):
+        devices = list(dict.fromkeys(device_of(d) for d in mesh.devices))
+        first = devices[0]
+        if any(d.type != "cuda" for d in devices):
+            route, reason = "eager", f"the bands lie on the {first.type}"
+        elif len(devices) > 1:
+            route, reason = "graph", (f"the bands lie on {len(devices)} cards "
+                                      f"({', '.join(map(str, devices))}), one capture")
+        else:
+            route, reason = "graph", f"every band lies on {first}"
+        super().__init__(cfg, shape, nchan, mesh, key, shape[0], devices, route, reason)
+        self.field = self.views = None  # the joined inputs (_into_field)
+
+    def __call__(self, geo1, geo2, u0, v0):
+        if self.captures:
+            self._check(geo1, geo2, u0, v0)
+            geo1, geo2, u0, v0 = self._into_field(geo1, geo2, u0, v0)
+        return super().__call__(geo1, geo2, u0, v0)
 
     def _into_field(self, geo1, geo2, u0, v0):
         """The inputs copied into the program's (2C + 2, H, W) field on the
@@ -590,28 +559,50 @@ class ShardedFlowProgram(CapturedPair):
         return self.views
 
     def _static_inputs(self, geo1, geo2, u0, v0) -> list:
-        if self.exchange is None:
-            return list(self.views)
-        return super()._static_inputs(geo1, geo2, u0, v0)
+        return list(self.views)
+
+    def _pair(self, geo1, geo2, u0, v0, marks=None):
+        return _banded_pair(geo1, geo2, u0, v0, self.cfg, self.mesh, LocalExchange(),
+                            False, self.field, marks, self.wide)
+
+
+class ProcessFlowProgram(ShardedFlowProgram):
+    """One process's banded program: its row block
+    (``parallel.distributed.host_row_block``) in and out.  A replay adds to
+    the exchange's ``sent`` what the capture's transfers sent, as its
+    launches are added from the capture."""
+
+    def __init__(self, cfg: OFConfig, shape, nchan: int, mesh, key, exchange):
+        first = device_of(exchange.device)
+        self.row0, r1 = host_row_block(shape[0], mesh)
+        if first.type != "cuda":
+            route, reason = "eager", f"the bands lie on the {first.type}"
+        elif exchange.staged:
+            route, reason = "eager", ("gloo stages a card's rows through pinned host "
+                                      "memory, which no CUDA graph captures")
+        else:
+            route, reason = "graph", (f"{exchange.backend}, process {exchange.rank} of "
+                                      f"{exchange.world} on {first}")
+        super().__init__(cfg, shape, nchan, mesh, key, r1 - self.row0, [first], route, reason)
+        self.exchange = exchange
+        self.sent: dict = {}            # what one replay's transfers send
+
+    def __call__(self, geo1, geo2, u0, v0):
+        out = super().__call__(geo1, geo2, u0, v0)
+        if self.graph is not None:      # it replayed
+            for k, n in self.sent.items():
+                self.exchange.sent[k] += n
+        return out
 
     def _capture(self, geo1, geo2, u0, v0):
-        before = dict(self.exchange.sent) if self.exchange is not None else {}
+        before = dict(self.exchange.sent)
         try:
             super()._capture(geo1, geo2, u0, v0)
         finally:                        # the capture sent nothing
-            if self.exchange is not None:
-                self.sent = {k: self.exchange.sent[k] - n for k, n in before.items()}
-                self.exchange.sent.update(before)
+            self.sent = {k: self.exchange.sent[k] - n for k, n in before.items()}
+            self.exchange.sent.update(before)
 
     def _pair(self, geo1, geo2, u0, v0, marks=None):
-        if self.wide is None:           # set by every pair, kept across calls
-            self.wide = torch.zeros((), dtype=torch.int32, device=self.device)
-        if self.exchange is None:
-            field = self.field if self.views and geo1 is self.views[0] else None
-            return _banded_pair(geo1, geo2, u0, v0, self.cfg, self.mesh, LocalExchange(),
-                                False, field, marks, self.wide)
-        from octane_tpu_torch.parallel.distributed import local_parts, local_rows
-
         block = torch.cat([geo1, geo2, u0[None], v0[None]])
         prev, count = banded_flow(local_parts(block, self.row0, self.mesh, self.hw[0]),
                                   self.hw, self.nchan, self.cfg, self.mesh, self.exchange,
@@ -619,30 +610,18 @@ class ShardedFlowProgram(CapturedPair):
         uv = local_rows(prev, block[:2])
         return uv[0], uv[1], count
 
-    def _solve(self, geo1, geo2, u0, v0):
-        return self._pair(geo1, geo2, u0, v0, self.marks)
-
-    def _eager(self, geo1, geo2, u0, v0):
-        marks = self._new_marks() if profiling.enabled() else None
-        u, v, count = self._pair(geo1, geo2, u0, v0, marks)
-        _record(self.cfg.solver, count, marks)
-        return u, v
-
 
 def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh, true_shape=None,
                          exchange=None) -> ShardedFlowProgram:
     """The cached program of the whole banded coarse-to-fine solve over the
-    mesh (octane_tpu's sharded_flow_program); sets ``last_program_info``:
-    ``warp_levels`` (the levels with more than one non-empty band, which
-    the band warp serves), ``cg_levels`` (the levels whose solve runs
-    banded: all), ``kiters``, the ``key``, and the ``route`` with its
-    ``reason``: "graph" where every band lies on a card, on one or on
-    several, and over processes under NCCL; "eager" on the CPU and over
-    gloo.  With a ``halo.ProcessExchange`` it is this process's program of
-    the multi-process solve (parallel.distributed), which takes its row
-    block, and keeps the exchange it was built with (one per group:
-    ``parallel.distributed.distributed_exchange``).  The bands are not
-    padded, so ``true_shape`` must be ``shape`` or None."""
+    mesh (octane_tpu's sharded_flow_program): with a ``halo.ProcessExchange``
+    (one per group, which it keeps: ``parallel.distributed.distributed_exchange``)
+    a ``ProcessFlowProgram``, else a ``MeshFlowProgram``.  Sets
+    ``last_program_info``: ``warp_levels`` (the levels with more than one
+    non-empty band, which the band warp serves), ``cg_levels`` (the levels
+    whose solve runs banded: all), ``kiters``, the ``key``, and the ``route``
+    ("graph" or "eager") with its ``reason``.  The bands are not padded, so
+    ``true_shape`` must be ``shape`` or None."""
     global last_program_info
     if true_shape is not None and tuple(true_shape) != tuple(shape):
         raise ValueError(f"sharded_flow_program: the bands are not padded, true_shape "
@@ -650,10 +629,9 @@ def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh, true_shape=None
     if isinstance(exchange, LocalExchange):
         exchange = None
     key = sharded_program_key(cfg, shape, nchan, mesh, exchange)
-    if key not in _sharded_program_cache:
-        _sharded_program_cache[key] = ShardedFlowProgram(cfg, shape, nchan, mesh, key,
-                                                         exchange)
-    program = _sharded_program_cache[key]
+    program = cached(key, lambda: MeshFlowProgram(cfg, shape, nchan, mesh, key)
+                     if exchange is None
+                     else ProcessFlowProgram(cfg, shape, nchan, mesh, key, exchange))
     last_program_info = program.info
     return program
 

@@ -24,7 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-_HOLE = -999.0
+HOLE = -999.0
 _BIGCOST = 999999.0
 _BIGORDER = 2 ** 31 - 1      # octane_tpu's int32 sentinel
 
@@ -92,14 +92,14 @@ def forward_splat(u, v, im1, im2, time, h: int = None, row0: int = 0, rows=None)
 
     # exactly one source wins each written target
     wt = tgt[win]
-    ut = torch.full((n + 1,), _HOLE, dtype=torch.float32, device=u.device)
-    vt = torch.full((n + 1,), _HOLE, dtype=torch.float32, device=u.device)
+    ut = torch.full((n + 1,), HOLE, dtype=torch.float32, device=u.device)
+    vt = torch.full((n + 1,), HOLE, dtype=torch.float32, device=u.device)
     ut[wt] = u.reshape(-1).repeat(4)[win]
     vt[wt] = v.reshape(-1).repeat(4)[win]
     return ut[:n].reshape(t1 - t0, w), vt[:n].reshape(t1 - t0, w)
 
 
-def _fill_step(uv, ghosts=None):
+def fill_step(uv, ghosts=None):
     """One Jacobi step of the masked 3x3 neighbour mean on the stacked
     (2, H, W) (ut, vt); a cell stays a hole while no neighbour is filled.
     The neighbours are summed in octane_tpu's order (rows, then columns).
@@ -107,10 +107,10 @@ def _fill_step(uv, ghosts=None):
     band of the image; by default the image's edges pad the constant hole."""
     _, h, w = uv.shape
     if ghosts is None:
-        up = F.pad(uv, (1, 1, 1, 1), value=_HOLE)
+        up = F.pad(uv, (1, 1, 1, 1), value=HOLE)
     else:
         up = F.pad(torch.cat([ghosts[:, :1], uv, ghosts[:, 1:]], dim=1), (1, 1, 0, 0),
-                   value=_HOLE)
+                   value=HOLE)
     cnt = s = None
     for dj in (-1, 0, 1):
         for di in (-1, 0, 1):
@@ -138,7 +138,7 @@ def fill_holes(ut, vt, max_iters: int = 10000):
     uv = torch.stack([ut, vt])
     done = 0
     while done < max_iters and bool((uv[0] < -998.0).any()):
-        uv = _fill_step(uv)
+        uv = fill_step(uv)
         done += 1
     return uv[0], uv[1]
 

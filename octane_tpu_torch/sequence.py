@@ -37,7 +37,7 @@ from octane_tpu_torch.io.writers import write_product
 from octane_tpu_torch.pipeline import SUFFIX, interpolate_sequence
 
 
-def _cfg_key(cfg: OFConfig) -> str:
+def cfg_key(cfg: OFConfig) -> str:
     """Fingerprint of the settings that must not change across a resume."""
     return hashlib.sha256(repr(cfg).encode()).hexdigest()
 
@@ -108,7 +108,7 @@ def run_sequence(
     written: List[str] = []
     start = 0
     u_prev = v_prev = None
-    key = _cfg_key(cfg)
+    key = cfg_key(cfg)
     if checkpoint:
         state = _load_checkpoint(checkpoint, key, files)
         if state is not None:

@@ -626,8 +626,8 @@ def test_sequence_resume_refusals(tmp_path, monkeypatch):
         distributed.run_sequence_distributed([files[1], files[0], files[2]], cfg,
                                              outdir=str(tmp_path / "out"), checkpoint=ckpt,
                                              device="cpu")
-    from octane_tpu_torch.sequence import _cfg_key
-    key = _cfg_key(cfg)
+    from octane_tpu_torch.sequence import cfg_key
+    key = cfg_key(cfg)
     _as_process(monkeypatch, 0, 2)              # rank 0 of 2 reads the same file name
     with pytest.raises(ValueError, match="different process layout"):
         distributed._load_seq_checkpoint(ckpt, key, files, 0, 40)

@@ -98,6 +98,28 @@ def test_port_source_names_no_h5py():
             assert "h5py" not in f.read(), f"{path} names h5py"
 
 
+def test_program_layer_imports_point_one_way():
+    """flow/variational.py imports nothing of octane_tpu_torch.parallel (the
+    captured programs' shared layer is flow/program.py), and no module under
+    flow/ or parallel/ imports an underscore name from another module of
+    the package."""
+    pkg = os.path.join(ROOT, "octane_tpu_torch")
+    tree, names = _imported(os.path.join(pkg, "flow", "variational.py"))
+    names += [f"{node.module}.{a.name}" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module for a in node.names]
+    assert not [n for n in names if n.startswith("octane_tpu_torch.parallel")], names
+    private = []
+    for sub in ("flow", "parallel"):
+        for d, _, ns in os.walk(os.path.join(pkg, sub)):
+            for path in (os.path.join(d, n) for n in ns if n.endswith(".py")):
+                tree, _ = _imported(path)
+                private += [f"{path}:{node.lineno} {a.name}" for node in ast.walk(tree)
+                            if isinstance(node, ast.ImportFrom)
+                            and (node.level or (node.module or "").startswith("octane_tpu_torch"))
+                            for a in node.names if a.name.startswith("_")]
+    assert not private, private
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/torch_fixtures.py",
                                   "tests/torch_dist_worker.py"])
 def test_smoke_does_not_import_h5py(path):

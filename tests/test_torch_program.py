@@ -29,6 +29,7 @@ from octane_tpu.config import OFConfig as JaxOFConfig
 from octane_tpu.flow.variational import variational_flow as jax_flow
 from octane_tpu_torch import ops
 from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.flow import program as fp
 from octane_tpu_torch.flow import variational as fv
 from octane_tpu_torch.ops import pcg as pcgmod
 from octane_tpu_torch.ops import sor as sormod
@@ -191,10 +192,14 @@ def test_program_keys():
     """The same (shape, channels, config, device) gives the same program;
     each keyed field, the shape and the channels give another; options the
     solve does not read do not.  The keyed fields are octane_tpu's but its
-    TPU option."""
+    TPU option, in this order; programs of every kind share one cache."""
     assert set(CHANGED) == _jax_key_fields() - {"use_pallas"}
     fv.clear_program_cache()
     cfg = OFConfig(kiters=2)
+    assert fv.program_key(cfg, [32, 48], 1, "cpu") == (
+        (32, 48), 1, cfg.alpha, cfg.lambda_, cfg.lambdac, cfg.scale_factor, cfg.kiters,
+        cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega,
+        cfg.cg_tol, torch.device("cpu"), False)
     prog = fv.flow_program(cfg, (32, 48), 1, "cpu")
     assert fv.flow_program(OFConfig(kiters=2), [32, 48], 1, torch.device("cpu")) is prog
     assert fv.flow_program(cfg.replace(do_srsal=True, rad=3, nchannels=2), (32, 48), 1,
@@ -203,9 +208,9 @@ def test_program_keys():
               for k, val in CHANGED.items()]
     others += [fv.flow_program(cfg, (32, 47), 1, "cpu"), fv.flow_program(cfg, (32, 48), 2, "cpu")]
     assert len({id(p) for p in others + [prog]}) == len(others) + 1
-    assert len(fv._program_cache) == len(others) + 1
+    assert len(fp._cache) == len(others) + 1
     fv.clear_program_cache()
-    assert not fv._program_cache
+    assert not fp._cache
     assert fv.flow_program(cfg, (32, 48), 1, "cpu") is not prog
 
 

@@ -44,6 +44,7 @@ from octane_tpu.parallel import sharded as jax_sharded
 
 from octane_tpu_torch import ops
 from octane_tpu_torch.config import OFConfig
+from octane_tpu_torch.flow import program as fp
 from octane_tpu_torch.flow import variational as fv
 from octane_tpu_torch.ops import pcg as pcgmod
 from octane_tpu_torch.ops import sor as sormod
@@ -558,11 +559,17 @@ CHANGED = dict(alpha=4.0, lambda_=0.5, lambdac=0.1, scale_factor=0.6, kiters=3, 
 def test_program_keys():
     """The same (mesh, shape, channels, config) gives the same program;
     another mesh shape or devices, each keyed field, the shape and the
-    channels give another; options the solve does not read do not."""
+    channels give another; options the solve does not read do not.  The
+    key's fields are in this order; the programs share the single-device
+    programs' cache."""
     assert set(CHANGED) == _jax_key_fields() - {"use_pallas"}
     fv.clear_program_cache()
     cfg = OFConfig(kiters=2)
     mesh = _mesh(1, 4)
+    assert sharded.sharded_program_key(cfg, [32, 48], 1, mesh) == (
+        (1, 4), (CPU,) * 4, (32, 48), 1, cfg.alpha, cfg.lambda_, cfg.lambdac,
+        cfg.scale_factor, cfg.kiters, cfg.liters, cfg.cgiters, cfg.gnc_steps, cfg.dozim,
+        cfg.solver, cfg.sor_omega, cfg.cg_tol, cfg.halo_warp, False)
     prog = sharded.sharded_flow_program(cfg, (32, 48), 1, mesh)
     assert sharded.sharded_flow_program(OFConfig(kiters=2), [32, 48], 1, _mesh(1, 4)) is prog
     assert sharded.sharded_flow_program(cfg.replace(do_srsal=True, rad=3), (32, 48), 1,
@@ -577,10 +584,10 @@ def test_program_keys():
                sharded.sharded_flow_program(cfg, (32, 48), 1, _mesh(1, 8)),
                sharded.sharded_flow_program(cfg, (32, 48), 1, _mesh(1, 4, "meta"))]
     assert len({id(p) for p in others + [prog]}) == len(others) + 1
-    assert len(sharded._sharded_program_cache) == len(others) + 1
+    assert len(fp._cache) == len(others) + 1
     assert fv.flow_program(cfg, (32, 48), 1, "cpu") is not prog
     fv.clear_program_cache()
-    assert not sharded._sharded_program_cache
+    assert not fp._cache
     assert sharded.sharded_flow_program(cfg, (32, 48), 1, mesh) is not prog
     fv.clear_program_cache()
 

@@ -74,8 +74,8 @@ def test_fill_holes_completes():
 
 def test_all_hole_field_stops_at_max_iters(monkeypatch):
     steps = []
-    real = tt._fill_step
-    monkeypatch.setattr(tt, "_fill_step", lambda uv: steps.append(1) or real(uv))
+    real = tt.fill_step
+    monkeypatch.setattr(tt, "fill_step", lambda uv: steps.append(1) or real(uv))
     hole = torch.full((6, 7), -999.0)
     fu, fv = fill_holes(hole, hole, max_iters=10)
     assert len(steps) == 10

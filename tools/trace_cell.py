@@ -105,7 +105,7 @@ class Memory:
     def end(self, k: int):
         import torch
 
-        from octane_tpu_torch.flow.variational import program_pool_bytes
+        from octane_tpu_torch.flow.program import program_pool_bytes
 
         rec = {"pair": k, "peak": [torch.cuda.max_memory_allocated(d) for d in self.cards],
                "held": [torch.cuda.memory_allocated(d) for d in self.cards],
