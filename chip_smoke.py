@@ -47,6 +47,16 @@ Phases, one line each (any failure exits non-zero):
      solves of sor_solve_fused with the kernel vs with the plain pass
      (bit-identical) and vs the reference loop flow.cg.sor_solve (rel <=
      2e-5), quad and robust;
+ 6b. pyramid: a level of the solver pyramid (ops.pyramid, csrc/pyramid.cu)
+     vs its plain version, bit for bit (also as int32) at f = 1/2, 1/4,
+     1/8, 1/32 on N = 4 and 8 planes of 1001 x 777 and on a 3-row image;
+     at 5424^2, N = 4, each full-disk factor timed from a graph beside its
+     bound (the rows and columns its windows reach, read once, and the
+     level written) and its plain version; a 21696^2 band slab (the
+     second of 4 bands, f = 1/32) bit-equal to its plain version and to
+     the whole image's rows, timed the same way; then a JSON line
+     {"pyramid_level": [rows of the kernel table]} (its launches a pair:
+     phase 10's replayed 5424^2 pairs, kiters - 1 each, no plain call);
   7. the main path on the 512^2 product fixture pair (tests/golden/
      product_512.npz): codec-written L1b files through the CLI, the product
      read back through the codec; with the default PCG solver the
@@ -69,7 +79,8 @@ Phases, one line each (any failure exits non-zero):
      regrid of a band-2-like 2000^2 scene from a 500^2 field, bicubic and
      nearest, against the same call on the CPU (rel <= 1e-5);
  10. a GOES full-disk 5424^2 pair (kiters=4) through variational_flow (the
-     timed call a replay of its captured program) and
+     timed call a replay of its captured program, which counts kiters - 1
+     pyramid launches and no plain call) and
      pix2uv, per solver, timed with CUDA events with the kernels and with
      their plain versions (the solver's internal plain route); the two flows
      must be bit-identical and the median flow within 0.1 px of the truth.
@@ -261,7 +272,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULLDISK = 5424         # the GOES ABI full-disk band-13 grid
-PHASES = ("env", "build", "io", "warp", "pcg", "assemble", "sor", "main", "golden", "srsal",
+PHASES = ("env", "build", "io", "warp", "pcg", "assemble", "sor", "pyramid", "main", "golden",
+          "srsal",
           "fulldisk", "hybrid", "interp", "multichannel", "flatgrid", "sequence", "mesh", "dist",
           "program", "tracer")
 SECTOR = 1024           # the hybrid and interp phases' card-against-CPU checks
@@ -947,6 +959,88 @@ def phase_sor(dev, report):
     report["sor_pass"] = {"max_abs_err": worst}
 
 
+def pyramid_bound(img, s0, h, factor, rows):
+    """(bound ms, by) of level rows ``rows`` of an h-row image from ``img``,
+    its rows from ``s0``: the rows and columns of ``img`` that the level's
+    windows reach, read once, and the level written; 2 fs multiplies and
+    adds a horizontal sum (one a reached row and kept column) and an
+    output."""
+    from octane_tpu_torch.core.gaussian import solver_filtsize
+    from octane_tpu_torch.core.zoom import pyramid_index, zoom_size
+
+    fs = solver_filtsize(factor)
+    n, hs, w = img.shape
+    ridx = pyramid_index(*rows, h, factor, img.device) - s0
+    cidx = pyramid_index(0, zoom_size(w, factor), w, factor, img.device)
+
+    def reached(idx, size):
+        lo = (idx - fs).clamp(0, size - 1)
+        hit = torch.zeros(size + 1, dtype=torch.int32, device=idx.device)
+        hit.index_add_(0, lo, torch.ones_like(lo, dtype=torch.int32))
+        hit.index_add_(0, (idx + fs).clamp(max=size), -torch.ones_like(lo, dtype=torch.int32))
+        return int((hit.cumsum(0)[:size] > 0).sum())
+
+    nrows, ncols = reached(ridx, hs), reached(cidx, w)
+    out = n * ridx.numel() * cidx.numel()
+    return bound(4 * (n * nrows * ncols + out), 4 * fs * (n * nrows * cidx.numel() + out))
+
+
+def phase_pyramid(dev):
+    from octane_tpu_torch.core.zoom import pyramid_rows, zoom_size
+    from octane_tpu_torch.ops.pyramid import pyramid_level, pyramid_level_plain
+
+    def same(a, b):
+        return torch.equal(a, b) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for (n, h, w) in ((4, 1001, 777), (8, 1001, 777), (4, 3, 40)):
+        img = torch.rand((n, h, w), generator=gen, device=dev) * 255
+        for f in (0.5, 0.25, 0.125, 1 / 32):
+            args = (img, 0, h, f, (0, zoom_size(h, f)))
+            if not same(pyramid_level(*args), pyramid_level_plain(*args)):
+                raise AssertionError(f"pyramid: {n}x{h}x{w} at f = {f} differs from plain")
+    say("pyramid", "bit-exact (also as int32) at f = 1/2, 1/4, 1/8, 1/32 on 4 and 8 planes "
+                   "of 1001x777 and 4 of 3x40")
+
+    table = []
+
+    def timed(label, args, check):
+        k = pyramid_level(*args)
+        if not check(k):
+            raise AssertionError(f"pyramid: {label} differs")
+        ms = graph_ms(lambda: pyramid_level(*args), n=20)
+        plain_ms = cuda_ms(lambda: pyramid_level_plain(*args), n=2)
+        b_ms, by = pyramid_bound(*args)
+        row = {"level": label, "factor": args[3], "out": list(k.shape), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+               "pct_of_bound": 100.0 * b_ms / ms}
+        say("pyramid", f"{label}: {ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                       f"{row['pct_of_bound']:.1f} % of it; plain {plain_ms:.3f} ms")
+        table.append(row)
+
+    img = torch.rand((4, FULLDISK, FULLDISK), generator=gen, device=dev) * 255
+    for f in (0.5, 0.25, 0.125):
+        args = (img, 0, FULLDISK, f, (0, zoom_size(FULLDISK, f)))
+        timed(f"{FULLDISK}^2 x 4, f = {f}", args,
+              lambda k, args=args: same(k, pyramid_level_plain(*args)))
+    del img
+    big, f = 4 * FULLDISK, 1 / 32
+    img = torch.rand((4, big, big), generator=gen, device=dev) * 255
+    nyy = zoom_size(big, f)
+    rows = (nyy // 4 - 21, nyy // 2 + 21)       # band 1 of 4 and ~21 level rows of halo
+    s0, s1 = pyramid_rows(big, f, rows)
+    slab = img[:, s0:s1].contiguous()
+    whole = pyramid_level(img, 0, big, f, (0, nyy))[:, rows[0]:rows[1]]
+    del img
+    args = (slab, s0, big, f, rows)
+    timed(f"{big}^2 band slab rows [{s0}, {s1}) x 4, f = 1/32", args,
+          lambda k: same(k, whole) and same(k, pyramid_level_plain(*args)))
+    del slab, whole
+    torch.cuda.empty_cache()
+    # its launches a pair: the fulldisk phase's replayed pairs
+    print(json.dumps({"pyramid_level": table}), flush=True)
+
+
 def _check_counters(phase, *paths):
     """Every kernel of the paths ``paths`` (keys of ops.PATHS) launched, and
     no plain version was called."""
@@ -1224,6 +1318,11 @@ def phase_fulldisk(dev, report):
             if label == "kernels":
                 pair_ms[solver] = ms
                 launches[solver] = _check_counters("fulldisk", solver)
+                # the pyramid: one launch a coarse level of the replayed pair
+                if launches[solver]["pyramid_level"] != (cfg.kiters - 1, 0):
+                    raise AssertionError(f"fulldisk: {solver} pyramid_level (launches, plain "
+                                         f"calls) {launches[solver]['pyramid_level']}, not "
+                                         f"{(cfg.kiters - 1, 0)}")
             else:
                 say("fulldisk", f"{solver} plain route (kernel, plain): " + json.dumps(c))
                 if (any(c[n][0] != 0 for n in ops.WRAPPERS)
@@ -3142,6 +3241,7 @@ def main(argv=None):
               ("pcg", lambda: phase_pcg(dev, report)),
               ("assemble", lambda: phase_assemble(dev, report)),
               ("sor", lambda: phase_sor(dev, report)),
+              ("pyramid", lambda: phase_pyramid(dev)),
               ("main", lambda: phase_main(dev)),
               ("golden", lambda: phase_golden(dev)),
               ("srsal", lambda: phase_srsal(dev, report)),

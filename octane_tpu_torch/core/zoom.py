@@ -13,7 +13,9 @@
 * ``pyramid_rows`` / ``pyramid_downsample_rows`` and ``flow_rows`` /
   ``zoom_in_flow_rows``: the same two solver resamplings for output rows
   [a, b) only, from the input rows they read (the row-banded mesh path);
-  the pyramid's rows equal the whole call's bit for bit.
+  the pyramid's rows equal the whole call's bit for bit.  ``pyramid_index``
+  builds the pyramid's row or column indices, which ``ops.pyramid``'s
+  kernel takes.
 * ``zoom_in_image`` / ``zoom_out_image``: the ingest regrids (CTH onto
   the image grid): bicubic (or nearest) at half-pixel-offset positions,
   and blur + bicubic at ii/factor (oct_zoom.cc:51-88, 180-222).  Positions
@@ -37,7 +39,7 @@ def zoom_size(n: int, factor: float) -> int:
     return int(float(n) * factor + 0.5)
 
 
-def _weights_sigma(factor: float) -> float:
+def weights_sigma(factor: float) -> float:
     """Downsampling Gaussian sigma 0.6*sqrt(1/f^2 - 1) (oct_zoom.cc:31)."""
     return 0.6 * math.sqrt(1.0 / (factor * factor) - 1.0)
 
@@ -112,7 +114,7 @@ def zoom_out_image(img: torch.Tensor, factor: float) -> torch.Tensor:
     if factor >= 0.999999:
         return img
     nxx, nyy = zoom_size(w, factor), zoom_size(h, factor)
-    sigma = _weights_sigma(factor)
+    sigma = weights_sigma(factor)
     fs = ingest_filtsize(sigma)
     blurred = blur_separable(img, gaussian_kernel_1d(sigma, fs), fs)
     i2 = (np.arange(nxx, dtype=np.float64) / factor).astype(np.float32)
@@ -146,7 +148,7 @@ def zoom_out_image_rows(read_rows, h_in: int, w_in: int, factor: float, rows,
     if factor >= 0.999999:
         return torch.as_tensor(read_rows(r0, r1), device=device)
     nxx, nyy = zoom_size(w_in, factor), zoom_size(h_in, factor)
-    sigma = _weights_sigma(factor)
+    sigma = weights_sigma(factor)
     fs = ingest_filtsize(sigma)
     j2 = (np.arange(nyy, dtype=np.float64) / factor).astype(np.float32)[r0:r1]
     s0 = max(0, int(np.floor(float(j2.min()))) - 2 - fs)
@@ -178,20 +180,11 @@ def zoom_in_image_rows(read_rows, h_in: int, w_in: int, new_hw, rows, bicubic: b
 
 def pyramid_downsample(img: torch.Tensor, factor: float) -> torch.Tensor:
     """Solver-path downsample of a full-resolution (..., H, W) image."""
-    h, w = img.shape[-2], img.shape[-1]
-    nxx, nyy = zoom_size(w, factor), zoom_size(h, factor)
-    fs = solver_filtsize(factor)
-    blurred = blur_separable(img, gaussian_kernel_1d(_weights_sigma(factor), fs), fs)
-
-    def idx(n_out, n_in):
-        # float32 division + trunc, like the CUDA integer cast
-        pos = torch.arange(n_out, dtype=torch.float32, device=img.device)
-        return torch.trunc(pos / float(np.float32(factor))).long().clamp_(0, n_in - 1)
-
-    return blurred.index_select(-2, idx(nyy, h)).index_select(-1, idx(nxx, w))
+    h = img.shape[-2]
+    return pyramid_downsample_rows(img, 0, h, factor, (0, zoom_size(h, factor)))
 
 
-def _pyramid_index(a: int, b: int, n_in: int, factor: float, device="cpu") -> torch.Tensor:
+def pyramid_index(a: int, b: int, n_in: int, factor: float, device="cpu") -> torch.Tensor:
     """Source rows of output rows [a, b): float32 division + trunc, like the
     CUDA integer cast."""
     pos = torch.arange(a, b, dtype=torch.float32, device=device)
@@ -202,7 +195,7 @@ def pyramid_rows(h: int, factor: float, rows):
     """[s0, s1): the full-resolution rows that level rows [a, b) of
     ``pyramid_downsample`` read (their blur taps [-filtsize, filtsize))."""
     fs = solver_filtsize(factor)
-    idx = _pyramid_index(*rows, h, factor)
+    idx = pyramid_index(*rows, h, factor)
     return max(0, int(idx[0]) - fs), min(h, int(idx[-1]) + fs)
 
 
@@ -215,10 +208,10 @@ def pyramid_downsample_rows(img: torch.Tensor, s0: int, h: int, factor: float,
     w = img.shape[-1]
     nxx = zoom_size(w, factor)
     fs = solver_filtsize(factor)
-    blurred = blur_separable(img, gaussian_kernel_1d(_weights_sigma(factor), fs), fs)
-    ridx = _pyramid_index(*rows, h, factor, img.device) - s0
+    blurred = blur_separable(img, gaussian_kernel_1d(weights_sigma(factor), fs), fs)
+    ridx = pyramid_index(*rows, h, factor, img.device) - s0
     return blurred.index_select(-2, ridx).index_select(
-        -1, _pyramid_index(0, nxx, w, factor, img.device))
+        -1, pyramid_index(0, nxx, w, factor, img.device))
 
 
 def flow_rows(h_in: int, n_out: int, rows):

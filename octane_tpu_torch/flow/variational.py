@@ -46,7 +46,7 @@ import torch
 
 from octane_tpu_torch.config import OFConfig
 from octane_tpu_torch.core.gradients import gradient_4th
-from octane_tpu_torch.core.zoom import pyramid_downsample, zoom_in_flow, zoom_size
+from octane_tpu_torch.core.zoom import zoom_in_flow, zoom_size
 from octane_tpu_torch.flow.program import (CapturedPair, cached, clear_program_cache,  # noqa
                                            device_of, record_solve, solve_fields, solve_marks)
 from octane_tpu_torch.ops import counted_plain
@@ -54,6 +54,7 @@ from octane_tpu_torch.ops.assemble import (assemble_cf, assemble_cf_plain, assem
                                            assemble_pcg_plain)
 from octane_tpu_torch.ops.pcg import (pcg_pass_a, pcg_pass_a_plain, pcg_pass_b,
                                       pcg_pass_b_plain, pcg_solve_cf)
+from octane_tpu_torch.ops.pyramid import pyramid_level, pyramid_level_plain
 from octane_tpu_torch.ops.sor import sor_pass, sor_pass_plain, sor_solve_cf
 from octane_tpu_torch.ops.warp import warp, warp_bilinear_dense
 from octane_tpu_torch.utils import profiling
@@ -70,6 +71,7 @@ _PLAIN_PASSES = (counted_plain(pcg_pass_a, pcg_pass_a_plain),
 _PLAIN_ASSEMBLE = counted_plain(assemble_cf, assemble_cf_plain)
 _PLAIN_ASSEMBLE_PCG = counted_plain(assemble_pcg, assemble_pcg_plain)
 _PLAIN_PASS = counted_plain(sor_pass, sor_pass_plain)
+_PLAIN_PYRAMID = counted_plain(pyramid_level, pyramid_level_plain)
 
 
 def level_schedule(cfg: OFConfig, h: int, w: int):
@@ -167,9 +169,11 @@ def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False, marks=None):
     c = geo1.shape[0]
     kiters = cfg.kiters
     count = torch.zeros((), dtype=torch.int32, device=u0.device)
-    # the four full-resolution inputs are resampled together (each plane
-    # independently, so the values are those of separate calls)
+    # the four full-resolution inputs are resampled together, a level in
+    # one call (each plane independently, so the values are those of
+    # separate calls)
     full = torch.cat([geo1, geo2, u0[None], v0[None]])
+    level_fn = _PLAIN_PYRAMID if plain else pyramid_level
     u = v = None
     for k, factor, (nyy, nxx), lambdac_k in level_schedule(cfg, h, w):
         if marks is not None:
@@ -178,7 +182,7 @@ def _pair(geo1, geo2, u0, v0, cfg: OFConfig, plain: bool = False, marks=None):
             g1, g2 = geo1, geo2
             uhat, vhat = u0, v0
         else:
-            lvl = pyramid_downsample(full, factor)
+            lvl = level_fn(full, 0, h, factor, (0, nyy))
             g1, g2 = lvl[:c], lvl[c:2 * c]
             hint = lvl[2 * c:] * f32(factor)
             uhat, vhat = hint[0], hint[1]

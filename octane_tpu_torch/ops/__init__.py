@@ -1,7 +1,8 @@
-"""Kernel wrappers: the bilinear warp (``ops.warp``), the two Jacobi-PCG
-passes (``ops.pcg``), the fused assembly in the SOR and the PCG layouts
-(``ops.assemble``), the SOR pass (``ops.sor``) and the SRSAL bilateral
-smoother (``ops.bilateral``), built by ``ops.build``.
+"""Kernel wrappers: a level of the solver pyramid (``ops.pyramid``), the
+bilinear warp (``ops.warp``), the two Jacobi-PCG passes (``ops.pcg``), the
+fused assembly in the SOR and the PCG layouts (``ops.assemble``), the SOR
+pass (``ops.sor``) and the SRSAL bilateral smoother (``ops.bilateral``),
+built by ``ops.build``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors, and counts both.  The solver's internal
@@ -11,7 +12,9 @@ the wrappers each relaxer's solve goes through, and the one SRSAL
 smoothing goes through, on one device and (``mesh_*``) on the row bands of
 the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
 ``pcg_pass_a_band`` and ``bilateral_band`` (the assembly takes a band's
-rows itself).  ``counted_plain`` makes such a counted direct call.
+rows itself; a band's pyramid levels are still the plain composition,
+``core.zoom.pyramid_downsample_rows``, though ``pyramid_level`` takes a
+band's slab).  ``counted_plain`` makes such a counted direct call.
 
 ``stamp`` is the tracer's clock stamp (``ops.stamp``, csrc/stamp.cu),
 launched only while utils.profiling's tracer is on.
@@ -46,6 +49,7 @@ import torch
 from octane_tpu_torch.ops import assemble as _assemble
 from octane_tpu_torch.ops import bilateral as _bilateral
 from octane_tpu_torch.ops import pcg as _pcg
+from octane_tpu_torch.ops import pyramid as _pyramid
 from octane_tpu_torch.ops import sor as _sor
 from octane_tpu_torch.ops import stamp as _stamp
 from octane_tpu_torch.ops import warp as _warp
@@ -56,9 +60,9 @@ WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral,
             "warp_band": _warp.warp_band, "pcg_pass_a_band": _pcg.pcg_pass_a_band,
             "sor_pass_band": _sor.sor_pass_band, "bilateral_band": _bilateral.bilateral_band,
-            "stamp": _stamp.stamp}
-PATHS = {"pcg": ("warp", "assemble_pcg", "pcg_pass_a", "pcg_pass_b"),
-         "sor": ("warp", "assemble_cf", "sor_pass"),
+            "pyramid_level": _pyramid.pyramid_level, "stamp": _stamp.stamp}
+PATHS = {"pcg": ("pyramid_level", "warp", "assemble_pcg", "pcg_pass_a", "pcg_pass_b"),
+         "sor": ("pyramid_level", "warp", "assemble_cf", "sor_pass"),
          "srsal": ("bilateral",),
          "mesh_pcg": ("warp_band", "assemble_pcg", "pcg_pass_a_band", "pcg_pass_b"),
          "mesh_sor": ("warp_band", "assemble_cf", "sor_pass_band"),

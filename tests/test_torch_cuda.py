@@ -17,8 +17,11 @@ within 1e-4).  The band forms of the mesh path (warp, SOR pass, PCG pass A,
 bilateral) equal their plain versions and the whole-image kernels' rows bit
 for bit (the bilateral: rel 1e-5 to its plain version), and the banded
 pair on a mesh of cuda:0 bands agrees with the single-device pair within
-1e-3 px.  Two processes (``parallel.distributed``: gloo on cuda:0, or
-nccl one per card where there are two) solve the 512^2 fixture pair, each
+1e-3 px.  A level of the solver pyramid (ops.pyramid) equals its plain
+version bit for bit, on whole images and band slabs, and a 256^2 pair
+through its program equals the internal plain route.  Two processes
+(``parallel.distributed``: gloo on cuda:0, or nccl one per card where
+there are two) solve the 512^2 fixture pair, each
 its row block, equal to the single-process banded flow's rows.  The flow
 program's replay equals the eager kernel route bit for bit, with the same
 count of relaxer iterations, at a tolerance that stops the relaxer early
@@ -341,6 +344,75 @@ def test_interpolate_frame_card_equals_cpu(dev):
         pimg, pocc = interpolate_frame(*cpu, frac)
         assert torch.equal(occ.cpu(), pocc)
         assert float((img.cpu() - pimg).abs().max()) <= 1e-4
+
+
+def _same_bits(a, b):
+    return torch.equal(a, b) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("factor", [0.5, 0.25, 0.125, 1 / 32, 1 / 64])
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("hw", [(1001, 777), (256, 384), (4, 9)])
+def test_pyramid_level_kernel_bit_exact(dev, hw, n, factor):
+    from octane_tpu_torch.core import zoom
+    from octane_tpu_torch.ops import pyramid
+
+    h, w = hw
+    img = torch.from_numpy(np.random.default_rng(n).uniform(0, 255, (n, h, w))
+                           .astype(np.float32)).to(dev)
+    rows = (0, zoom.zoom_size(h, factor))
+    launches = pyramid.pyramid_level.launches
+    got = pyramid.pyramid_level(img, 0, h, factor, rows)
+    want = pyramid.pyramid_level_plain(img, 0, h, factor, rows)
+    assert got.shape == (n, rows[1], zoom.zoom_size(w, factor))
+    # one launch for the planes; none for a level with no pixel
+    assert pyramid.pyramid_level.launches == launches + (got.numel() > 0)
+    assert _same_bits(got, want) and _same_bits(got, zoom.pyramid_downsample(img, factor))
+
+
+@pytest.mark.parametrize("factor", [0.5, 0.125, 1 / 32])
+@pytest.mark.parametrize("band", ["top", "middle", "bottom"])
+def test_pyramid_level_band_kernel_bit_exact(dev, band, factor):
+    from octane_tpu_torch.core import zoom
+    from octane_tpu_torch.ops import pyramid
+
+    h, w = 2000, 611
+    img = torch.from_numpy(np.random.default_rng(3).uniform(0, 255, (4, h, w))
+                           .astype(np.float32)).to(dev)
+    nyy = zoom.zoom_size(h, factor)
+    rows = {"top": (0, nyy // 4 + 3), "middle": (nyy // 4 - 3, nyy // 2 + 3),
+            "bottom": (3 * nyy // 4 - 3, nyy)}[band]
+    s0, s1 = zoom.pyramid_rows(h, factor, rows)
+    slab = img[:, s0:s1].contiguous()
+    got = pyramid.pyramid_level(slab, s0, h, factor, rows)
+    whole = pyramid.pyramid_level(img, 0, h, factor, (0, nyy))
+    assert _same_bits(got, pyramid.pyramid_level_plain(slab, s0, h, factor, rows))
+    assert _same_bits(got, whole[:, rows[0]:rows[1]])
+
+
+@pytest.mark.parametrize("solver", ["pcg", "sor"])
+def test_program_pair_equals_the_plain_route(dev, solver):
+    """A 256^2 pair through its program (eager call, capture, replays)
+    equals the internal plain route bit for bit, with one pyramid launch a
+    coarse level and no plain call."""
+    from octane_tpu_torch import ops
+    from octane_tpu_torch.config import OFConfig
+    from octane_tpu_torch.flow import variational as fv
+
+    im1, im2 = (torch.from_numpy(a[None]).to(dev) for a in bench_pair(256, 256))
+    z = torch.zeros((256, 256), device=dev)
+    cfg = OFConfig(kiters=4, solver=solver)
+    pu, pv = fv._coarse_to_fine(im1, im2, z, z, cfg, plain=True)
+    prog = fv.flow_program(cfg, (256, 256), 1, dev)
+    try:
+        for _ in range(3):                  # the eager call, the capture, a replay
+            ops.reset_counters()
+            u, v = prog(im1, im2, z, z)
+            assert torch.equal(u, pu) and torch.equal(v, pv)
+            assert ops.counters()["pyramid_level"] == (cfg.kiters - 1, 0)
+        assert prog.graph is not None
+    finally:
+        fv.clear_program_cache()
 
 
 BAND_SPLITS = [(0, 40, 41, 97, 130), (0, 65, 130)]

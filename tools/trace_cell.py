@@ -31,6 +31,10 @@ tracer read (``profiling.totals``), each a mean a pair over the window
   capped_rounds profiling.capped_share of the window's counts by round
   wide_warp_rounds  ops.counters(): the last pair's rounds whose band warp
                 fell back to the whole level (0 on one card)
+  pyramid_level  ops.counters(): the pyramid kernel's launches a pair of the
+                window and its plain calls (ops.pyramid; a coarse level a
+                pair on one card; none on a mesh, nor where the program has
+                no such kernel)
   host_planes, host_plane_bytes  ops.counters(): the product planes
                 delivered into page-locked host memory and their bytes, a
                 pair of the window
@@ -205,6 +209,9 @@ def main(argv=None) -> int:
             capped_rounds=profiling.capped_share(
                 by_round, solver, cell.config["settings"]["cgiters"], run.pairs),
             wide_warp_rounds=c["wide_warp_rounds"],
+            pyramid_level=({"launches": c["pyramid_level"][0] / run.pairs,
+                            "plain_calls": c["pyramid_level"][1]}
+                           if "pyramid_level" in c else None),
             host_planes=c["host_planes"] / run.pairs,
             host_plane_bytes=c["host_plane_bytes"] / run.pairs,
             by_round_per_pair=[n / run.pairs for n in by_round],
