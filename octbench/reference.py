@@ -1,10 +1,12 @@
-"""The plain reference of one GOES pair: ingest, coarse-to-fine solve with
-either relaxer, and pix2uv's int16 winds.
+"""The plain reference of one GOES pair: ingest, patch-match's first guess
+(hybrid configurations), coarse-to-fine solve with either relaxer, and
+pix2uv's int16 winds.
 
 Plain PyTorch on any device.  It imports neither jax, the JAX package nor
 the port; it restates the semantics the port documents (OCTANE's modified
 Zimmer / Brox variational flow, SURVEY.md section 8; oct_navcal_cuda.cu,
-oct_variational_optical_flow.cu, oct_pix2uv_cuda.cu) with straightforward
+oct_patch_match_optical_flow.cc, oct_variational_optical_flow.cu,
+oct_pix2uv_cuda.cu) with straightforward
 reductions (``torch.sum``), so it agrees with the port to float32
 round-off, not bit for bit.
 
@@ -108,6 +110,91 @@ def normalised(counts, nav: dict, vmin: float, vmax: float, device,
         rad = c * nav["rad_scale"][0] + nav["rad_offset"][0]
         out[r0:r1] = (ramp * ((rad - vmin) / (vmax - vmin) * 255.0)).to(torch.float32)
     return out
+
+
+# --------------------------------------------------------------------------
+# patch-match from a zero guess (oct_patch_match_optical_flow.cc:12-156)
+# --------------------------------------------------------------------------
+
+def spiral(srad: int):
+    """[(n, m)]: the search's offsets in OCTANE's spiral visit order (:93-131),
+    from (0, 0) outwards, turning where n == m, n < 0 and n == -m, or n > 0
+    and n == 1 - m.  Its bounds test is always true (:102-104), so the
+    (2 srad + 1)^2 steps visit the whole square."""
+    n = m = 0
+    dn, dm = 0, -1
+    out = []
+    for _ in range((2 * srad + 1) ** 2):
+        out.append((n, m))
+        if n == m or (n < 0 and n == -m) or (n > 0 and n == 1 - m):
+            dn, dm = -dm, dn
+        n, m = n + dn, m + dm
+    return out
+
+
+def _jsose(g1, g2, rows, cols, n, m, rad: int):
+    """jsose (:12-33) at the pixels (rows, cols) for the offsets (n, m)
+    (numbers or planes): the sum over k, then l, in -rad .. rad of
+    (g2[j + l + m, i + k + n] - g1[j + l, i + k])^2, reads clamped to the
+    image, summed in that order in the images' type."""
+    h, w = g1.shape
+    total = None
+    for k in range(-rad, rad + 1):
+        for l in range(-rad, rad + 1):
+            d = g2[(rows + (l + m)).clamp(0, h - 1), (cols + (k + n)).clamp(0, w - 1)] \
+                - g1[(rows + l).clamp(0, h - 1), (cols + k).clamp(0, w - 1)]
+            total = d * d if total is None else total + d * d
+    return total
+
+
+def _search(g1, g2, rows, cols, rad: int, srad: int):
+    """(n, m, cost) of each pixel's least cost over the spiral: a later
+    offset wins only where its cost is strictly lower."""
+    order = spiral(srad)
+    best = _jsose(g1, g2, rows, cols, *order[0], rad)
+    n_min = torch.zeros(best.shape, dtype=torch.int64, device=best.device)
+    m_min = torch.zeros_like(n_min)
+    for n, m in order[1:]:
+        c = _jsose(g1, g2, rows, cols, n, m, rad)
+        lower = c < best
+        best = torch.where(lower, c, best)
+        n_min = torch.where(lower, n, n_min)
+        m_min = torch.where(lower, m, m_min)
+    return n_min, m_min, best
+
+
+def _vertex(centre, c0, c_plus, c_minus):
+    """jquad_interp (:35-55) along one axis: the vertex of the parabola
+    through (-1, c_minus), (0, c0), (1, c_plus), (c_minus - c_plus) / (2
+    (c_plus + c_minus - 2 c0)) from the winner, where c0 is strictly the
+    least of the three (and the parabola not flat); else the winner."""
+    centre = centre.to(c0.dtype)
+    denom = 2.0 * (c_plus + c_minus - 2.0 * c0)
+    fit = (c0 < c_plus) & (c0 < c_minus) & (denom != 0)
+    return torch.where(fit, centre + (c_minus - c_plus) / torch.where(fit, denom, 1.0), centre)
+
+
+def patch_match(g1, g2, rad: int, srad: int, prec: Precision = REFERENCE,
+                block_rows: int = None):
+    """(u, v) float32 of OCTANE's patch-match from a zero guess of (H, W)
+    images, computed in ``prec.solve``: each pixel's offset of least SSD
+    over (2 rad + 1)^2 patches in the spiral of (2 srad + 1)^2 offsets, then
+    the quadratic fit of the cost along each axis around it (:133-149), in
+    row blocks that read the rows beside them."""
+    g1, g2 = g1.to(prec.solve), g2.to(prec.solve)
+    h, w = g1.shape
+    u = torch.empty((h, w), dtype=torch.float32, device=g1.device)
+    v = torch.empty_like(u)
+    cols = torch.arange(w, device=g1.device)[None, :]
+    for r0, r1 in row_blocks(h, w, block_rows):
+        rows = torch.arange(r0, r1, device=g1.device)[:, None]
+        n, m, c0 = _search(g1, g2, rows, cols, rad, srad)
+
+        def cost(dn, dm):
+            return _jsose(g1, g2, rows, cols, n + dn, m + dm, rad)
+        u[r0:r1] = _vertex(n, c0, cost(1, 0), cost(-1, 0))
+        v[r0:r1] = _vertex(m, c0, cost(0, 1), cost(0, -1))
+    return u, v
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Roofline shares of the relaxers, from the frozen counts of
-``rooflines.json``: the least time the card could take for the algorithm's
-work (the larger of its bytes over the HBM rate and its float32
-operations over the FP32 rate, summed over the rounds) over the device
-time of the kernels that a metric names.  The work is counted from the
+"""Roofline shares of the relaxers and the least time of patch-match's
+search, from the frozen counts of ``rooflines.json``: the least time the
+card could take for the algorithm's work (the larger of its bytes over
+the HBM rate and its float32 operations over the FP32 rate, summed over
+the rounds) over the device time of the kernels that a metric names.  The work is counted from the
 configuration's level shapes and the program's counters, never from the
 kernels' design."""
 
@@ -62,6 +62,20 @@ def sor_bound_s(settings, rows, cols, pairs: int, passes: int, c=None) -> float:
                               px * (sweeps * spec["flops_per_pixel_per_sweep"][kind[q]]
                                     + spec["flops_per_pixel_per_round"]), c["peaks"])
                        for px, q in rs)
+
+
+def patch_match_bound_s(settings: dict, rows: int, cols: int, pairs: int, c=None) -> float:
+    """Least seconds for the zero-guess patch-match of ``pairs`` pairs at
+    the full image, with the settings' radii (OCTANE's 2 and 2 by default)."""
+    c = c or counts()
+    spec = c["patch_match"]
+    taps = (2 * settings.get("rad", 2) + 1) ** 2
+    offsets = (2 * settings.get("srad", 2) + 1) ** 2
+    f = spec["flops_per_pixel"]
+    flops = (offsets * (f["per_offset"] + (taps - 1) * f["per_offset_per_tap_after_the_first"])
+             + (offsets - 1) * f["per_offset_after_the_first"] + f["fit"])
+    px = rows * cols
+    return pairs * _bound(px * spec["bytes_per_pixel"], px * flops, c["peaks"])
 
 
 def bands(settings: dict) -> int:

@@ -183,10 +183,13 @@ def judge(cell, stream, kept, positions, device, precision=None):
     """Numbers of the comparison: (numbers of the program, numbers of the
     control or None).  The program's kept planes wait in host memory; the
     reference replays each compared loop from its first pair,
-    warm-starting where the traffic does."""
+    warm-starting where the traffic does.  Under a hybrid configuration
+    (``settings.algorithm`` "hybrid") each compared pair's solve starts
+    from the reference's patch-match of its two images, the control's from
+    the control's."""
     import torch
 
-    from octbench import grid, reference
+    from octbench import grid, reference, spec
 
     for got in kept.values():
         for name in ("data1", "data2", "u", "v"):
@@ -195,6 +198,10 @@ def judge(cell, stream, kept, positions, device, precision=None):
     nav = grid.nav_constants(cfg)
     vmin, vmax = cfg["norm_min"], cfg["norm_max"]
     solver = cell.traffic["solver"]
+    spec.refuse(cell.name, cfg, cell.traffic)
+    hybrid = s.get("algorithm", "variational") == "hybrid"
+    # OCTANE's patch and search radii (src/main.cc:75-76) where the settings name none
+    rad, srad = s.get("rad", 2), s.get("srad", 2)
     acc = {"program": _Gaps(), "control": _Gaps() if precision else None}
     by_loop = {}
     for pos in positions:
@@ -210,7 +217,10 @@ def judge(cell, stream, kept, positions, device, precision=None):
             d1 = reference.normalised(c1, nav, vmin, vmax, device)
             d2 = reference.normalised(c2, nav, vmin, vmax, device)
             zero = torch.zeros_like(d1)
-            u0, v0 = fg["ref"] if (cell.traffic["warm_start"] and i > 0) else (zero, zero)
+            if hybrid:          # the solve starts from patch-match's flow
+                u0, v0 = reference.patch_match(d1, d2, rad, srad)
+            else:
+                u0, v0 = fg["ref"] if (cell.traffic["warm_start"] and i > 0) else (zero, zero)
             u, v, _ = reference.solve(d1[None], d2[None], u0, v0, s, solver,
                                       acc=reference.REFERENCE.accumulate)
             fg["ref"] = (u, v)
@@ -226,7 +236,10 @@ def judge(cell, stream, kept, positions, device, precision=None):
             if precision:
                 e1 = reference.normalised(c1, nav, vmin, vmax, device, precision)
                 e2 = reference.normalised(c2, nav, vmin, vmax, device, precision)
-                cu0, cv0 = fg["ctl"] if (cell.traffic["warm_start"] and i > 0) else (zero, zero)
+                if hybrid:
+                    cu0, cv0 = reference.patch_match(e1, e2, rad, srad, precision)
+                else:
+                    cu0, cv0 = fg["ctl"] if (cell.traffic["warm_start"] and i > 0) else (zero, zero)
                 cu, cv, _ = reference.solve(e1[None], e2[None], cu0, cv0, s, solver,
                                             precision.solve, precision.accumulate)
                 fg["ctl"] = (cu, cv)

@@ -59,6 +59,19 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def refuse(name: str, config: dict, mix: dict):
+    """Exit with the reason where the harness cannot judge ``config`` under
+    ``mix``: a hybrid configuration under a warm-start traffic would run
+    the port's patch-match from the previous pair's flow, which is
+    sector-scale only (``FIRST_GUESS_MAX_PIXELS``), and the reference has
+    no patch-match from a guess."""
+    if config["settings"].get("algorithm") == "hybrid" and mix["warm_start"]:
+        raise SystemExit(f"octbench: {name}: a hybrid configuration under a warm-start "
+                         f"traffic: the port would start patch-match from the previous "
+                         f"pair's flow, which it runs at sector scale only, and the "
+                         f"reference's patch-match starts from a zero guess")
+
+
 def cell(name: str, bench: dict = None) -> Cell:
     bench = bench or benchmark()
     by_name = {w["name"]: w for w in bench["workloads"]}
@@ -67,10 +80,10 @@ def cell(name: str, bench: dict = None) -> Cell:
                          f"(have {', '.join(sorted(by_name))})")
     w = by_name[name]
     cfg_entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    config, mix = load_json(os.path.join(ROOT, cfg_entry["file"])), traffic(w["traffic"])
+    refuse(name, config, mix)
     return Cell(
-        name=name, chips=w["chips"],
-        config=load_json(os.path.join(ROOT, cfg_entry["file"])),
-        traffic=traffic(w["traffic"]),
+        name=name, chips=w["chips"], config=config, traffic=mix,
         limits=load_json(os.path.join(HERE, "limits", f"{name}.json")),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)])

@@ -79,6 +79,19 @@ def test_sor_bound_by_hand():
     assert roofline.sor_bound_s(SETTINGS, 100, 64, 1, 6 * 4) == pytest.approx(want)
 
 
+def test_patch_match_bound_by_hand():
+    # rad 2, srad 2: 25 offsets x (a square, 2, and 24 sums in jsose's order)
+    # + 24 comparisons + the fit, 20: 694 operations against 16 bytes a pixel,
+    # bound by the operations; 5424^2: 0.3047 ms
+    px = 5424 * 5424
+    want = max(px * 16 / 3.35e12, px * 694 / 6.7e13)
+    assert roofline.patch_match_bound_s({}, 5424, 5424, 1) == pytest.approx(want)
+    assert want == pytest.approx(0.3047e-3, rel=1e-3)
+    # rad 3, srad 1, two pairs: 9 x (2 + 48) + 8 + 20 = 478
+    assert roofline.patch_match_bound_s({"rad": 3, "srad": 1}, 100, 64, 2) == pytest.approx(
+        2 * max(6400 * 16 / 3.35e12, 6400 * 478 / 6.7e13))
+
+
 def test_share_is_none_without_the_kernels():
     run = types.SimpleNamespace(trace=trace.Trace([], [], 0.0, 1.0), slice_counters={},
                                 config={"settings": SETTINGS, "rows": 100, "cols": 64},
@@ -162,3 +175,90 @@ def test_device_record_per_card(chips, monkeypatch):
     assert rec["memory_peak_bytes"] == max(peaks[i] for i in range(chips))
     assert rec["kind"] == "NVIDIA H100 80GB HBM3"
     assert run.device_record(run.cards(torch.device("cpu"), chips))["count"] == 1
+
+
+def _ev(name, start, end, cuda=False, card=0, id=0, thread=1, user=False):
+    """An event as ``prof.events()`` gives it: ``id`` is a runtime call's
+    and its device operations' correlation id."""
+    import torch
+
+    kind = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+    return types.SimpleNamespace(name=name, time_range=types.SimpleNamespace(start=start, end=end),
+                                 device_type=kind, device_index=card, id=id, thread=thread,
+                                 is_user_annotation=user)
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def _launches():
+    # slice [0, 100) us.  Host thread 1: octane.flow [5, 60) holding
+    # octane.flow.patch_match [10, 30), an earlier patch_match range [-20, -1)
+    # before the slice; kernels on two cards, each found by its runtime call:
+    #  a: card 0 [20, 26), aten::sub's cudaLaunchKernel at 12.5, in patch_match
+    #  b, c: card 1 [45, 70) and [95, 110), one cudaGraphLaunch at 40 on a thread
+    #        that opened no range (CUPTI's thread id), in octane.flow
+    #  d: card 0 [82, 90), aten::add's launch at 80, in the slice alone
+    #  e: card 0 [90, 92), with no runtime call
+    #  f: card 1 [-5, 3), a graph launch at -10 in the first patch_match range
+    # and the patch_match range's mirror on card 0, which is no operation
+    host = [_ev(trace.SLICE, 0.0, 100.0, id=1, user=True),
+            _ev("octane.flow", 5.0, 60.0, id=2, user=True),
+            _ev("octane.flow.patch_match", 10.0, 30.0, id=3, user=True),
+            _ev("aten::sub", 12.0, 14.0, id=4),
+            _ev("cudaLaunchKernel", 12.5, 13.5, id=1001),
+            _ev("cudaGraphLaunch", 40.0, 41.0, id=1002, thread=90001),
+            _ev("aten::add", 79.0, 82.0, id=5),
+            _ev("cudaLaunchKernel", 80.0, 81.0, id=1003),
+            _ev("octane.flow.patch_match", -20.0, -1.0, id=6, user=True),
+            _ev("cudaGraphLaunch", -10.0, -9.0, id=1005, thread=90001)]
+    dev = [_ev("sub_kernel", 20.0, 26.0, cuda=True, card=0, id=1001),
+           _ev("graph_kernel_1", 45.0, 70.0, cuda=True, card=1, id=1002),
+           _ev("graph_kernel_2", 95.0, 110.0, cuda=True, card=1, id=1002),
+           _ev("add_kernel", 82.0, 90.0, cuda=True, card=0, id=1003),
+           _ev("stray_kernel", 90.0, 92.0, cuda=True, card=0, id=1004),
+           _ev("early_kernel", -5.0, 3.0, cuda=True, card=1, id=1005),
+           _ev("octane.flow.patch_match", 20.0, 26.0, cuda=True, card=0, user=True)]
+    return trace.from_profiler(_Prof(host + dev), cards=2)
+
+
+def test_device_time_by_launching_range():
+    tr = _launches()
+    assert len(tr.device) == 6 and len(tr.launched_in) == 6
+    by_name = {d[2]: names for d, names in zip(tr.device, tr.launched_in)}
+    assert by_name["sub_kernel"] == ("octane.flow.patch_match", "octane.flow", trace.SLICE)
+    assert by_name["graph_kernel_1"] == by_name["graph_kernel_2"] == ("octane.flow", trace.SLICE)
+    assert by_name["add_kernel"] == (trace.SLICE,)
+    assert by_name["stray_kernel"] == ()
+    assert by_name["early_kernel"] == ("octane.flow.patch_match",)
+    # summed over the cards, clipped to the slice: f's [0, 3), c's [95, 100)
+    assert trace.device_us_in(tr, "octane.flow.patch_match") == pytest.approx(6.0 + 3.0)
+    assert trace.device_us_in(tr, "octane.flow.patch") == pytest.approx(9.0)
+    assert trace.device_us_in(tr, "octane.flow") == pytest.approx(9.0 + 25.0 + 5.0)
+    assert trace.device_us_in(tr, trace.SLICE) == pytest.approx(6.0 + 25.0 + 5.0 + 8.0)
+    assert trace.device_us_in(tr, "octbench.ingest") == 0.0
+
+
+@pytest.mark.parametrize("make", [_trace, _two_cards])
+def test_reductions_of_a_profile_are_those_of_its_trace(make):
+    # the hand-made traces as a profiler gives them: every reduction reads
+    # what it reads of the Trace made by hand
+    want = make()
+    events = [_ev(n, s, e, id=i + 1, user=n == trace.SLICE)
+              for i, (s, e, n) in enumerate(want.host)]
+    events += [_ev(n, s, e, cuda=True, card=c, id=5000 + i)
+               for i, (s, e, n, c) in enumerate(want.device)]
+    got = trace.from_profiler(_Prof(events), cards=want.cards)
+    assert (got.device, got.host, got.t0, got.t1) == (want.device, want.host, want.t0, want.t1)
+    assert trace.busy_by_card(got) == trace.busy_by_card(want)
+    assert trace.busy_us(got) == trace.busy_us(want)
+    assert trace.idle_share(got) == trace.idle_share(want)
+    assert trace.device_ops(got) == trace.device_ops(want)
+    assert trace.idle_gaps(got) == trace.idle_gaps(want)
+    assert trace.kernel_us(got, ("pcg_pass_a",)) == trace.kernel_us(want, ("pcg_pass_a",))
+    assert got.launched_in == [()] * len(got.device)

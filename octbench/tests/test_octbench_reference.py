@@ -160,3 +160,98 @@ def test_row_blocks_cover_every_row_once():
     blocks = reference.row_blocks(21696, 21696)
     assert blocks[0][0] == 0 and blocks[-1][1] == 21696 and len(blocks) == 15
     assert all(b[1] == c[0] for b, c in zip(blocks, blocks[1:]))
+
+
+def _images(n):
+    cfg, nav, (c1, c2) = _scene(n)
+    return [reference.normalised(c, nav, cfg["norm_min"], cfg["norm_max"], "cpu")
+            for c in (c1, c2)]
+
+
+RAD, SRAD = 2, 2
+EDGE = RAD + SRAD + 1           # the rows and columns whose reads reach past the image
+
+
+def _inner(a):
+    return a[EDGE:-EDGE, EDGE:-EDGE]
+
+
+def _grid(n):
+    return torch.meshgrid(torch.arange(n, dtype=torch.float32),
+                          torch.arange(n, dtype=torch.float32), indexing="ij")
+
+
+@pytest.mark.parametrize("dx,dy", [(2, -1), (-1, 0), (0, 2)])
+def test_patch_match_recovers_integer_shifts(dx, dy):
+    # g2[y, x] = g1[y - dy, x - dx]: on seeded noise the true offset alone
+    # costs 0, so it wins at every pixel whose reads stay in the image; on an
+    # integer ramp (3 x + 7 y: no other offset in reach costs 0) both probes
+    # of each axis cost the same, so the fit leaves the flow on the shift
+    n = 40
+    noise = torch.rand((n + 8, n + 8), generator=torch.Generator().manual_seed(n))
+    g1, g2 = noise[4:4 + n, 4:4 + n], noise[4 - dy:4 - dy + n, 4 - dx:4 - dx + n]
+    rows, cols = torch.arange(n)[:, None], torch.arange(n)[None, :]
+    wn, wm, _ = reference._search(g1, g2, rows, cols, RAD, SRAD)
+    assert torch.all(_inner(wn) == dx) and torch.all(_inner(wm) == dy)
+    u, v = reference.patch_match(g1, g2, RAD, SRAD)
+    assert torch.equal(u.round(), wn.float()) and torch.equal(v.round(), wm.float())
+    y, x = _grid(n)
+    u, v = reference.patch_match(3 * x + 7 * y, 3 * (x - dx) + 7 * (y - dy), RAD, SRAD)
+    assert torch.all(_inner(u) == dx) and torch.all(_inner(v) == dy)
+
+
+@pytest.mark.parametrize("sx,sy", [(0.25, 0.0), (-1.3, 0.0), (0.0, 0.4), (0.0, -1.75)])
+def test_patch_match_finds_a_subpixel_shift(sx, sy):
+    # a texture of 40 seeded plane waves (0.4 to 0.8 rad/px) moved by a
+    # known shift along one axis: the fit along that axis lands within
+    # 0.05 px of it at the median of the inner pixels (0.020 to 0.031
+    # measured), a fifth of the whole-pixel winner's error or less
+    n = 64
+    gen = torch.Generator().manual_seed(11)
+    k = 0.4 + 0.4 * torch.rand(40, generator=gen, dtype=torch.float64)
+    th = 2 * np.pi * torch.rand(40, generator=gen, dtype=torch.float64)
+    ph = 2 * np.pi * torch.rand(40, generator=gen, dtype=torch.float64)
+    y, x = (a.double() for a in _grid(n))
+
+    def texture(x, y):
+        return (20 * sum(torch.sin(a * (torch.cos(t) * x + torch.sin(t) * y) + p)
+                         for a, t, p in zip(k, th, ph))).float()
+    u, v = reference.patch_match(texture(x, y), texture(x - sx, y - sy), RAD, SRAD)
+    got, want = (u, sx) if sx % 1 else (v, sy)
+    err = float((_inner(got) - want).abs().median())
+    assert err <= 0.05 and err <= abs(want - round(want)) / 5
+
+
+@pytest.mark.parametrize("n", [64, 96])
+def test_patch_match_is_the_ports(n):
+    # the fit moves a pixel less than half a pixel from its winner, so the
+    # rounded flows are the winners; no pixel has two offsets of equal least
+    # cost (0 exact ties at 64 and 96), so no winner rests on the visit order
+    from octane_tpu_torch.flow.patch_match import patch_match_flow
+
+    d1, d2 = _images(n)
+    u, v = reference.patch_match(d1, d2, RAD, SRAD)
+    pu, pv = patch_match_flow(d1, d2, None, None, RAD, SRAD, device="cpu")
+    assert torch.equal(u.round(), pu.round()) and torch.equal(v.round(), pv.round())
+    assert float((u - pu).abs().max()) <= 1e-5 and float((v - pv).abs().max()) <= 1e-5
+    assert float(u.abs().max()) >= 1.0 and float(v.abs().max()) >= 1.0
+    rows, cols = torch.arange(n)[:, None], torch.arange(n)[None, :]
+    costs = torch.stack([reference._jsose(d1, d2, rows, cols, a, b, RAD)
+                         for a, b in reference.spiral(SRAD)])
+    assert int(((costs == costs.min(0).values).sum(0) > 1).sum()) == 0
+
+
+def test_patch_match_blocked_is_one_block():
+    d1, d2 = _images(64)
+    for a, b in zip(reference.patch_match(d1, d2, RAD, SRAD),
+                    reference.patch_match(d1, d2, RAD, SRAD, block_rows=7)):
+        assert torch.equal(a, b)
+
+
+def test_patch_match_control_picks_other_winners():
+    # the costs summed in bfloat16 (0.9 % of the pixels' winners move at 64)
+    d1, d2 = _images(64)
+    u, v = reference.patch_match(d1, d2, RAD, SRAD)
+    cu, cv = reference.patch_match(d1, d2, RAD, SRAD, reference.CONTROL)
+    moved = (cu.round() != u.round()) | (cv.round() != v.round())
+    assert float(moved.float().mean()) > 1e-3

@@ -1,9 +1,9 @@
 """Reduction of a ``torch.profiler`` trace of the profiled slice: each
 card's busy time as the union of its kernel, memcpy and memset
-intervals, kernel time by name and by layer (summed over the cards), and
-the gaps in which no card is busy by what the host was doing.  The
-grouping of kernel names into the port's layers is a frozen copy of
-tools/profile_torch_pair.py's.
+intervals, kernel time by name, by layer and by the host range that
+launched it (summed over the cards), and the gaps in which no card is
+busy by what the host was doing.  The grouping of kernel names into the
+port's layers is a frozen copy of tools/profile_torch_pair.py's.
 
 Times are in the profiler's microseconds; ``Trace`` holds plain tuples, so
 the arithmetic is tested without a profiler.
@@ -42,35 +42,73 @@ def group(name: str) -> str:
 class Trace:
     """device: [(start, end, name, card)] of every device operation, card
     the device's index; host: [(start, end, name)] of every host range;
-    (t0, t1): the slice; cards: how many cards the run uses, busy or not."""
+    (t0, t1): the slice; cards: how many cards the run uses, busy or not;
+    launched_in: for each device operation, in the order of ``device``,
+    the names of the record_function ranges open on the host where it was
+    launched, innermost first (empty where the trace does not link it to
+    its launch)."""
 
     device: List[Tuple[float, float, str, int]]
     host: List[Tuple[float, float, str]]
     t0: float
     t1: float
     cards: int = 1
+    launched_in: List[Tuple[str, ...]] = dataclasses.field(default_factory=list)
+
+
+def _open_ranges(ranges, points):
+    """For each (t, thread) of ``points``, the names of the ``ranges``
+    ((start, end, name, thread)) open at t on that thread, innermost (the
+    latest begun) first; on every thread where that thread opened none."""
+    threads = {r[3] for r in ranges}
+    out = [()] * len(points)
+    for th in threads | {None}:
+        mine = sorted(r for r in ranges if th is None or r[3] == th)
+        todo = sorted((t, i) for i, (t, p_th) in enumerate(points)
+                      if (p_th == th if th is not None else p_th not in threads))
+        j, active = 0, []
+        for t, i in todo:
+            while j < len(mine) and mine[j][0] <= t:
+                active.append(mine[j])
+                j += 1
+            active = [r for r in active if r[1] > t]
+            out[i] = tuple(r[2] for r in sorted(active, reverse=True))
+    return out
 
 
 def from_profiler(prof, cards: int = 1) -> Trace:
+    """The Trace of a profile that holds the ``SLICE`` range.  A device
+    operation was launched where the runtime call with its correlation id
+    ran: for a graph replay's kernels, ``cudaGraphLaunch``."""
     import torch
 
-    device, host, span = [], [], None
+    device, ids, host, ranges, runtime, span = [], [], [], [], {}, None
     for ev in prof.events():
         rng = (float(ev.time_range.start), float(ev.time_range.end), ev.name)
+        user = getattr(ev, "is_user_annotation", False)
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             # a record_function range is mirrored on the device's timeline
             # around the work it launched: not an operation of the device
-            if not (getattr(ev, "is_user_annotation", False) or ev.name.startswith("octbench.")):
+            if not (user or ev.name.startswith("octbench.")):
                 device.append(rng + (int(ev.device_index),))
+                ids.append(ev.id)
         else:
             host.append(rng)
             if ev.name == SLICE:
                 span = rng
+            if user:
+                ranges.append(rng + (ev.thread,))
+            elif ev.name.startswith("cu"):          # cudaLaunchKernel, cudaGraphLaunch, ...
+                runtime[ev.id] = (rng[0], ev.thread)
     if span is None:
         raise RuntimeError(f"octbench: the trace has no {SLICE} range")
-    device.sort()
+    launches = [runtime.get(i) for i in ids]
+    found = iter(_open_ranges(ranges, [p for p in launches if p is not None]))
+    names = [() if p is None else next(found) for p in launches]
+    order = sorted(range(len(device)), key=device.__getitem__)
     host.sort()
-    return Trace(device, host, span[0], span[1], cards)
+    return Trace([device[i] for i in order], host, span[0], span[1], cards,
+                 [names[i] for i in order])
 
 
 def union(intervals) -> List[Tuple[float, float]]:
@@ -113,6 +151,15 @@ def kernel_us(tr: Trace, names) -> float:
     """Summed device time, over the cards, of the operations whose name
     holds one of ``names``."""
     return sum(e - s for s, e, n, _ in tr.device if any(k in n for k in names))
+
+
+def device_us_in(tr: Trace, prefix: str) -> float:
+    """Device time inside the slice, summed over the cards, of the
+    operations launched inside a host range whose name starts with
+    ``prefix``."""
+    return sum(min(e, tr.t1) - max(s, tr.t0)
+               for (s, e, _, _), names in zip(tr.device, tr.launched_in)
+               if e > tr.t0 and s < tr.t1 and any(n.startswith(prefix) for n in names))
 
 
 def device_ops(tr: Trace, top: int = 10) -> List[list]:
