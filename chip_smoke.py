@@ -1541,6 +1541,8 @@ def phase_hybrid(dev, report):
     from octane_tpu_torch.flow.variational import _coarse_to_fine, variational_flow
     from octane_tpu_torch.io.datamodel import Scene
 
+    from octbench import roofline
+
     fx = load_tests_module("torch_fixtures")
 
     # patch-match on the card against the CPU, and the refinement of its
@@ -1574,15 +1576,11 @@ def phase_hybrid(dev, report):
     g1, g2 = bench_images(h, w, dev)
     _, _, _, nav, *_ = fx.goes_arrays(np.zeros((h, w), np.int16), fx.FIXTURE_T0)
     m = min(512, h // 4)
-    # patch-match's bound: g1, g2 in, u, v out; per pixel and offset of the
-    # factored cost one subtraction, one square and T - 1 window sums (T
-    # taps), four ops of the running minimum per spiral step, and per
-    # refinement offset the cost plus four ops for each of five selects
+    # patch-match's bound: the benchmark's count of the search's least work
+    # (octbench/rooflines.json "patch_match"), a lower bound on any form of it
     cfg = OFConfig()
-    taps, spiral = (2 * cfg.rad + 1) ** 2, (2 * cfg.srad + 1) ** 2
-    refine = (2 * cfg.srad + 3) ** 2 - 4
-    pm_bound = bound(4 * h * w * 4, h * w * (spiral * (taps + 1) + 4 * (spiral - 1)
-                                            + refine * (taps + 21) + 16))
+    pm_bound_ms = 1e3 * roofline.patch_match_bound_s({"rad": cfg.rad, "srad": cfg.srad},
+                                                     h, w, 1)
     launches, flows = {}, {}
     for solver in ("pcg", "sor"):
         cfg = OFConfig(kiters=4, solver=solver, algorithm="hybrid")
@@ -1618,7 +1616,8 @@ def phase_hybrid(dev, report):
         med = (float(ru[m:-m, m:-m].median()), float(rv[m:-m, m:-m].median()))
         pm_med = (float(u[m:-m, m:-m].median()), float(v[m:-m, m:-m].median()))
         say("hybrid", f"{h}x{w} {solver}: patch_match_flow {pm_ms:.1f} ms (bound "
-                      f"{pm_bound[0]:.3f} ms, {pm_bound[1]}) + variational_flow "
+                      f"{pm_bound_ms:.4f} ms, {100 * pm_bound_ms / pm_ms:.3f} % of it) + "
+                      f"variational_flow "
                       f"{ref_ms:.1f} ms = {pm_ms + ref_ms:.1f} ms per pair ({wall:.1f} ms "
                       f"wall), patch-match share {100 * pm_ms / (pm_ms + ref_ms):.1f} %, "
                       f"peak {peak:.2f} GiB; equal to compute_flow(hybrid)'s {same}; median "

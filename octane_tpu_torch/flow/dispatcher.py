@@ -85,7 +85,8 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
     scene1.  ``first_guess`` optionally gives (u0, v0) pixel displacements.
     Product planes made on a card are page-locked host tensors, complete
     when it returns (see the module docstring).  The tracer's span
-    ``octane.flow``, with ``octane.flow.first_guess``, ``octane.flow.solve``,
+    ``octane.flow``, with ``octane.flow.first_guess``, ``octane.flow.solve``
+    (holding ``octane.flow.patch_match`` under patch-match or the hybrid),
     ``octane.flow.pix2uv`` and ``octane.flow.to_host`` (utils.profiling)."""
     h, w = scene1.shape
     dev = scene1.data.device
@@ -113,16 +114,17 @@ def compute_flow(scene1: Scene, scene2: Scene, cfg: OFConfig,
         if cfg.algorithm in ("patch_match", "hybrid"):
             if scene1.nchannels > 1 and cfg.algorithm == "patch_match":
                 raise ValueError("patch match supports single-channel input only")
-            if have_guess:
-                u, v = patch_match_flow(scene1.data[0], scene2.data[0], u0, v0,
-                                        cfg.rad, cfg.srad)
-            elif mesh is not None:
-                u, v = patch_match_flow_sharded(scene1.data[0], scene2.data[0], mesh,
-                                                cfg.rad, cfg.srad)
-            else:
-                # slice-based fast path (no per-pixel gathers)
-                u, v = patch_match_flow(scene1.data[0], scene2.data[0], None, None,
-                                        cfg.rad, cfg.srad)
+            with profiling.span("octane.flow.patch_match", None if mesh is not None else dev):
+                if have_guess:
+                    u, v = patch_match_flow(scene1.data[0], scene2.data[0], u0, v0,
+                                            cfg.rad, cfg.srad)
+                elif mesh is not None:
+                    u, v = patch_match_flow_sharded(scene1.data[0], scene2.data[0], mesh,
+                                                    cfg.rad, cfg.srad)
+                else:
+                    # slice-based fast path (no per-pixel gathers)
+                    u, v = patch_match_flow(scene1.data[0], scene2.data[0], None, None,
+                                            cfg.rad, cfg.srad)
             if cfg.algorithm == "hybrid":
                 u, v = _variational(scene1.data, scene2.data, u, v, cfg, mesh)
         else:

@@ -30,21 +30,44 @@ PyTorch does not contract a multiply and an add into an FMA, which XLA may
 do, so the two packages can pick different offsets only at an exact tie.
 The reference's spiral bounds check is always true (ref :102-104), so the
 search set is the full (2*srad+1)^2 square in spiral order.
+
+Each call of ``patch_match_flow`` or ``patch_match_flow_sharded`` is one
+``torch.profiler.record_function`` range, ``RANGE``, around the whole
+search and its refinement (on a mesh, every band's launches), opened
+whether or not utils.profiling's tracer is on, and one search in
+``ops.counters()["patch_match"]``.  No other code of the port opens a
+range whose name starts with ``RANGE``, so a profile's device time
+launched inside it is patch-match's.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from octane_tpu_torch import ops
+
 # The first-guess path gathers (2*rad+1)^2 full-field taps per spiral probe
 # (the guess bends the per-pixel patch origins, so the slices do not apply):
 # fine at sector scale, hundreds of GB of gather traffic at full disk.  The
 # zero-guess path is unaffected; its cost form switches at the same size.
 FIRST_GUESS_MAX_PIXELS = 8_000_000    # > CONUS band-2 1 km (~3.8 Mpix)
+
+RANGE = "octane.patch_match"        # the profiler range of every search
+
+
+def _searched(fn):
+    """``fn``, each call counted and inside the profiler range ``RANGE``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        ops.record_patch_match()
+        with torch.profiler.record_function(RANGE):
+            return fn(*args, **kwargs)
+    return run
 
 
 def spiral_offsets(srad: int) -> np.ndarray:
@@ -213,6 +236,7 @@ def _plane(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+@_searched
 def patch_match_flow(
     geo1,
     geo2,
@@ -266,6 +290,7 @@ def patch_match_flow(
     return _finish(nmin, mmin, cost)
 
 
+@_searched
 def patch_match_flow_sharded(geo1, geo2, mesh, rad: int = 2, srad: int = 2):
     """Zero-guess patch match on the row bands of ``mesh`` (octane_tpu's
     ``patch_match_flow_sharded``): each band takes its rows with ``rad`` /

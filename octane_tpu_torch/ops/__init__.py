@@ -42,6 +42,11 @@ where no traced pair ran since the last reset).
 delivered into page-locked host memory; ``counters()`` gives their number
 and bytes since the last reset as ``host_planes`` / ``host_plane_bytes``
 (0 where every plane was made on the CPU).
+
+``record_patch_match`` notes one patch-match search
+(``flow.patch_match``, plain PyTorch: no kernel yet); ``counters()``
+gives the searches since the last reset as ``patch_match``, in the
+wrappers' (kernel launches, plain calls) form: (0, searches).
 """
 
 import torch
@@ -75,6 +80,7 @@ _graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launche
 _by_round: dict = {}        # solver -> int64 device sums of the traced pairs' rounds
 _wide: dict = {}            # "rounds" -> the last banded pair's device tally of wide warps
 _host: dict = {}            # "planes", "bytes" -> product planes delivered to page-locked memory
+_searches: dict = {}        # "patch_match" -> patch-match searches
 
 
 def counted_plain(wrapper, plain_fn):
@@ -91,7 +97,8 @@ def reset_counters() -> None:
         fn.plain_calls = 0
     for driver in (_pcg.pcg_solve_fused, _sor.sor_solve_cf):
         driver.host_syncs = 0
-    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide, _host):
+    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide, _host,
+                  _searches):
         tally.clear()
 
 
@@ -127,13 +134,18 @@ def record_host_planes(planes) -> None:
     _host["bytes"] = _host.get("bytes", 0) + sum(p.numel() * p.element_size() for p in planes)
 
 
+def record_patch_match() -> None:
+    """Note one patch-match search (flow.patch_match)."""
+    _searches["patch_match"] = _searches.get("patch_match", 0) + 1
+
+
 def counters() -> dict:
     """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
     host syncs, the last pair's iterations (PCG) and passes (SOR), the
     traced pairs' counts by round, the last banded pair's
-    ``wide_warp_rounds``, read from the device, and ``host_planes`` /
-    ``host_plane_bytes``.  A wrapper's launches include those of replayed
-    graphs (see the module docstring)."""
+    ``wide_warp_rounds``, read from the device, ``host_planes`` /
+    ``host_plane_bytes`` and ``patch_match`` (0, searches).  A wrapper's
+    launches include those of replayed graphs (see the module docstring)."""
     launches = {name: fn.launches + _graph_nodes.get(name, 0)
                 for name, fn in WRAPPERS.items()}
     for (name, _), total in _graph_bodies.items():
@@ -147,8 +159,9 @@ def counters() -> dict:
     out["wide_warp_rounds"] = int(_wide["rounds"]) if _wide else 0
     out["host_planes"] = _host.get("planes", 0)
     out["host_plane_bytes"] = _host.get("bytes", 0)
+    out["patch_match"] = (0, _searches.get("patch_match", 0))
     return out
 
 
 __all__ = ["WRAPPERS", "PATHS", "counted_plain", "reset_counters", "record_pair",
-           "record_wide_rounds", "record_host_planes", "counters"]
+           "record_wide_rounds", "record_host_planes", "record_patch_match", "counters"]

@@ -27,6 +27,11 @@ index of that card.  The port's spans:
     octane.flow.solve            the engine: for the variational solve the
                                  program's lookup, copy-in, replay, copies
                                  of the outputs and ops.record_pair
+      octane.flow.patch_match    flow.patch_match's search under patch-match
+                                 or the hybrid (device stamps; none on a
+                                 mesh); inside it flow.patch_match's own
+                                 range octane.patch_match, which is opened
+                                 with the tracer off too
     octane.flow.pix2uv           nav.winds.pix2uv (device stamps)
     octane.flow.to_host          io.host.to_host: one a card that copies
                                  product rows to page-locked host memory

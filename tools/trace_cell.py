@@ -18,6 +18,8 @@ tracer read (``profiling.totals``), each a mean a pair over the window
   solve_ms      first to last stamp of the solve (flow.variational._pair;
                 on a mesh, each card's, summed over the cards)
   pix2uv_ms     the stamps around nav.winds.pix2uv
+  patch_match_ms  the stamps around flow.patch_match's search
+                (octane.flow.patch_match; patch-match and the hybrid only)
   to_host_ms    the stamps around each card's copies of the product planes
                 to page-locked host memory (io.host.to_host), summed over
                 the cards
@@ -35,6 +37,9 @@ tracer read (``profiling.totals``), each a mean a pair over the window
                 window and its plain calls (ops.pyramid; a coarse level a
                 pair on one card; none on a mesh, nor where the program has
                 no such kernel)
+  patch_match   ops.counters(): patch-match's kernel launches and plain
+                searches a pair of the window (none where the program has
+                no such counter)
   host_planes, host_plane_bytes  ops.counters(): the product planes
                 delivered into page-locked host memory and their bytes, a
                 pair of the window
@@ -79,6 +84,7 @@ def summary(pairs, solver: str, by_card=None) -> dict:
     host = sorted({name for t in pairs for name, (ms, _) in t.items() if ms})
     out = {"pairs": len(pairs), "solve_ms": device("octane.solve"),
            "pix2uv_ms": device("octane.flow.pix2uv"),
+           "patch_match_ms": device("octane.flow.patch_match"),
            "to_host_ms": device("octane.flow.to_host"),
            "relax_ms": device(f"octane.{solver}"),
            "exchange_ms": device("octane.exchange"),
@@ -212,6 +218,9 @@ def main(argv=None) -> int:
             pyramid_level=({"launches": c["pyramid_level"][0] / run.pairs,
                             "plain_calls": c["pyramid_level"][1]}
                            if "pyramid_level" in c else None),
+            patch_match=({"launches": c["patch_match"][0] / run.pairs,
+                          "plain_calls": c["patch_match"][1] / run.pairs}
+                         if "patch_match" in c else None),
             host_planes=c["host_planes"] / run.pairs,
             host_plane_bytes=c["host_plane_bytes"] / run.pairs,
             by_round_per_pair=[n / run.pairs for n in by_round],
