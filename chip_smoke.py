@@ -95,7 +95,15 @@ Phases, one line each (any failure exits non-zero):
      smoothed by SRSAL with a synthetic 5424^2 CTH (band 13: no regrid),
      kernel vs plain within rel 1e-5, timed beside its bound and the floor
      of one ex2 per tap at the SFU's rate;
- 11. hybrid (patch-match initialization + variational refinement): at
+ 11. hybrid (patch-match initialization + variational refinement): the
+     zero-guess search kernel (ops.patch_match, csrc/patch_match.cu)
+     torch.equal to its plain version on the card (u, v and the
+     whole-pixel winners) at (rad, srad) = (2, 2), (1, 1), (2, 3) and,
+     through the any-radius kernel, (3, 4) on the 5424^2 bench pair, the
+     1024^2 sector, 97 x 131, a 3-row image and a band of rows 1357:2712
+     of 5424^2, one launch each; at 5424^2 the kernel's ms beside its
+     bound (octbench's roofline.patch_match_bound_s) and the plain
+     version's ms (rad 2, srad 2 is the kernels line's entry); at
      1024^2 on the bench pair, patch_match_flow on the card equal to the
      same call on the CPU (whole-pixel offsets everywhere, u and v within
      1e-5 px), and per solver the refinement of its flow, replayed
@@ -103,8 +111,9 @@ Phases, one line each (any failure exits non-zero):
      route; at 5424^2, kernels only, per solver, a
      hybrid pair through compute_flow (algorithm="hybrid"; the warm-up),
      then the same two calls (patch_match_flow, variational_flow) timed
-     apart with CUDA events and counted (each kernel of the solver
-     launched, no other kernel, no plain version called), their flow equal
+     apart with CUDA events and counted (each kernel of the solver and
+     one search kernel launched, no other kernel, no plain version
+     called), their flow equal
      to compute_flow's and its interior median within 0.1 px of the truth
      (2.4, 0): the pair's ms, patch-match's share, peak memory; the
      first-guess gather path at a 2000^2
@@ -208,7 +217,8 @@ Phases, one line each (any failure exits non-zero):
      flow one interpolate_bands frame equal to interpolate_frame's rows.
      A process that fails or hangs fails the phase.  (b) At 5424^2 on a
      (1, 4) mesh of cuda:0, patch_match_flow_sharded equal to
-     patch_match_flow and sharded_interpolate_frame equal to
+     patch_match_flow (one search kernel launch for the image and one a
+     band, no plain search) and sharded_interpolate_frame equal to
      interpolate_frame.  (c) -nprocs 2 through the CLI over gloo on one
      card (part files, process 0's merge) on the codec-written 512^2
      fixture, its product equal (read through the codec) to the
@@ -295,6 +305,9 @@ KERNELS = (   # (JSON name, wrapper, source, TPU kernel, time key at 5424^2)
      "octane_tpu/ops/pallas/sor.py:257 _kernel", "sor_pass_robust"),
     ("bilateral", "bilateral", "octane_tpu_torch/csrc/bilateral.cu",
      "octane_tpu/ops/pallas/bilateral.py:45 _kernel", "bilateral"),
+    ("patch_match_search", "patch_match", "octane_tpu_torch/csrc/patch_match.cu",
+     "XLA in octane_tpu/flow/patch_match.py:123 _patch_match_local, no Pallas kernel",
+     "patch_match_search"),
 )
 MESH_KERNELS = (   # the band forms: (JSON name = wrapper, source, TPU kernel, path of
     # its launches: the banded pair of that relaxer, or banded SRSAL)
@@ -1532,6 +1545,71 @@ def phase_fulldisk(dev, report):
     report["_library"] = library
 
 
+def search_block(g1, g2, rad, srad, rows=None):
+    """patch_match_search's inputs for rows [r0, r1) of the (h, w) pair (all
+    rows by default): the rows with rad / rad + srad + 1 rows beside them,
+    the image's edge rows beyond its edges, padded as wide with its edge
+    columns, as patch_match_flow_sharded builds a band's."""
+    import torch.nn.functional as F
+
+    h = g1.shape[0]
+    r0, r1 = rows or (0, h)
+    smax = rad + srad + 1
+    blocks = []
+    for g, p in ((g1, rad), (g2, smax)):
+        idx = torch.arange(r0 - p, r1 + p, device=g.device).clamp(0, h - 1)
+        blocks.append(F.pad(g[idx][None, None], (p, p, 0, 0), mode="replicate")[0, 0])
+    return blocks[0], blocks[1], r0
+
+
+def compare_patch_match(dev, report):
+    """The search kernel against its plain version on the card, bit for bit
+    (u, v and their whole-pixel winners), at every shape and radii; at
+    5424^2 both timed, the kernel beside its bound (rad 2, srad 2 into the
+    report's kernel times)."""
+    from octane_tpu_torch.ops.patch_match import patch_match_search, patch_match_search_plain
+
+    from octbench import roofline
+
+    pair = load_tests_module("torch_fixtures").bench_pair
+    cases = [("bench", FULLDISK, FULLDISK, None), ("sector", SECTOR, SECTOR, None),
+             ("odd", 97, 131, None), ("3-row", 3, 131, None),
+             ("band", FULLDISK, FULLDISK, (1357, 2712))]
+    for name, h, w, rows in cases:
+        im1, im2 = (torch.from_numpy(a).to(dev) for a in pair(h, w))
+        for rad, srad in ((2, 2), (1, 1), (2, 3), (3, 4)):
+            g1p, g2p, r0 = search_block(im1, im2, rad, srad, rows)
+            before = patch_match_search.launches
+            ku, kv = patch_match_search(g1p, g2p, rad, srad, h, w, r0)
+            launched = patch_match_search.launches - before
+            pu, pv = patch_match_search_plain(g1p, g2p, rad, srad, h, w, r0)
+            torch.cuda.synchronize()
+            err = report.setdefault("patch_match_search", {"max_abs_err": 0.0})
+            err["max_abs_err"] = max(err["max_abs_err"], float((ku - pu).abs().max()),
+                                     float((kv - pv).abs().max()))
+            same = (torch.equal(ku, pu) and torch.equal(kv, pv)
+                    and torch.equal(torch.round(ku), torch.round(pu))
+                    and torch.equal(torch.round(kv), torch.round(pv)))
+            msg = (f"{name} {h}x{w} rows {rows or (0, h)} rad {rad} srad {srad}: kernel "
+                   f"({launched} launch) torch.equal to the plain version {same}")
+            if name == "bench":
+                bound_ms = 1e3 * roofline.patch_match_bound_s({"rad": rad, "srad": srad},
+                                                              h, w, 1)
+                k_ms = cuda_ms(lambda: patch_match_search(g1p, g2p, rad, srad, h, w), n=10)
+                p_ms = cuda_ms(lambda: patch_match_search_plain(g1p, g2p, rad, srad, h, w), n=2)
+                msg += (f"; kernel {k_ms:.3f} ms (bound {bound_ms:.4f} ms, "
+                        f"{100 * bound_ms / k_ms:.2f} % of it), plain {p_ms:.1f} ms")
+                if (rad, srad) == (2, 2):
+                    report.setdefault("_times", {})["patch_match_search"] = (k_ms, p_ms)
+                    report.setdefault("_bounds", {})["patch_match_search"] = (bound_ms,
+                                                                              "operations")
+            say("hybrid", msg)
+            if not (same and launched == 1):
+                raise AssertionError(f"hybrid: the patch-match kernel differs from its plain "
+                                     f"version ({name}, rad {rad}, srad {srad})")
+        del im1, im2, g1p, g2p, ku, kv, pu, pv
+
+
 def phase_hybrid(dev, report):
     """Returns the SOR 5424^2 hybrid flow and its pair for the interp phase."""
     from octane_tpu_torch import ops
@@ -1544,6 +1622,7 @@ def phase_hybrid(dev, report):
     from octbench import roofline
 
     fx = load_tests_module("torch_fixtures")
+    compare_patch_match(dev, report)
 
     # patch-match on the card against the CPU, and the refinement of its
     # flow with the kernels against the plain route, at 1024^2
@@ -1606,11 +1685,13 @@ def phase_hybrid(dev, report):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        c = launches[solver] = _check_counters("hybrid", solver)
-        stray = {n: c[n][0] for n in ops.WRAPPERS if n not in ops.PATHS[solver] and c[n][0]}
-        if stray:
+        c = launches[solver] = _check_counters("hybrid", solver, "patch_match")
+        path = ops.PATHS[solver] + ops.PATHS["patch_match"]
+        stray = {n: c[n][0] for n in ops.WRAPPERS if n not in path and c[n][0]}
+        if stray or c["patch_match"] != (1, 0):
             raise AssertionError(f"hybrid: the {solver} pair launched kernels off its "
-                                 f"path: {stray}")
+                                 f"path: {stray}, or not one search kernel: "
+                                 f"{c['patch_match']}")
         pm_ms, ref_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
         same = torch.equal(ru, s1.u_pix) and torch.equal(rv, s1.v_pix)
         med = (float(ru[m:-m, m:-m].median()), float(rv[m:-m, m:-m].median()))
@@ -3140,6 +3221,7 @@ def phase_dist(dev, report):
         h = w = FULLDISK
         mesh = make_mesh((1, 4), [dev] * 4)
         g1, g2 = bench_images(h, w, dev)
+        ops.reset_counters()
         t0 = time.perf_counter()
         want = patch_match_flow(g1[0], g2[0])
         torch.cuda.synchronize()
@@ -3147,9 +3229,12 @@ def phase_dist(dev, report):
         got = patch_match_flow_sharded(g1[0], g2[0], mesh)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        pm_equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # one search kernel for the whole image, one a band
+        pm_equal = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                    and ops.counters()["patch_match"] == (5, 0))
         say("dist", f"patch_match_flow_sharded {h}x{w} on 4 bands of cuda:0 "
-                    f"({t2 - t1:.2f} s) equal to patch_match_flow ({t1 - t0:.2f} s) {pm_equal}")
+                    f"({t2 - t1:.2f} s) equal to patch_match_flow ({t1 - t0:.2f} s) {pm_equal}; "
+                    f"search launches, plain searches {ops.counters()['patch_match']}")
         del got, want
         u, v = noisy_flow(h, w, dev, 71)
         max_disp = max(8, int(-(-float(max(u.abs().max(), v.abs().max())) // 8) * 8))
@@ -3262,16 +3347,20 @@ def main(argv=None):
         from octane_tpu_torch import ops
 
         # launches: each solver path's from the 5424^2 pair, the bilateral
-        # kernel's from the SRSAL product path
-        launches = dict(report["_launches"], srsal=report["_launches_srsal"])
+        # kernel's from the SRSAL product path, the search kernel's from the
+        # 5424^2 hybrid PCG pair
         hybrid_launches = report["_launches_hybrid"]
+        launches = dict(report["_launches"], srsal=report["_launches_srsal"],
+                        patch_match=hybrid_launches["pcg"])
         c3_launches = report["_launches_c3"]
         times, bounds, library = report["_times"], report["_bounds"], report["_library"]
         entries = []
         for name, wrapper, src, replaces, tkey in KERNELS:
-            path = next(p for p in ("pcg", "sor", "srsal") if wrapper in ops.PATHS[p])
+            path = next(p for p in ("pcg", "sor", "srsal", "patch_match")
+                        if wrapper in ops.PATHS[p])
             # on the hybrid pair of its relaxer; a kernel of neither relaxer
-            # (the bilateral) sums both pairs' counts, held to 0 above
+            # (the bilateral, held to 0 above; the search, once a pair) sums
+            # both pairs' counts
             hybrid, c3 = (sum(c[wrapper][0] for s, c in counts.items()
                               if s == path or path not in counts)
                           for counts in (hybrid_launches, c3_launches))

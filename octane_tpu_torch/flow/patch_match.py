@@ -23,21 +23,29 @@ Two cost paths, as in octane_tpu:
   centre (ref :138).  Sector scale only (``FIRST_GUESS_MAX_PIXELS``).
 
 Every plane op accumulates in place (``add_``), so the loops hold a few
-planes whatever the image size.  Everything here is plain PyTorch on the
-inputs' device: the JAX package has no Pallas kernel under patch-match.
-Costs are summed in octane_tpu's order (taps k-major, l-minor); eager
-PyTorch does not contract a multiply and an add into an FMA, which XLA may
-do, so the two packages can pick different offsets only at an exact tie.
-The reference's spiral bounds check is always true (ref :102-104), so the
-search set is the full (2*srad+1)^2 square in spiral order.
+planes whatever the image size.  Costs are summed in octane_tpu's order
+(taps k-major, l-minor); eager PyTorch does not contract a multiply and an
+add into an FMA, which XLA may do, so the two packages can pick different
+offsets only at an exact tie.  The reference's spiral bounds check is
+always true (ref :102-104), so the search set is the full (2*srad+1)^2
+square in spiral order.
+
+The zero-guess search goes through ``ops.patch_match.patch_match_search``:
+on the card one launch of csrc/patch_match.cu a search (a band on a mesh),
+whatever the size, with the bits of either cost form above; on the CPU
+``_patch_match_local`` below, its plain version.  The first-guess path is
+plain PyTorch on every device (the JAX package has no Pallas kernel under
+patch-match).
 
 Each call of ``patch_match_flow`` or ``patch_match_flow_sharded`` is one
 ``torch.profiler.record_function`` range, ``RANGE``, around the whole
 search and its refinement (on a mesh, every band's launches), opened
-whether or not utils.profiling's tracer is on, and one search in
-``ops.counters()["patch_match"]``.  No other code of the port opens a
-range whose name starts with ``RANGE``, so a profile's device time
-launched inside it is patch-match's.
+whether or not utils.profiling's tracer is on.  No other code of the port
+opens a range whose name starts with ``RANGE``, so a profile's device time
+launched inside it is patch-match's.  ``ops.counters()["patch_match"]``
+gives the search kernel's launches and the plain searches: one plain call
+a search that launched no kernel (the wrapper's on the CPU, the
+first-guess path's, and the CPU bands' of a banded search, together).
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from octane_tpu_torch import ops
+from octane_tpu_torch.ops import counted_plain
+from octane_tpu_torch.ops.patch_match import patch_match_search
 
 # The first-guess path gathers (2*rad+1)^2 full-field taps per spiral probe
 # (the guess bends the per-pixel patch origins, so the slices do not apply):
@@ -61,10 +70,9 @@ RANGE = "octane.patch_match"        # the profiler range of every search
 
 
 def _searched(fn):
-    """``fn``, each call counted and inside the profiler range ``RANGE``."""
+    """``fn``, each call inside the profiler range ``RANGE``."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        ops.record_patch_match()
         with torch.profiler.record_function(RANGE):
             return fn(*args, **kwargs)
     return run
@@ -259,7 +267,7 @@ def patch_match_flow(
     h, w = geo1.shape
 
     if u0 is None:
-        return _patch_match_local(_edge_pad(geo1, rad), _edge_pad(geo2, rad + srad + 1), rad,
+        return patch_match_search(_edge_pad(geo1, rad), _edge_pad(geo2, rad + srad + 1), rad,
                                   srad, h, w)
 
     if h * w > FIRST_GUESS_MAX_PIXELS:
@@ -271,7 +279,12 @@ def patch_match_flow(
             f"per spiral probe).  Use -hybrid (patch-match init + "
             f"variational refinement, which consumes the first guess) or "
             f"drop -firstguess for -sosm.")
+    return _first_guess(geo1, geo2, u0, v0, rad, srad)
 
+
+def _first_guess_search(geo1, geo2, u0, v0, rad, srad):
+    """The search from the first guess (u0, v0): gathered costs, plain PyTorch."""
+    h, w = geo1.shape
     u0 = _plane(u0, geo1.device)
     v0 = _plane(v0, geo1.device)
     ii = torch.arange(w, dtype=torch.float32, device=geo1.device)[None, :]
@@ -290,13 +303,18 @@ def patch_match_flow(
     return _finish(nmin, mmin, cost)
 
 
+_first_guess = counted_plain(patch_match_search, _first_guess_search)
+
+
 @_searched
 def patch_match_flow_sharded(geo1, geo2, mesh, rad: int = 2, srad: int = 2):
     """Zero-guess patch match on the row bands of ``mesh`` (octane_tpu's
     ``patch_match_flow_sharded``): each band takes its rows with ``rad`` /
     ``rad + srad + 1`` rows beside them (the image's edge rows beyond its
-    edges) and runs ``_patch_match_local`` with its global first row; the
-    result, on the mesh's first device, equals ``patch_match_flow``."""
+    edges) and runs the search with its global first row; the result, on
+    the mesh's first device, equals ``patch_match_flow``.  Bands on the card
+    launch ``patch_match_search`` each; bands on the CPU run its plain
+    version, counted as one plain search in all."""
     from octane_tpu_torch.parallel.halo import LocalExchange
     from octane_tpu_torch.parallel.mesh import mesh_bands
 
@@ -306,12 +324,20 @@ def patch_match_flow_sharded(geo1, geo2, mesh, rad: int = 2, srad: int = 2):
     h, w = geo1.shape
     smax = rad + srad + 1
     field = [(0, torch.stack([geo1, geo2]))]
-    outs = []
-    for dev, r0, r1 in mesh_bands(mesh, h):
-        g1 = exchange.rows(field, r0 - rad, r1 + rad, dev)[0]
-        g2 = exchange.rows(field, r0 - smax, r1 + smax, dev)[1]
-        g1p = F.pad(g1[None, None], (rad, rad, 0, 0), mode="replicate")[0, 0]
-        g2p = F.pad(g2[None, None], (smax, smax, 0, 0), mode="replicate")[0, 0]
-        outs.append((r0, torch.stack(_patch_match_local(g1p, g2p, rad, srad, h, w, r0))))
-    uv = exchange.rows(outs, 0, h, outs[0][1].device)
+    bands = mesh_bands(mesh, h)
+
+    def search(local):
+        outs = []
+        for dev, r0, r1 in bands:
+            g1 = exchange.rows(field, r0 - rad, r1 + rad, dev)[0]
+            g2 = exchange.rows(field, r0 - smax, r1 + smax, dev)[1]
+            g1p = F.pad(g1[None, None], (rad, rad, 0, 0), mode="replicate")[0, 0]
+            g2p = F.pad(g2[None, None], (smax, smax, 0, 0), mode="replicate")[0, 0]
+            outs.append((r0, torch.stack(local(g1p, g2p, rad, srad, h, w, r0))))
+        return exchange.rows(outs, 0, h, outs[0][1].device)
+
+    if all(dev.type == "cpu" for dev, _, _ in bands):
+        uv = counted_plain(patch_match_search, search)(_patch_match_local)
+    else:
+        uv = search(patch_match_search)
     return uv[0], uv[1]

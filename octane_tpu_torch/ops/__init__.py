@@ -1,17 +1,19 @@
 """Kernel wrappers: a level of the solver pyramid (``ops.pyramid``), the
 bilinear warp (``ops.warp``), the two Jacobi-PCG passes (``ops.pcg``), the
 fused assembly in the SOR and the PCG layouts (``ops.assemble``), the SOR
-pass (``ops.sor``) and the SRSAL bilateral smoother (``ops.bilateral``),
-built by ``ops.build``.
+pass (``ops.sor``), the SRSAL bilateral smoother (``ops.bilateral``) and
+patch-match's zero-guess search (``ops.patch_match``), built by
+``ops.build``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors, and counts both.  The solver's internal
 plain route (flow.variational, parallel.sharded) adds its direct calls of
 the plain versions to the same ``plain_calls`` counters.  ``PATHS`` names
-the wrappers each relaxer's solve goes through, and the one SRSAL
-smoothing goes through, on one device and (``mesh_*``) on the row bands of
-the mesh path, which run the band forms ``warp_band``, ``sor_pass_band``,
-``pcg_pass_a_band`` and ``bilateral_band`` (the assembly takes a band's
+the wrappers each relaxer's solve goes through, the one SRSAL smoothing
+and the one a zero-guess patch-match search go through, on one device and
+(``mesh_*``) on the row bands of the mesh path, which run the band forms
+``warp_band``, ``sor_pass_band``, ``pcg_pass_a_band`` and
+``bilateral_band`` (the assembly takes a band's
 rows itself; a band's pyramid levels are still the plain composition,
 ``core.zoom.pyramid_downsample_rows``, though ``pyramid_level`` takes a
 band's slab).  ``counted_plain`` makes such a counted direct call.
@@ -43,16 +45,16 @@ delivered into page-locked host memory; ``counters()`` gives their number
 and bytes since the last reset as ``host_planes`` / ``host_plane_bytes``
 (0 where every plane was made on the CPU).
 
-``record_patch_match`` notes one patch-match search
-(``flow.patch_match``, plain PyTorch: no kernel yet); ``counters()``
-gives the searches since the last reset as ``patch_match``, in the
-wrappers' (kernel launches, plain calls) form: (0, searches).
+``counters()["patch_match"]`` is (search kernel launches, plain searches);
+``flow.patch_match`` adds its first-guess searches and each search over
+CPU bands as one plain search through ``counted_plain``.
 """
 
 import torch
 
 from octane_tpu_torch.ops import assemble as _assemble
 from octane_tpu_torch.ops import bilateral as _bilateral
+from octane_tpu_torch.ops import patch_match as _patch_match
 from octane_tpu_torch.ops import pcg as _pcg
 from octane_tpu_torch.ops import pyramid as _pyramid
 from octane_tpu_torch.ops import sor as _sor
@@ -65,10 +67,11 @@ WRAPPERS = {"warp": _warp.warp, "pcg_pass_a": _pcg.pcg_pass_a,
             "sor_pass": _sor.sor_pass, "bilateral": _bilateral.bilateral,
             "warp_band": _warp.warp_band, "pcg_pass_a_band": _pcg.pcg_pass_a_band,
             "sor_pass_band": _sor.sor_pass_band, "bilateral_band": _bilateral.bilateral_band,
-            "pyramid_level": _pyramid.pyramid_level, "stamp": _stamp.stamp}
+            "pyramid_level": _pyramid.pyramid_level, "stamp": _stamp.stamp,
+            "patch_match": _patch_match.patch_match_search}
 PATHS = {"pcg": ("pyramid_level", "warp", "assemble_pcg", "pcg_pass_a", "pcg_pass_b"),
          "sor": ("pyramid_level", "warp", "assemble_cf", "sor_pass"),
-         "srsal": ("bilateral",),
+         "srsal": ("bilateral",), "patch_match": ("patch_match",),
          "mesh_pcg": ("warp_band", "assemble_pcg", "pcg_pass_a_band", "pcg_pass_b"),
          "mesh_sor": ("warp_band", "assemble_cf", "sor_pass_band"),
          "mesh_srsal": ("bilateral_band",)}
@@ -80,7 +83,6 @@ _graph_bodies: dict = {}    # (wrapper, device) -> device sum of guarded launche
 _by_round: dict = {}        # solver -> int64 device sums of the traced pairs' rounds
 _wide: dict = {}            # "rounds" -> the last banded pair's device tally of wide warps
 _host: dict = {}            # "planes", "bytes" -> product planes delivered to page-locked memory
-_searches: dict = {}        # "patch_match" -> patch-match searches
 
 
 def counted_plain(wrapper, plain_fn):
@@ -97,8 +99,7 @@ def reset_counters() -> None:
         fn.plain_calls = 0
     for driver in (_pcg.pcg_solve_fused, _sor.sor_solve_cf):
         driver.host_syncs = 0
-    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide, _host,
-                  _searches):
+    for tally in (_last_count, _graph_nodes, _graph_bodies, _by_round, _wide, _host):
         tally.clear()
 
 
@@ -134,18 +135,13 @@ def record_host_planes(planes) -> None:
     _host["bytes"] = _host.get("bytes", 0) + sum(p.numel() * p.element_size() for p in planes)
 
 
-def record_patch_match() -> None:
-    """Note one patch-match search (flow.patch_match)."""
-    _searches["patch_match"] = _searches.get("patch_match", 0) + 1
-
-
 def counters() -> dict:
     """{name: (kernel launches, plain calls)} plus the PCG and SOR drivers'
     host syncs, the last pair's iterations (PCG) and passes (SOR), the
     traced pairs' counts by round, the last banded pair's
-    ``wide_warp_rounds``, read from the device, ``host_planes`` /
-    ``host_plane_bytes`` and ``patch_match`` (0, searches).  A wrapper's
-    launches include those of replayed graphs (see the module docstring)."""
+    ``wide_warp_rounds``, read from the device, and ``host_planes`` /
+    ``host_plane_bytes``.  A wrapper's launches include those of replayed
+    graphs (see the module docstring)."""
     launches = {name: fn.launches + _graph_nodes.get(name, 0)
                 for name, fn in WRAPPERS.items()}
     for (name, _), total in _graph_bodies.items():
@@ -159,9 +155,8 @@ def counters() -> dict:
     out["wide_warp_rounds"] = int(_wide["rounds"]) if _wide else 0
     out["host_planes"] = _host.get("planes", 0)
     out["host_plane_bytes"] = _host.get("bytes", 0)
-    out["patch_match"] = (0, _searches.get("patch_match", 0))
     return out
 
 
 __all__ = ["WRAPPERS", "PATHS", "counted_plain", "reset_counters", "record_pair",
-           "record_wide_rounds", "record_host_planes", "record_patch_match", "counters"]
+           "record_wide_rounds", "record_host_planes", "counters"]

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "octane_bilateral": (I, [P] * 5 + [I] * 3 + [F, P]),
     "octane_bilateral_band": (I, [P] * 5 + [I] * 7 + [F, P]),
     "octane_pyramid_level": (I, [P] * 4 + [I] * 6 + [P] + [I] * 2 + [P]),
+    "octane_patch_match": (I, [P] * 4 + [I] * 4 + [P]),
     "octane_if_begin": (I, [P] * 3),
     "octane_if_end": (I, [P]),
     "octane_stamp": (I, [P, I, P]),

@@ -11,9 +11,12 @@ PCG and SOR solves; a 30-iteration PCG solve agrees to rel 5e-4 with the
 reference loop flow.cg.pcg_solve, a 30-sweep SOR solve to rel 2e-5 with
 flow.cg.sor_solve, and the SRSAL bilateral smoother, whose weights are one
 base-2 exponent on the card's approximate ex2, to rel 1e-5 with its plain
-version (docs/PARITY.md).  Patch-match and the interpolated frame, plain
-PyTorch without a kernel, equal the CPU's results on the card (the image
-within 1e-4).  The band forms of the mesh path (warp, SOR pass, PCG pass A,
+version (docs/PARITY.md).  Patch-match's zero-guess search kernel
+(ops.patch_match) equals its plain version on the card bit for bit, at
+its instances' radii and beyond them, on whole images and bands; patch-match (the search
+kernel, and the first-guess path in plain PyTorch) and the interpolated
+frame, plain PyTorch without a kernel, equal the CPU's results on the card
+(the image within 1e-4).  The band forms of the mesh path (warp, SOR pass, PCG pass A,
 bilateral) equal their plain versions and the whole-image kernels' rows bit
 for bit (the bilateral: rel 1e-5 to its plain version), and the banded
 pair on a mesh of cuda:0 bands agrees with the single-device pair within
@@ -312,8 +315,9 @@ def test_bilateral_kernel_within_budget(dev, hw, cth, p):
 
 @pytest.mark.parametrize("form", ["sector", "factored", "first_guess"])
 def test_patch_match_card_equals_cpu(dev, monkeypatch, form):
-    """patch_match_flow has no kernel of its own: plain PyTorch on the card
-    gives the CPU's flow (no FMA contraction in eager ops)."""
+    """patch_match_flow on the card (the search kernel from a zero guess,
+    plain PyTorch from a first guess) gives the CPU's flow (no FMA
+    contraction in the kernel or in eager ops)."""
     from octane_tpu_torch.flow import patch_match as pm
 
     if form == "factored":
@@ -329,6 +333,34 @@ def test_patch_match_card_equals_cpu(dev, monkeypatch, form):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("radii", [(2, 2), (1, 1), (2, 3), (2, 1), (1, 3), (3, 4), (1, 5)])
+@pytest.mark.parametrize("hw,rows", [((96, 120), None), ((97, 131), None), ((3, 131), None),
+                                     ((300, 211), (71, 190)), ((300, 211), (250, 300))])
+def test_patch_match_search_kernel_bit_exact(dev, hw, rows, radii):
+    """One launch a block, its u and v equal to the plain version's bits, on
+    a whole image or a band of its rows (edge rows beyond the image)."""
+    import torch.nn.functional as F
+
+    from octane_tpu_torch.ops import patch_match as kpm
+
+    (h, w), (rad, srad) = hw, radii
+    r0, r1 = rows or (0, h)
+    rng = np.random.default_rng(h + rad)
+    im1 = rng.normal(100, 25, hw).astype(np.float32)
+    im2 = (np.roll(im1, (2, -3), axis=(0, 1)) + rng.normal(0, 0.5, hw)).astype(np.float32)
+    blocks = []
+    for im, p in ((im1, rad), (im2, rad + srad + 1)):
+        g = torch.from_numpy(im).to(dev)[torch.arange(r0 - p, r1 + p).clamp(0, h - 1)]
+        blocks.append(F.pad(g[None, None], (p, p, 0, 0), mode="replicate")[0, 0])
+    before = kpm.patch_match_search.launches
+    got = kpm.patch_match_search(*blocks, rad, srad, h, w, r0)
+    assert kpm.patch_match_search.launches == before + 1
+    want = kpm.patch_match_search_plain(*blocks, rad, srad, h, w, r0)
+    for g, p in zip(got, want):
+        assert g.shape == (r1 - r0, w) and g.device.type == "cuda"
+        assert _same_bits(g, p)
 
 
 def test_interpolate_frame_card_equals_cpu(dev):

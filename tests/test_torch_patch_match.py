@@ -10,7 +10,11 @@ the serial oracle ``reference_impl.patch_match`` on the CPU.
   within 2e-3 px of the oracle (tests/test_patch_match.py's tolerance);
 * the zero-guess fast path equal to the zero-first-guess gather path bit
   for bit; an integer translation recovered; the first-guess guard's
-  ValueError.
+  ValueError;
+* the search's wrapper (ops.patch_match): what it refuses, its count on
+  the CPU route, and the two cost forms that the kernel repeats equal at
+  the radii of its instances and beyond them; the zero-guess search at
+  radii beyond the instances' against octane_tpu, whole and on bands.
 Inputs are noisy images made with numpy from a seed, so no two offsets tie.
 """
 
@@ -20,7 +24,9 @@ import torch
 
 import reference_impl as ref
 from octane_tpu.flow import patch_match as jpm
+from octane_tpu_torch import ops
 from octane_tpu_torch.flow import patch_match as tpm
+from octane_tpu_torch.ops import patch_match as kpm
 
 torch.set_num_threads(2)
 
@@ -119,3 +125,95 @@ def test_first_guess_scale_guard():
     g = torch.zeros((h, w))
     with pytest.raises(ValueError, match="sector-scale only"):
         tpm.patch_match_flow(g, g, g, g)
+
+
+# ---------------------------------------------------------------------------
+# ops.patch_match: the zero-guess search's wrapper (csrc/patch_match.cu on the
+# card, _patch_match_local here)
+# ---------------------------------------------------------------------------
+
+def _padded(im1, im2, rad, srad):
+    g1, g2 = torch.from_numpy(im1), torch.from_numpy(im2)
+    return tpm._edge_pad(g1, rad), tpm._edge_pad(g2, rad + srad + 1)
+
+
+def test_search_refuses_what_the_kernel_does_not_take():
+    im1, im2 = _pair(13, 12, 14, (0, 1))
+    h, w = im1.shape
+    g1p, g2p = _padded(im1, im2, 2, 2)
+    bad = [((g1p.double(), g2p, 2, 2, h, w), "float64"),
+           ((g1p, g2p.t().contiguous().t(), 2, 2, h, w), "not contiguous"),
+           ((g1p[0], g2p, 2, 2, h, w), "2-D"),
+           ((g1p, g2p.to("meta"), 2, 2, h, w), "g2p on meta"),
+           ((g1p.to("meta"), g2p.to("meta"), 2, 2, h, w), "unsupported device"),
+           ((g1p, _padded(im1, im2, 2, 1)[1], 2, 2, h, w), "padded by 2 and 5"),
+           ((g1p, g2p, 2, 2, h, w + 1), "are not rows"),
+           ((g1p, g2p, 2, 2, h, w, 1), "are not rows"),        # rows past the image
+           ((g1p[:4], g2p, 2, 2, h, w), "are not rows"),       # no row of its own
+           ((g1p, g2p, -1, 2, h, w), "negative"),
+           ((g1p, g2p, 2, -1, h, w), "negative")]
+    ops.reset_counters()
+    for args, what in bad:
+        with pytest.raises(ValueError, match=what):
+            kpm.patch_match_search(*args)
+    assert ops.counters()["patch_match"] == (0, 0)
+
+
+def test_cpu_route_counts_a_plain_search_and_no_launch():
+    """The wrapper runs the plain version here and counts it, once a call."""
+    im1, im2 = _pair(17, 20, 18, (1, 0))
+    g1p, g2p = _padded(im1, im2, 1, 2)
+    ops.reset_counters()
+    got = kpm.patch_match_search(g1p, g2p, 1, 2, *im1.shape)
+    want = tpm._patch_match_local(g1p, g2p, 1, 2, *im1.shape)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.counters()["patch_match"] == (0, 1)
+    flow = tpm.patch_match_flow(im1, im2, rad=1, srad=2, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(flow, want))
+    assert ops.counters()["patch_match"] == (0, 2)
+
+
+# the kernel's instances (csrc/patch_match.cu), then radii that its any-radius
+# kernel takes
+RADII = [(1, 1), (1, 2), (1, 3), (2, 1), (2, 2), (2, 3), (3, 4), (1, 5), (4, 1)]
+
+
+@pytest.mark.parametrize("rad,srad", RADII)
+def test_both_cost_forms_agree_at_every_radius(monkeypatch, rad, srad):
+    """The kernel repeats one arithmetic at every size: the sector form
+    (per-tap sums, gather probes) and the full-disk form (windows of e^2,
+    selected probes) give the same bits at each radius."""
+    im1, im2 = _pair(19, 23, 29, (2, -3))
+    g1p, g2p = _padded(im1, im2, rad, srad)
+    sector = tpm._patch_match_local(g1p, g2p, rad, srad, *im1.shape)
+    monkeypatch.setattr(tpm, "FIRST_GUESS_MAX_PIXELS", 10)
+    full = tpm._patch_match_local(g1p, g2p, rad, srad, *im1.shape)
+    assert all(torch.equal(a, b) for a, b in zip(sector, full))
+
+
+@pytest.mark.parametrize("form", ["sector", "factored"])
+@pytest.mark.parametrize("rad,srad", [(3, 4), (1, 5), (4, 1)])
+def test_zero_guess_beyond_the_instances_matches_jax(monkeypatch, form, rad, srad):
+    """Radii that OFConfig takes and no instance is built for search as the
+    JAX package does, in both cost forms."""
+    if form == "factored":
+        monkeypatch.setattr(jpm, "FIRST_GUESS_MAX_PIXELS", 100)
+        monkeypatch.setattr(tpm, "FIRST_GUESS_MAX_PIXELS", 100)
+    im1, im2 = _pair(23, 26, 31, (3, -4))
+    got = _port(im1, im2, None, None, rad=rad, srad=srad)
+    _check_against_jax(got, jpm.patch_match_flow(im1, im2, None, None, rad=rad, srad=srad))
+
+
+def test_banded_search_beyond_the_instances():
+    """At rad 3, srad 4 on four CPU bands: the whole image's flow, bit for
+    bit, counted as one plain search."""
+    from octane_tpu_torch.parallel.mesh import make_mesh
+
+    im1, im2 = _pair(29, 37, 22, (-2, 3))
+    want = _port(im1, im2, None, None, rad=3, srad=4)
+    ops.reset_counters()
+    got = tpm.patch_match_flow_sharded(im1, im2, make_mesh((4, 1), [torch.device("cpu")] * 4),
+                                       rad=3, srad=4)
+    assert ops.counters()["patch_match"] == (0, 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
